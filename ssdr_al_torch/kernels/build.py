@@ -1,0 +1,123 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every `ssdr_al_torch/csrc/*.cu` file is compiled by `nvcc` for Hopper
+(`sm_90a`) into ONE shared library with a plain C interface, loaded with
+ctypes. No PyTorch header is included, so a build takes seconds. The library
+lands in `<repo>/build/kernels/` (listed in .gitignore) under a name keyed on
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the cached file. The first call to `library()` builds;
+importing this module builds nothing.
+
+Each wrapper (ops/knn.window_topk, ops/gather.gather_window,
+ops/chamfer.chamfer_sums) passes tensor pointers and the current CUDA stream
+as ctypes.c_void_p and raises if the launcher's returned cudaError_t is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every launcher (all return cudaError_t as int)
+SIGNATURES = {
+    # support, queries, starts, out, B, ns, nq, window, k, tq, stream
+    "window_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # values, idx, starts, out, B, N, nq, k, C, window, tq, stream
+    "gather_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # points, mask, out, C, S, P, stream
+    "chamfer_sums_launch": [_P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found (needs the CUDA toolkit)")
+    return cand
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(list(srcs) + list(CSRC.glob("*.cuh"))):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernel library if the cached build is missing; return it."""
+    srcs = _sources()
+    out = BUILD_DIR / f"libssdr_kernels_{_digest(srcs)}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, srcs)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "ptxas.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(err: int, name: str):
+    """Raise on a non-zero cudaError_t returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor):
+    """Checks shared by the wrappers before a launch."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all operands must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")

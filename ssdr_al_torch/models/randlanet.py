@@ -1,0 +1,444 @@
+"""RandLA-Net as torch.nn modules, eval mode (counterpart of
+ssdr_al_tpu/models/randlanet.py).
+
+Architecture, parameter shapes and names follow the flax model, so
+`params_from_flax` converts a JAX checkpoint into a `state_dict`:
+  fc0 (6→8, BN, leaky ReLU 0.2)
+  L × [DilatedResBlock → random_sample]   (mlp1 → LFA → mlp2 + shortcut)
+  decoder_0 bottleneck, L × [nearest_interpolation → concat skip → SharedMLP]
+  fc1 (64) → fc2 (32) = penultimate → fc (classes)
+Every tensor is channels-last ([B, N, C] / [B, N, k, C]) as in JAX.
+
+`build_pyramid` makes the per-layer neighbourhoods on the device:
+engine "window" builds the morton-sorted pyramid (K1 window search, gathers
+through K2), batched over B; engine "xla" builds the exact original-order
+pyramid with `knn_xla`. This slice is inference only: BatchNorm uses its
+running statistics and dropout is the identity.
+
+TF32 is switched off below for matmuls and cuDNN: the JAX reference runs
+in full f32 on the CPU, and a TF32 product keeps only ~3 decimal digits,
+which the parity tolerances (rtol 1e-4 on logits) would not survive.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ssdr_al_torch.config import Config
+from ssdr_al_torch.ops.gather import gather_window, gather_window_auto
+from ssdr_al_torch.ops.knn import (
+    QUERY_TILE,
+    invert_permutation,
+    knn_window_sorted_raw,
+    knn_xla,
+    morton_codes,
+    sort_by_codes,
+    window_topk,
+)
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# queries per gather tile on the sorted path (models/randlanet.py:_GATHER_TQ)
+GATHER_TQ = 512
+BN_EPS = 1e-6   # flax BatchNorm(epsilon=1e-6); flax momentum 0.99 = torch 0.01
+
+
+def leaky_relu(x):
+    return F.leaky_relu(x, 0.2)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the last axis, in flax's arithmetic:
+    (x − mean) · (scale · rsqrt(var + eps)) + bias."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        mul = self.weight * torch.rsqrt(self.running_var + BN_EPS)
+        return (x - self.running_mean) * mul + self.bias
+
+
+class SharedMLP(nn.Module):
+    """1×1 conv (+BN, +leaky ReLU) over the channel axis."""
+
+    def __init__(self, d_in: int, features: int, bn: bool = True,
+                 act: bool = True):
+        super().__init__()
+        self.dense = nn.Linear(d_in, features)
+        self.bn = BatchNorm(features) if bn else None
+        self.act = act
+
+    def forward(self, x):
+        x = self.dense(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return leaky_relu(x) if self.act else x
+
+
+def gather_neighbour(pc, neighbor_idx):
+    """pc [B, N, C], neighbor_idx [B, M, k] → [B, M, k, C] (row gather)."""
+    b, m, k = neighbor_idx.shape
+    flat = neighbor_idx.reshape(b, m * k, 1).long().expand(b, m * k,
+                                                           pc.shape[-1])
+    return torch.gather(pc, 1, flat).reshape(b, m, k, pc.shape[-1])
+
+
+def relative_pos_encoding(xyz, neigh_idx, neighbor_xyz=None):
+    """10-d edge geometry [dist, rel_xyz, xyz, neigh_xyz]."""
+    if neighbor_xyz is None:
+        neighbor_xyz = gather_neighbour(xyz, neigh_idx)
+    xyz_tile = xyz[:, :, None, :].expand_as(neighbor_xyz)
+    relative_xyz = xyz_tile - neighbor_xyz
+    relative_dis = torch.sqrt(torch.clamp(
+        (relative_xyz ** 2).sum(-1, keepdim=True), min=1e-20))
+    return torch.cat([relative_dis, relative_xyz, xyz_tile, neighbor_xyz], -1)
+
+
+def random_sample(feature, pool_idx, window: int = 0):
+    """Max-pool the k neighbours of each kept point. feature [B, N, C];
+    pool_idx [B, N', k] → [B, N', C]. On the sorted path (window > 0) the
+    gather goes through K2 with starts derived from the indices."""
+    n, n_sub = feature.shape[1], pool_idx.shape[1]
+    if window and n % 128 == 0 and n_sub % 128 == 0:
+        pooled = gather_window_auto(feature.contiguous(), pool_idx,
+                                    min(window + 2048, n))
+    else:
+        pooled = gather_neighbour(feature, pool_idx)
+    return pooled.amax(2)
+
+
+def nearest_interpolation(feature, interp_idx):
+    """feature [B, N', C]; interp_idx [B, N, 1] → [B, N, C] (row gather)."""
+    idx = interp_idx[..., 0].long()[..., None].expand(-1, -1,
+                                                      feature.shape[-1])
+    return torch.gather(feature, 1, idx)
+
+
+class AttPooling(nn.Module):
+    """Attentive pooling over the k neighbours."""
+
+    def __init__(self, d: int, d_out: int):
+        super().__init__()
+        self.dense = nn.Linear(d, d, bias=False)
+        self.mlp = SharedMLP(d, d_out)
+
+    def forward(self, feature_set):
+        scores = torch.softmax(self.dense(feature_set), dim=2)
+        return self.mlp((feature_set * scores).sum(2))
+
+
+class BuildingBlock(nn.Module):
+    """Local feature aggregation. On the sorted path (starts given) xyz and
+    features are gathered together in one K2 call."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.mlp1 = SharedMLP(10, d_in)
+        self.att_pooling_1 = AttPooling(2 * d_in, d_out // 2)
+        self.mlp2 = SharedMLP(d_in, d_out // 2)
+        self.att_pooling_2 = AttPooling(d_out, d_out)
+
+    def forward(self, xyz, feature, neigh_idx, starts=None, window=0):
+        if starts is not None:
+            both = gather_window(torch.cat([xyz, feature], -1), neigh_idx,
+                                 starts, window, GATHER_TQ)
+            neighbor_xyz, f_neighbours = both[..., :3], both[..., 3:]
+        else:
+            neighbor_xyz = None
+            f_neighbours = gather_neighbour(feature, neigh_idx)
+        f_xyz = self.mlp1(relative_pos_encoding(xyz, neigh_idx, neighbor_xyz))
+        f_pc_agg = self.att_pooling_1(torch.cat([f_neighbours, f_xyz], -1))
+        f_xyz = self.mlp2(f_xyz)
+        if starts is not None:
+            f_neighbours = gather_window(f_pc_agg, neigh_idx, starts, window,
+                                         GATHER_TQ)
+        else:
+            f_neighbours = gather_neighbour(f_pc_agg, neigh_idx)
+        return self.att_pooling_2(torch.cat([f_neighbours, f_xyz], -1))
+
+
+class DilatedResBlock(nn.Module):
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.mlp1 = SharedMLP(d_in, d_out // 2)
+        self.lfa = BuildingBlock(d_out // 2, d_out)
+        self.mlp2 = SharedMLP(d_out, 2 * d_out, act=False)
+        self.shortcut = SharedMLP(d_in, 2 * d_out, act=False)
+
+    def forward(self, feature, xyz, neigh_idx, starts=None, window=0):
+        f_pc = self.mlp1(feature)
+        f_pc = self.lfa(xyz, f_pc, neigh_idx, starts, window)
+        return leaky_relu(self.mlp2(f_pc) + self.shortcut(feature))
+
+
+@dataclasses.dataclass
+class Pyramid:
+    """Per-layer neighbourhoods in original point order."""
+
+    xyz: List[torch.Tensor]          # [B, N_i, 3]
+    neigh_idx: List[torch.Tensor]    # [B, N_i, k]
+    sub_idx: List[torch.Tensor]      # [B, N_{i+1}, k]
+    interp_idx: List[torch.Tensor]   # [B, N_i, 1]
+
+
+@dataclasses.dataclass
+class SortedPyramid:
+    """Per-layer neighbourhoods in morton-sorted order. neigh_idx of gather
+    tile t lies in [starts[t], starts[t] + windows[i]) where starts is not
+    None. order: x_sorted = x[order]; inv: x = x_sorted[inv]."""
+
+    xyz: List[torch.Tensor]
+    neigh_idx: List[torch.Tensor]
+    starts: List[Optional[torch.Tensor]]   # [B, N_i / GATHER_TQ] or None
+    sub_idx: List[torch.Tensor]
+    interp_idx: List[torch.Tensor]
+    order: torch.Tensor                     # [B, N] int32
+    inv: torch.Tensor                       # [B, N] int32
+    windows: tuple = ()
+
+
+def _rows(x, idx):
+    """x [B, N, ...] rows at idx [B, M] → [B, M, ...]."""
+    shape = idx.shape + x.shape[2:]
+    flat = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, flat.expand(shape))
+
+
+def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
+    """Batched sorted pyramid (randlanet.py:350-460): one morton sort at full
+    resolution; each layer's order is its restriction to the kept subset."""
+    b = xyz.shape[0]
+    dev = xyz.device
+    lo = xyz.amin(1, keepdim=True)
+    hi = xyz.amax(1, keepdim=True)
+    _, order, cur_x = sort_by_codes(morton_codes(xyz, lo, hi), xyz)
+    inv = invert_permutation(order)
+    cur_r = order                   # original-layer rank of each sorted row
+    xyzs, neighs, starts_l, subs, interps, windows = [], [], [], [], [], []
+    for i in range(cfg.num_layers):
+        n = cur_x.shape[1]
+        n_sub = n // cfg.sub_sampling_ratio[i]
+        if n > 4096 and n % 256 == 0:
+            if n % GATHER_TQ:
+                raise ValueError(f"sorted pyramid: layer of {n} points is "
+                                 f"not a multiple of {GATHER_TQ}")
+            sw = cfg.search_window
+            w = (sw if n > 16384 else sw // 2) - (GATHER_TQ - QUERY_TILE)
+            neigh, sts = knn_window_sorted_raw(cur_x, n, cfg.k_n, window=w)
+            # a gather tile merges GATHER_TQ/256 search tiles, so its window
+            # widens by their start spread (self-query starts step ≤ 256)
+            w_g = w + (GATHER_TQ - QUERY_TILE)
+            sts = torch.clamp(sts[:, :: GATHER_TQ // QUERY_TILE],
+                              max=n - w_g).contiguous()
+            w = w_g
+        elif 2048 <= n <= 4096 and n % GATHER_TQ == 0:
+            # the window covers the whole sorted layer
+            neigh, _ = knn_window_sorted_raw(cur_x, n, cfg.k_n, window=n)
+            sts = torch.zeros((b, n // GATHER_TQ), dtype=torch.int32,
+                              device=dev)
+            w = n
+        else:
+            neigh = knn_xla(cur_x, cur_x, cfg.k_n)
+            sts, w = None, 0
+        # kept subset = first n_sub points of the ORIGINAL order, in sorted
+        # position order
+        kept = cur_r < n_sub
+        ar = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
+        kept_pos = torch.sort(torch.where(kept, ar, n), dim=1).values[:, :n_sub]
+        nxt_x = _rows(cur_x, kept_pos).contiguous()
+        nxt_r = _rows(cur_r, kept_pos)
+        pool_i = _rows(neigh, kept_pos).contiguous()
+        if n_sub > 2048 and n % 256 == 0 and n_sub % 128 == 0:
+            # 1-NN upsample: each query's rank in the kept subset is an
+            # exact cumsum, so tile starts need no search
+            up_w = 1024
+            ranks = torch.cumsum(kept.to(torch.int32), 1) - 1
+            centers = torch.arange(n // QUERY_TILE, device=dev) * QUERY_TILE \
+                + QUERY_TILE // 2
+            starts_up = torch.clamp(ranks[:, centers] - up_w // 2, 0,
+                                    n_sub - up_w)
+            starts_up = ((starts_up // 128) * 128).to(torch.int32).contiguous()
+            rel = window_topk(nxt_x, cur_x.contiguous(), starts_up, 1, up_w)
+            up = torch.clamp(torch.repeat_interleave(starts_up, QUERY_TILE, 1)
+                             [..., None] + rel, max=n_sub - 1)
+        else:
+            up = knn_xla(nxt_x, cur_x, 1)
+        xyzs.append(cur_x)
+        neighs.append(neigh.contiguous())
+        starts_l.append(sts)
+        subs.append(pool_i)
+        interps.append(up)
+        windows.append(w)
+        cur_x, cur_r = nxt_x, nxt_r
+    return SortedPyramid(xyzs, neighs, starts_l, subs, interps, order, inv,
+                         windows=tuple(windows))
+
+
+def _pyramid_exact(xyz, cfg: Config) -> Pyramid:
+    xyzs, neighs, subs, interps = [], [], [], []
+    cur = xyz
+    for i in range(cfg.num_layers):
+        n_sub = cur.shape[1] // cfg.sub_sampling_ratio[i]
+        neigh = knn_xla(cur, cur, cfg.k_n)
+        sub_points = cur[:, :n_sub]
+        xyzs.append(cur)
+        neighs.append(neigh)
+        subs.append(neigh[:, :n_sub])
+        interps.append(knn_xla(sub_points, cur, 1))
+        cur = sub_points
+    return Pyramid(xyzs, neighs, subs, interps)
+
+
+def build_pyramid(xyz: torch.Tensor, cfg: Config, *, engine: str = "window"):
+    """Per-layer neighbourhoods of xyz [B, N, 3] (already shuffled, so the
+    prefix of each layer is RandLA-Net's random subsample).
+
+    engine "window": SortedPyramid through the window search (K1 on CUDA,
+    its plain version on CPU). engine "xla": exact Pyramid, original order."""
+    xyz = xyz.float().contiguous()
+    if engine == "window":
+        return _pyramid_sorted(xyz, cfg)
+    if engine == "xla":
+        return _pyramid_exact(xyz, cfg)
+    raise ValueError(f"unknown knn engine {engine!r}")
+
+
+class RandLANet(nn.Module):
+    """forward(features, pyramid) → (logits [B, N, C], penultimate [B, N, 32])."""
+
+    def __init__(self, cfg: Config, d_feature: int = 6):
+        super().__init__()
+        self.cfg = cfg
+        self.fc0 = nn.Linear(d_feature, 8)
+        self.fc0_bn = BatchNorm(8)
+        enc, d = [], 8
+        widths = []
+        for i in range(cfg.num_layers):
+            enc.append(DilatedResBlock(d, cfg.d_out[i]))
+            d = 2 * cfg.d_out[i]
+            widths.append(d)
+        self.encoder = nn.ModuleList(enc)
+        skips = [widths[0]] + widths          # f_encoder_list channel widths
+        dec = [SharedMLP(skips[-1], skips[-1])]
+        cur = skips[-1]
+        for j in range(cfg.num_layers):
+            skip = skips[-j - 2]
+            dec.append(SharedMLP(skip + cur, skip))
+            cur = skip
+        self.decoder = nn.ModuleList(dec)
+        self.fc1 = SharedMLP(cur, 64)
+        self.fc2 = SharedMLP(64, 32)
+        self.fc = nn.Linear(32, cfg.num_classes)
+
+    def forward(self, features, pyramid, unsort: bool = True):
+        sorted_mode = isinstance(pyramid, SortedPyramid)
+        if sorted_mode:
+            features = _rows(features, pyramid.order)
+        f = leaky_relu(self.fc0_bn(self.fc0(features.float())))
+        f_encoder_list = []
+        for i, enc in enumerate(self.encoder):
+            starts = pyramid.starts[i] if sorted_mode else None
+            window = pyramid.windows[i] if sorted_mode else 0
+            f_enc = enc(f, pyramid.xyz[i], pyramid.neigh_idx[i], starts,
+                        window)
+            f = random_sample(f_enc, pyramid.sub_idx[i], window)
+            if i == 0:
+                f_encoder_list.append(f_enc)
+            f_encoder_list.append(f)
+        f = self.decoder[0](f)
+        for j in range(self.cfg.num_layers):
+            f_interp = nearest_interpolation(f, pyramid.interp_idx[-j - 1])
+            f = self.decoder[j + 1](
+                torch.cat([f_encoder_list[-j - 2], f_interp], -1))
+        penultimate = self.fc2(self.fc1(f))
+        logits = self.fc(penultimate)
+        if sorted_mode and unsort:
+            logits = _rows(logits, pyramid.inv)
+            penultimate = _rows(penultimate, pyramid.inv)
+        return logits, penultimate
+
+
+def init_params(cfg: Config, generator: torch.Generator,
+                d_feature: int = 6) -> dict:
+    """Fresh weights as a CPU state_dict, drawn from `generator` with the
+    flax initializers: 1×1 convs (SharedMLP, fc) truncated normal σ=1e-3
+    cut at ±2σ, the dense layers (fc0, attention) glorot uniform, biases 0,
+    BatchNorm scale 1 / bias 0 / mean 0 / var 1."""
+    model = RandLANet(cfg, d_feature)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SharedMLP):
+                nn.init.trunc_normal_(m.dense.weight, std=1e-3, a=-2e-3,
+                                      b=2e-3, generator=generator)
+                nn.init.zeros_(m.dense.bias)
+            elif isinstance(m, AttPooling):
+                nn.init.xavier_uniform_(m.dense.weight, generator=generator)
+        nn.init.xavier_uniform_(model.fc0.weight, generator=generator)
+        nn.init.zeros_(model.fc0.bias)
+        nn.init.trunc_normal_(model.fc.weight, std=1e-3, a=-2e-3, b=2e-3,
+                              generator=generator)
+        nn.init.zeros_(model.fc.bias)
+    return model.state_dict()
+
+
+def _flax_shared(p, bs, prefix, out):
+    out[prefix + "dense.weight"] = np.asarray(p["Dense_0"]["kernel"]).T
+    out[prefix + "dense.bias"] = np.asarray(p["Dense_0"]["bias"])
+    if "BatchNorm_0" in p:
+        _flax_bn(p["BatchNorm_0"], bs["BatchNorm_0"], prefix + "bn.", out)
+
+
+def _flax_bn(p, bs, prefix, out):
+    out[prefix + "weight"] = np.asarray(p["scale"])
+    out[prefix + "bias"] = np.asarray(p["bias"])
+    out[prefix + "running_mean"] = np.asarray(bs["mean"])
+    out[prefix + "running_var"] = np.asarray(bs["var"])
+
+
+def _flax_att(p, bs, prefix, out):
+    out[prefix + "dense.weight"] = np.asarray(p["Dense_0"]["kernel"]).T
+    _flax_shared(p["mlp"], bs["mlp"], prefix + "mlp.", out)
+
+
+def params_from_flax(params: dict, batch_stats: dict) -> dict:
+    """Flax RandLANet variables (nested dicts of arrays) → state_dict.
+    Dense kernels [in, out] become Linear weights [out, in]."""
+    out = {}
+    out["fc0.weight"] = np.asarray(params["fc0"]["kernel"]).T
+    out["fc0.bias"] = np.asarray(params["fc0"]["bias"])
+    _flax_bn(params["fc0_bn"], batch_stats["fc0_bn"], "fc0_bn.", out)
+    i = 0
+    while f"encoder_{i}" in params:
+        p, bs, pre = params[f"encoder_{i}"], batch_stats[f"encoder_{i}"], \
+            f"encoder.{i}."
+        for name in ("mlp1", "mlp2", "shortcut"):
+            _flax_shared(p[name], bs[name], pre + name + ".", out)
+        lp, lbs = p["lfa"], bs["lfa"]
+        for name in ("mlp1", "mlp2"):
+            _flax_shared(lp[name], lbs[name], pre + f"lfa.{name}.", out)
+        for name in ("att_pooling_1", "att_pooling_2"):
+            _flax_att(lp[name], lbs[name], pre + f"lfa.{name}.", out)
+        i += 1
+    j = 0
+    while f"decoder_{j}" in params:
+        _flax_shared(params[f"decoder_{j}"], batch_stats[f"decoder_{j}"],
+                     f"decoder.{j}.", out)
+        j += 1
+    for name in ("fc1", "fc2"):
+        _flax_shared(params[name], batch_stats[name], name + ".", out)
+    out["fc.weight"] = np.asarray(params["fc"]["kernel"]).T
+    out["fc.bias"] = np.asarray(params["fc"]["bias"])
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}
