@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ssdr_al_torch.active.region_graph import RegionGraph, flat_to_blocks
+from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
 from ssdr_al_torch.ops.fps import farthest_feature_sample
 
 
@@ -57,17 +58,17 @@ def gcn_fps_sampling(
     gcn_number: int = 1,
     gcn_top: int = 0,
     rng: np.random.RandomState | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT_DEVICE,
 ) -> Dict[str, List[int]]:
     """GCN_FPS_sampling (fps_gcn_cpu.py:150-178).
 
     features [N, D] flat region features (penultimate means); unlabeled
     flags [N] mark the selectable candidates; the first pick is drawn from
     the caller's numpy RandomState. Returns {cloud_name: [sp_idx]}."""
+    device = resolve_device(device)
     rng = rng or np.random.RandomState()
     if not np.any(unlabeled_flags) or sampling_batch <= 0:
         return {}      # exhausted pool: nothing to select
-    device = torch.device(device)
     blocks = flat_to_blocks(graph, np.asarray(features, np.float32))
     unl_idx = np.where(unlabeled_flags)[0]
     sampling_batch = min(sampling_batch, len(unl_idx))

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
 from ssdr_al_torch.ops.chamfer import chamfer_pairwise_blocks
 
 
@@ -128,9 +129,9 @@ class SuperpointBlockCache:
     only uploads slab row indices."""
 
     def __init__(self, max_points_per_sp: Optional[int] = 512, *,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         self.cap = max_points_per_sp
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._host: List[tuple] = []            # (pts, msk) per staged cloud
         self._info: Dict[str, tuple] = {}       # name -> (base row, S)
         self._centroids: Dict[str, np.ndarray] = {}
@@ -205,7 +206,7 @@ def build_region_graph(
     *,
     max_points_per_sp: Optional[int] = 512,
     cache: Optional[SuperpointBlockCache] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT_DEVICE,
 ) -> RegionGraph:
     """regions_by_cloud: {cloud: [(sp_idx, is_labeled, dominant_point_ids)]}.
 
@@ -214,6 +215,7 @@ def build_region_graph(
     max_points_per_sp by linspace subsampling. With a cache, points come
     from its device slab; without one, the regions are padded here from
     cloud_xyz and components and uploaded to `device`."""
+    device = cache.device if cache is not None else resolve_device(device)
     timings: Dict[str, float] = {}
     t0 = time.perf_counter()
     cloud_names = sorted(regions_by_cloud)

@@ -39,7 +39,9 @@ from ssdr_al_torch.active.uncertainty import (
     region_uncertainty,
 )
 from ssdr_al_torch.config import Config
-from ssdr_al_torch.data import Cloud, SamplingPipeline
+from ssdr_al_torch.data.cloud import Cloud
+from ssdr_al_torch.data.dataset import SamplingPipeline
+from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
 from ssdr_al_torch.ops.segment import segment_majority
 
 F16_MAX = 6.5e4   # penult is clipped to ±F16_MAX before its f16 cast
@@ -87,12 +89,12 @@ class InferenceRunner:
     def __init__(self, cfg: Config, clouds: List[Cloud], eval_step, state,
                  point_unc_mode: str, seed: int = 0, chunk_batch: int = 0,
                  keep_penult_on_device: bool = False, *,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         self.cfg = cfg
         self.eval_step = eval_step
         self.state = state
         self.mode = point_unc_mode
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.keep_penult = keep_penult_on_device
         self._penult_groups: List[torch.Tensor] = []
         self._row_map: Dict[str, np.ndarray] = {}
@@ -262,7 +264,7 @@ class TSampler:
 
     def __init__(self, state: ALState, clouds: List[Cloud], cfg: Config,
                  args: TSamplerArgs, total_num: int, seed: int = 0, *,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         if args.diversity not in ("", "gcn_fps"):
             raise ValueError(f"diversity {args.diversity!r} is not ported "
                              "yet (ROADMAP.md)")
@@ -272,7 +274,7 @@ class TSampler:
         self.cfg = cfg
         self.args = args
         self.total_num = total_num
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.rng = np.random.RandomState(seed)
         self._gt_dom_cache: Dict[str, tuple] = {}
         self._runner = None        # round-lifetime InferenceRunner

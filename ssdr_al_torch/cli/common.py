@@ -1,0 +1,241 @@
+"""Shared CLI plumbing (counterpart of ssdr_al_tpu/cli/common.py): the same
+flags and the same on-disk layout, keyed by the sampler-args string under
+data/<ds>/<reg_strength>/, plus `--device`, the port's counterpart of
+JAX_PLATFORMS (default: the card).
+
+Flag values whose path is not ported yet raise NotImplementedError naming
+ROADMAP.md: --dataset other than S3DIS, --knn_engine other than window /
+xla, --compute_dtype bfloat16 and --num_devices > 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import List
+
+import numpy as np
+
+from ssdr_al_torch.active.state import ALState, sampler_args_str
+from ssdr_al_torch.config import Config, class_weights, get_config
+from ssdr_al_torch.data.cloud import Cloud, load_clouds
+from ssdr_al_torch.data.dataset import TrainingPipeline
+from ssdr_al_torch.data.ply import write_ply
+from ssdr_al_torch.data.synthetic import (
+    NUM_SYNTH_CLASSES,
+    NUM_SYNTH_CLASSES_HARD,
+    grid_superpoints,
+    make_dataset,
+)
+from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
+from ssdr_al_torch.train.evaluator import Evaluator
+from ssdr_al_torch.train.trainer import Trainer
+
+NOT_PORTED = "is not ported yet (ROADMAP.md)"
+
+
+def log_out(msg: str, f=None):
+    """Append, flush and print (RandLANet.py:13-16)."""
+    if f is not None:
+        f.write(msg + "\n")
+        f.flush()
+    print(msg)
+
+
+def add_common_args(p: argparse.ArgumentParser):
+    p.add_argument("--device", type=str, default=DEFAULT_DEVICE,
+                   help="torch device of the run: 'cuda' (default; raises "
+                        "without a card) or 'cpu'")
+    p.add_argument("--dataset", type=str, default="S3DIS",
+                   choices=["S3DIS", "semantic3d", "SemanticKITTI"])
+    p.add_argument("--data_root", type=str, default="./data")
+    p.add_argument("--test_area", type=int, default=5)
+    p.add_argument("--reg_strength", type=float, default=0.008)
+    p.add_argument("--synthetic", action="store_true",
+                   help="use generated scenes instead of a real dataset")
+    p.add_argument("--synthetic_rooms", type=int, default=4)
+    p.add_argument("--synthetic_points", type=int, default=20000)
+    p.add_argument("--synthetic_easy", action="store_true",
+                   help="easy scenes (5 well-separated classes); default "
+                        "is the hard generator (8 confusable classes)")
+    p.add_argument("--num_points", type=int, default=0,
+                   help="override cfg.num_points (0 = dataset default)")
+    p.add_argument("--max_epoch", type=int, default=0,
+                   help="override cfg.max_epoch (0 = dataset default)")
+    p.add_argument("--train_steps", type=int, default=0,
+                   help="override cfg.train_steps (0 = dataset default)")
+    p.add_argument("--val_steps", type=int, default=0,
+                   help="override cfg.val_steps (0 = dataset default; the "
+                        "synthetic default is 8)")
+    p.add_argument("--batch_size", type=int, default=0,
+                   help="override cfg.batch_size (0 = dataset default)")
+    p.add_argument("--knn_engine", type=str, default="window",
+                   choices=["window", "window_og", "approx", "xla", "pallas"])
+    p.add_argument("--compute_dtype", type=str, default="",
+                   choices=["", "float32", "bfloat16"],
+                   help="activation dtype ('' = float32; bfloat16 is not "
+                        "ported yet)")
+    p.add_argument("--search_window", type=int, default=0,
+                   help="morton search window for big pyramid layers "
+                        "(0 = config default 2048; multiple of 512 in "
+                        "[1024, 4096])")
+    p.add_argument("--num_devices", type=int, default=1,
+                   help="data-parallel cards (only 1 is ported yet)")
+
+
+def check_ported(args):
+    """Raise on a flag value whose path the port does not have yet, and on
+    --device cuda without a card."""
+    resolve_device(getattr(args, "device", DEFAULT_DEVICE))
+    if args.knn_engine not in ("window", "xla"):
+        raise NotImplementedError(f"--knn_engine {args.knn_engine} "
+                                  + NOT_PORTED)
+    if getattr(args, "compute_dtype", "") == "bfloat16":
+        raise NotImplementedError("--compute_dtype bfloat16 " + NOT_PORTED)
+    if getattr(args, "num_devices", 1) > 1:
+        raise NotImplementedError(f"--num_devices {args.num_devices} "
+                                  + NOT_PORTED)
+
+
+@dataclasses.dataclass
+class Experiment:
+    cfg: Config
+    dataset_name: str
+    data_path: str          # data/<ds>/<reg_strength>
+    train_clouds: List[Cloud]
+    val_clouds: List[Cloud]
+    class_weight_name: str  # key for config.class_weights, or "" for flat
+
+    def make_state(self, sampler_args) -> ALState:
+        return ALState(self.data_path, sampler_args)
+
+    def save_dir(self, sampler_args) -> str:
+        return os.path.join(self.data_path, "saver",
+                            sampler_args_str(sampler_args), "snapshots")
+
+
+def setup_experiment(args) -> Experiment:
+    check_ported(args)
+    cfg = get_config(args.dataset)
+    overrides = {}
+    synth_hard = args.synthetic and not getattr(args, "synthetic_easy", False)
+    if args.synthetic:
+        overrides.update(
+            num_classes=(NUM_SYNTH_CLASSES_HARD if synth_hard
+                         else NUM_SYNTH_CLASSES),
+            num_points=args.num_points or 4096,
+            batch_size=2,
+            val_batch_size=2,
+            train_steps=args.train_steps or 8,
+            val_steps=8,
+            max_epoch=args.max_epoch or 4,
+            sub_grid_size=0.0,
+        )
+    else:
+        if args.num_points:
+            overrides["num_points"] = args.num_points
+        if args.max_epoch:
+            overrides["max_epoch"] = args.max_epoch
+        if args.train_steps:
+            overrides["train_steps"] = args.train_steps
+    # --val_steps / --batch_size apply to real and synthetic configs alike
+    if getattr(args, "val_steps", 0):
+        overrides["val_steps"] = args.val_steps
+    if getattr(args, "batch_size", 0):
+        overrides["batch_size"] = args.batch_size
+    if getattr(args, "search_window", 0):
+        sw = args.search_window
+        if sw % 512 or not (1024 <= sw <= 4096):
+            raise ValueError(f"--search_window {sw} invalid: must be a "
+                             "multiple of 512 in [1024, 4096]")
+        overrides["search_window"] = sw
+    cfg = dataclasses.replace(cfg, **overrides)
+
+    ds_dir = os.path.join(args.data_root, args.dataset)
+    data_path = os.path.join(ds_dir, str(args.reg_strength))
+    os.makedirs(data_path, exist_ok=True)
+
+    if args.synthetic:
+        input_path = os.path.join(
+            ds_dir, "input_synth_hard" if synth_hard else "input_synth")
+        if not os.path.isdir(input_path) or not os.listdir(input_path):
+            os.makedirs(input_path, exist_ok=True)
+            train, val = make_dataset(
+                num_train=args.synthetic_rooms, num_val=1,
+                num_points=args.synthetic_points, hard=synth_hard)
+            for c in train + val:
+                write_ply(os.path.join(input_path, c.name + ".ply"),
+                          [c.xyz, c.colors, c.labels.astype(np.int32)],
+                          ["x", "y", "z", "red", "green", "blue", "class"])
+        train_clouds = load_clouds(input_path, include="train")
+        val_clouds = load_clouds(input_path, include="val")
+        cw_name = ""
+    else:
+        input_path = os.path.join(ds_dir,
+                                  "input_{:.3f}".format(cfg.sub_grid_size))
+        val_split = f"Area_{args.test_area}"
+        train_clouds = load_clouds(input_path, exclude=val_split)
+        val_clouds = load_clouds(input_path, include=val_split)
+        cw_name = args.dataset
+
+    return Experiment(cfg=cfg, dataset_name=args.dataset,
+                      data_path=data_path,
+                      train_clouds=train_clouds, val_clouds=val_clouds,
+                      class_weight_name=cw_name)
+
+
+def experiment_class_weights(exp: Experiment) -> np.ndarray:
+    if exp.class_weight_name:
+        return class_weights(exp.class_weight_name)
+    return np.ones(exp.cfg.num_classes, np.float32)
+
+
+def make_trainer(exp: Experiment, sampler_args, knn_engine="window", *,
+                 device=DEFAULT_DEVICE) -> Trainer:
+    """Trainer wired to this experiment's snapshot dir and class weights."""
+    return Trainer(exp.cfg, exp.dataset_name,
+                   save_dir=exp.save_dir(sampler_args),
+                   seed_save_dir=exp.save_dir(["seed"]),
+                   knn_engine=knn_engine,
+                   weights=experiment_class_weights(exp), device=device)
+
+
+def make_evaluator(exp: Experiment) -> Evaluator:
+    """Evaluator over the validation clouds; full-resolution reprojection
+    is picked up when every val cloud carries its `_proj.pkl`."""
+    return Evaluator(exp.cfg, exp.val_clouds)
+
+
+def make_record_file(args, sampler_args, suffix=""):
+    os.makedirs("record_round", exist_ok=True)
+    path = os.path.join(
+        "record_round",
+        f"{args.dataset}_{args.test_area}_{sampler_args_str(sampler_args)}"
+        f"_{args.reg_strength}{suffix}.txt")
+    return open(path, "a")
+
+
+def write_grid_superpoints(state: ALState, clouds, target_sp: int) -> dict:
+    """Partition every cloud with grid_superpoints (~target_sp voxels each)
+    and write the superpoint files and the registry total.pkl. The stand-in
+    for the superpoint partition, which is not ported yet (ROADMAP.md)."""
+    total = {"unlabeled": {}, "file_num": len(clouds), "sp_num": 0,
+             "point_num": sum(c.num_points for c in clouds)}
+    for c in clouds:
+        comps, in_comp = grid_superpoints(c.xyz, target_sp)
+        state.write_superpoints(c.name, comps, in_comp, c.num_points)
+        total["unlabeled"][c.name] = np.arange(len(comps))
+        total["sp_num"] += len(comps)
+    state.write_registry(total)
+    return total
+
+
+def pseudo_gt_for_round(state: ALState, round_dir: str, clouds) -> dict:
+    return {c.name: state.load_pseudo_gt(round_dir, c.name) for c in clouds}
+
+
+def make_training_pipeline(exp: Experiment, pseudo_gt=None, seed=0):
+    """The random spatially regular block sampler (the S3DIS path)."""
+    return TrainingPipeline(exp.train_clouds, exp.cfg, pseudo_gt=pseudo_gt,
+                            seed=seed)

@@ -1,70 +1,20 @@
-"""Host-side data of the selection slice, numpy only.
-
-Counterparts of ssdr_al_tpu/data/cloud.py (`Cloud`), data/dataset.py
-(`SamplingPipeline`, whole-cloud inference chunks) and data/synthetic.py
-(generated rooms and the voxel-grid superpoints that stand in for
-cut-pursuit in selection workloads). Same random draws in the same order,
-so the same seed gives the same arrays; tests/test_torch_data.py holds
-them equal to the JAX package's.
+"""Generated rooms and the voxel-grid superpoints that stand in for
+cut-pursuit in selection workloads (a copy of ssdr_al_tpu/data/
+synthetic.py). Same random draws in the same order, so the same seed gives
+the same arrays; tests/test_torch_data.py holds them equal to the JAX
+package's.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import List
-
 import numpy as np
+
+from ssdr_al_torch.data.cloud import Cloud
 
 # synthetic class ids: 0 floor, 1 ceiling, 2 wall, 3 box, 4 clutter; the
 # hard rooms add 5 chair, 6 pillar, 7 board
 NUM_SYNTH_CLASSES = 5
 NUM_SYNTH_CLASSES_HARD = 8
-
-
-@dataclasses.dataclass
-class Cloud:
-    """One subsampled cloud: [N, 3] f32 xyz, [N, 3] f32 colours in 0..1,
-    [N] int32 labels."""
-
-    name: str
-    xyz: np.ndarray
-    colors: np.ndarray
-    labels: np.ndarray
-
-    @property
-    def num_points(self) -> int:
-        return len(self.xyz)
-
-
-class SamplingPipeline:
-    """Whole-cloud inference blocks for AL selection: every point of a
-    cloud, cut by a shuffled partition into chunks of `chunk_points`, each
-    padded by repeating its own points."""
-
-    def __init__(self, clouds: List[Cloud], cfg, *, chunk_points=None,
-                 seed: int = 0):
-        self.clouds = clouds
-        self.chunk_points = chunk_points or cfg.num_points
-        self.rng = np.random.RandomState(seed)
-
-    def cloud_chunks(self, cloud: Cloud):
-        """Yield ({"xyz": [1, cp, 3], "features": [1, cp, 6]}, point_idx
-        [cp], valid_count) covering the cloud; xyz is centred per chunk."""
-        n = cloud.num_points
-        cp = self.chunk_points
-        perm = self.rng.permutation(n)
-        for ci in range(max(1, -(-n // cp))):
-            idx = perm[ci * cp: (ci + 1) * cp]
-            valid = len(idx)
-            if valid < cp:
-                pad = (self.rng.choice(idx, cp - valid) if valid
-                       else np.zeros(cp, np.int64))
-                idx = np.concatenate([idx, pad])
-            center = cloud.xyz[idx].mean(axis=0)
-            xyz = cloud.xyz[idx] - center[None, :]
-            feats = np.concatenate([xyz, cloud.colors[idx]], axis=1)
-            yield ({"xyz": xyz[None].astype(np.float32),
-                    "features": feats[None].astype(np.float32)}, idx, valid)
 
 
 # ------------------------------------------------------- synthetic rooms ---

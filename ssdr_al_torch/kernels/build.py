@@ -1,16 +1,18 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `ssdr_al_torch/csrc/*.cu` file is compiled by `nvcc` for Hopper
-(`sm_90a`) into ONE shared library with a plain C interface, loaded with
-ctypes. No PyTorch header is included, so a build takes seconds. The library
+Every `ssdr_al_torch/csrc/*.cu` file is compiled by its own `nvcc` for
+Hopper (`sm_90a`), all in parallel, and linked into ONE shared library
+with a plain C interface, loaded with ctypes. No PyTorch header is
+included, so a build takes seconds. The library
 lands in `<repo>/build/kernels/` (listed in .gitignore) under a name keyed on
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the cached file. The first call to `library()` builds;
 importing this module builds nothing.
 
-Each wrapper (ops/knn.window_topk, ops/gather.gather_window,
-ops/chamfer.chamfer_sums) passes tensor pointers and the current CUDA stream
-as ctypes.c_void_p and raises if the launcher's returned cudaError_t is not 0.
+Each wrapper (ops/knn.window_topk, ops/gather.gather_window and
+scatter_window, ops/chamfer.chamfer_sums) passes tensor pointers and the
+current CUDA stream as ctypes.c_void_p and raises if the launcher's
+returned cudaError_t is not 0.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -40,6 +42,8 @@ SIGNATURES = {
     "window_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # values, idx, starts, out, B, N, nq, k, C, window, tq, stream
     "gather_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # g, idx, starts, dv, B, N, nq, k, C, window, tq, stream
+    "scatter_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # points, mask, out, C, S, P, stream
     "chamfer_sums_launch": [_P, _P, _P, _I, _I, _I, _P],
 }
@@ -77,14 +81,29 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    # one nvcc per source, all at once; then one host link
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)]
+    logs = [(src.name, p.communicate()[0], p.returncode)
+            for src, p in zip(srcs, procs)]
+    (BUILD_DIR / "ptxas.log").write_text(
+        "".join(f"== {name}\n{text}" for name, text, _ in logs))
+    for name, text, rc in logs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({rc}):\n"
+                               f"{text[-4000:]}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "ptxas.log").write_text(res.stdout + res.stderr)
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
 

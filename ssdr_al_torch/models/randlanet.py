@@ -1,5 +1,5 @@
-"""RandLA-Net as torch.nn modules, eval mode (counterpart of
-ssdr_al_tpu/models/randlanet.py).
+"""RandLA-Net as torch.nn modules (counterpart of
+ssdr_al_tpu/models/randlanet.py), with its training loss.
 
 Architecture, parameter shapes and names follow the flax model, so
 `params_from_flax` converts a JAX checkpoint into a `state_dict`:
@@ -11,9 +11,11 @@ Every tensor is channels-last ([B, N, C] / [B, N, k, C]) as in JAX.
 
 `build_pyramid` makes the per-layer neighbourhoods on the device:
 engine "window" builds the morton-sorted pyramid (K1 window search, gathers
-through K2), batched over B; engine "xla" builds the exact original-order
-pyramid with `knn_xla`. This slice is inference only: BatchNorm uses its
-running statistics and dropout is the identity.
+through K2, whose backward is K4), batched over B; engine "xla" builds the
+exact original-order pyramid with `knn_xla`. `model.train()` switches
+BatchNorm to batch statistics (flax's arithmetic, below) and turns on the
+head's dropout, whose mask comes from the generator passed to forward;
+`model.eval()` uses the running statistics and no dropout.
 
 TF32 is switched off below for matmuls and cuDNN: the JAX reference runs
 in full f32 on the CPU, and a TF32 product keeps only ~3 decimal digits,
@@ -47,7 +49,9 @@ torch.backends.cudnn.allow_tf32 = False
 
 # queries per gather tile on the sorted path (models/randlanet.py:_GATHER_TQ)
 GATHER_TQ = 512
-BN_EPS = 1e-6   # flax BatchNorm(epsilon=1e-6); flax momentum 0.99 = torch 0.01
+BN_EPS = 1e-6        # flax BatchNorm(epsilon=1e-6)
+BN_MOMENTUM = 0.99   # flax BatchNorm(momentum=0.99): ra = 0.99·ra + 0.01·batch
+DROPOUT_RATE = 0.5   # the head's nn.Dropout(0.5) before fc
 
 
 def leaky_relu(x):
@@ -55,8 +59,14 @@ def leaky_relu(x):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis, in flax's arithmetic:
-    (x − mean) · (scale · rsqrt(var + eps)) + bias."""
+    """BatchNorm over the last axis in flax 0.12's arithmetic:
+    (x − mean) · (scale · rsqrt(var + eps)) + bias.
+
+    Eval mode reads the running statistics. Train mode reduces over every
+    axis but the last (the k axis of [B, N, k, C] edge tensors too) with
+    flax's fast variance E[x²] − E[x]² clipped at 0, and updates the running
+    statistics as ra = 0.99·ra + 0.01·batch with that BIASED variance
+    (torch.nn.BatchNorm1d would take the unbiased one)."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -66,8 +76,39 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        mul = self.weight * torch.rsqrt(self.running_var + BN_EPS)
-        return (x - self.running_mean) * mul + self.bias
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    (1 - BN_MOMENTUM) * mean)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = self.weight * torch.rsqrt(var + BN_EPS)
+        return (x - mean) * mul + self.bias
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout in train mode: keep with probability 1 − rate and
+    scale kept values by 1 / (1 − rate); the identity in eval mode. The
+    mask is drawn from the generator passed in, on x's device."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator]):
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs a torch.Generator")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class SharedMLP(nn.Module):
@@ -340,9 +381,13 @@ class RandLANet(nn.Module):
         self.decoder = nn.ModuleList(dec)
         self.fc1 = SharedMLP(cur, 64)
         self.fc2 = SharedMLP(64, 32)
+        self.dp1 = Dropout(DROPOUT_RATE)
         self.fc = nn.Linear(32, cfg.num_classes)
 
-    def forward(self, features, pyramid, unsort: bool = True):
+    def forward(self, features, pyramid, unsort: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """generator draws the dropout mask in train mode; unsort=False on
+        a sorted pyramid leaves the outputs in morton-sorted row order."""
         sorted_mode = isinstance(pyramid, SortedPyramid)
         if sorted_mode:
             features = _rows(features, pyramid.order)
@@ -363,11 +408,56 @@ class RandLANet(nn.Module):
             f = self.decoder[j + 1](
                 torch.cat([f_encoder_list[-j - 2], f_interp], -1))
         penultimate = self.fc2(self.fc1(f))
-        logits = self.fc(penultimate)
+        logits = self.fc(self.dp1(penultimate, generator))
         if sorted_mode and unsort:
             logits = _rows(logits, pyramid.inv)
             penultimate = _rows(penultimate, pyramid.inv)
         return logits, penultimate
+
+
+def label_reduce_table(num_classes: int, ignored_label_inds) -> np.ndarray:
+    """Raw-label → training-label lookup (reference RandLANet.py:66-71)."""
+    reducing = list(range(num_classes))
+    for ign in ignored_label_inds:
+        reducing = reducing[:ign] + [0] + reducing[ign:]
+    return np.asarray(reducing, dtype=np.int32)
+
+
+def _on(x, dtype, device):
+    """A numpy array, sequence or tensor as a tensor on `device`."""
+    if not torch.is_tensor(x):
+        x = np.asarray(x)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def masked_weighted_ce(logits, pseudo, activation, labels, class_weights,
+                       ignored_label_inds=(), reduce_table=None):
+    """Activation-masked, class-weighted softmax CE, as
+    ssdr_al_tpu/models/randlanet.py::masked_weighted_ce: points whose TRUE
+    label is ignored are dropped, pseudo labels go through the reduce
+    table, and ce · class_weight[pseudo] · activation is averaged over the
+    valid points. logits [B, N, C]; pseudo / labels [B, N] int;
+    activation [B, N] {0, 1}; class_weights and reduce_table numpy or
+    tensors. Returns (loss, accuracy): top-1 against the TRUE labels on
+    valid points."""
+    c = logits.shape[-1]
+    logits2 = logits.reshape(-1, c)
+    pseudo = pseudo.reshape(-1).long()
+    labels = labels.reshape(-1).long()
+    activation = activation.reshape(-1).float()
+    valid = torch.ones_like(labels, dtype=torch.bool)
+    for ign in ignored_label_inds:
+        valid &= labels != ign
+    if reduce_table is not None:
+        table = _on(reduce_table, torch.long, logits.device)
+        pseudo, labels = table[pseudo], table[labels]
+    logp = F.log_softmax(logits2, dim=-1)
+    ce = -logp.gather(1, pseudo[:, None])[:, 0]
+    w = _on(class_weights, logits2.dtype, logits.device)[pseudo]
+    denom = torch.clamp(valid.sum(), min=1)
+    loss = (ce * w * activation * valid).sum() / denom
+    acc = ((logits2.argmax(-1) == labels) & valid).sum() / denom
+    return loss, acc
 
 
 def init_params(cfg: Config, generator: torch.Generator,

@@ -72,22 +72,28 @@ def knn_xla(support: torch.Tensor, query: torch.Tensor, k: int, *,
 
     support [B, Ns, 3], query [B, Nq, 3] → int32 [B, Nq, k]. The distance
     is the matmul form of the JAX engine, 2 q·s − |q|² − |s|², in full f32
-    (TF32 off: torch's default, pinned in models/randlanet.py)."""
+    (TF32 off: torch's default, pinned in models/randlanet.py). With fewer
+    than k support points the missing slots hold index 0, as in the JAX
+    engine (a tiny top layer of a small block)."""
     support = support.float()
     query = query.float()
     sq_s = (support * support).sum(-1)                            # [B, Ns]
+    kk = min(k, support.shape[1])
     outs = []
     for q0 in range(0, query.shape[1], query_chunk):
         q = query[:, q0:q0 + query_chunk]
         sq_q = (q * q).sum(-1, keepdim=True)
         neg = 2.0 * torch.bmm(q, support.transpose(1, 2)) - sq_q - sq_s[:, None]
-        vals, idx = torch.topk(neg, k, dim=-1, sorted=True)
+        vals, idx = torch.topk(neg, kk, dim=-1, sorted=True)
         # deterministic tie order inside the k: by value, then lower index
         idx, perm = torch.sort(idx, dim=-1)
         vals = torch.gather(vals, -1, perm)
         _, perm = torch.sort(-vals, dim=-1, stable=True)
         outs.append(torch.gather(idx, -1, perm))
-    return torch.cat(outs, dim=1).to(torch.int32)
+    out = torch.cat(outs, dim=1).to(torch.int32)
+    if kk < k:
+        out = torch.nn.functional.pad(out, (0, k - kk))
+    return out
 
 
 # --------------------------------------------------------- window search ---

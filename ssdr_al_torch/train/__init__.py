@@ -1,1 +1,2 @@
-"""Inference half of the trainer: eval step, init and checkpoints."""
+"""Training: the train step, Adam and its schedule, the round loop, the
+evaluator, metrics and checkpoints."""

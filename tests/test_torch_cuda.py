@@ -90,3 +90,45 @@ def test_chamfer_sums_matches_plain(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     cd = ch.chamfer_pairwise_blocks(pts.to(dev), msk.to(dev)).cpu()
     assert (cd[0, 3, torch.arange(s) != 3] >= 1e12).all()
+
+
+@pytest.mark.parametrize("b,n,nq,c,window,tq", [
+    (2, 40960, 40960, 11, 2048, 512),    # L0 LFA gather's backward
+    (2, 2560, 640, 256, 2560, 128),      # L2 pool gather's, 256 channels
+])
+def test_scatter_window_matches_plain(dev, b, n, nq, c, window, tq):
+    """K4 against its plain version (index_add_ on the CPU): f32 atomics sum
+    in no fixed order, and two orders of an f32 sum of m values differ by
+    at most 2·m·ε·Σ|g| (ε = 2⁻²³); so each element within 1e-5 relative
+    plus that bound, with m and Σ|g| from the plain version (a near-
+    cancelling sum has a large relative error: measured 2.2e-3 relative,
+    2.2e-6 absolute at the L0 shape). Out-of-window indices contribute
+    nothing. The backward of gather_window on the card launches K4 and
+    gives the same gradient."""
+    rng = np.random.RandomState(3)
+    k = 16
+    starts = torch.from_numpy(
+        (rng.randint(0, (n - window) // 128 + 1, (b, nq // tq)) * 128)
+        .astype(np.int32))
+    lo = torch.repeat_interleave(starts, tq, 1)[..., None]
+    idx = (lo + torch.from_numpy(rng.randint(0, window, (b, nq, k)))).int()
+    idx[0, 0, 0] = -5                       # outside: contributes nothing
+    idx[-1, -1, -1] = n + 3
+    g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))
+    want = ga.scatter_window(g, idx, starts, n, window, tq)
+    m = ga.scatter_window(torch.ones_like(g), idx, starts, n, window, tq)
+    tol = 1e-5 * want.abs() + 2 * m * 2.0 ** -23 * ga.scatter_window(
+        g.abs(), idx, starts, n, window, tq)
+    before = ga.scatter_window.launches
+    got = ga.scatter_window(g.to(dev), idx.to(dev), starts.to(dev), n,
+                            window, tq)
+    torch.cuda.synchronize()
+    assert ga.scatter_window.launches == before + 1
+    assert bool(((got.cpu() - want).abs() <= tol).all())
+
+    vals = torch.from_numpy(rng.randn(b, n, c).astype(np.float32))
+    v_dev = vals.to(dev).requires_grad_(True)
+    ga.gather_window(v_dev, idx.to(dev), starts.to(dev), window,
+                     tq).backward(g.to(dev))
+    assert ga.scatter_window.launches == before + 2
+    assert bool(((v_dev.grad.cpu() - want).abs() <= tol).all())

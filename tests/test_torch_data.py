@@ -11,7 +11,8 @@ import torch
 from ssdr_al_tpu.config import ConfigS3DIS as JConfigS3DIS
 from ssdr_al_tpu.data import synthetic as j_syn
 from ssdr_al_tpu.data.dataset import SamplingPipeline as JSamplingPipeline
-from ssdr_al_torch import data as t_data
+from ssdr_al_torch.data import dataset as t_dataset
+from ssdr_al_torch.data import synthetic as t_data
 from ssdr_al_torch.config import ConfigS3DIS
 
 torch.set_num_threads(1)
@@ -57,7 +58,7 @@ def test_cloud_chunks_match_jax():
     cfg = dataclasses.replace(JConfigS3DIS, num_points=1024)
     (cloud,), _ = t_data.make_dataset(num_train=1, num_val=0,
                                       num_points=3000, seed=5)
-    got = list(t_data.SamplingPipeline([cloud], cfg, seed=6)
+    got = list(t_dataset.SamplingPipeline([cloud], cfg, seed=6)
                .cloud_chunks(cloud))
     want = list(JSamplingPipeline([cloud], cfg, seed=6).cloud_chunks(cloud))
     assert len(got) == len(want) == 3

@@ -11,7 +11,7 @@ import torch
 
 from ssdr_al_tpu.models.randlanet import gather_neighbour
 from ssdr_al_torch.ops import gather as tg
-from torch_parity import interpret, t
+from torch_parity import interpret, t, windowed
 
 jg = importlib.import_module("ssdr_al_tpu.ops.gather")
 torch.set_num_threads(1)
@@ -19,27 +19,16 @@ torch.set_num_threads(1)
 BF16_REL = 2.0 ** -8     # the TPU gather rounds every value to bf16
 
 
-def _windowed(seed, b, n, c, k, window, tq):
-    """values [B,N,C], window starts per tile, indices inside the windows."""
-    rng = np.random.RandomState(seed)
-    vals = rng.randn(b, n, c).astype(np.float32)
-    starts = (rng.randint(0, (n - window) // 128 + 1, (b, n // tq)) * 128
-              ).astype(np.int32)
-    lo = np.repeat(starts, tq, axis=1)[..., None]
-    idx = (lo + rng.randint(0, window, (b, n, k))).astype(np.int32)
-    return vals, idx, starts
-
-
 @pytest.mark.parametrize("c", [11, 64])
 def test_plain_gather_bitwise_equals_xla_gather(c):
-    vals, idx, starts = _windowed(0, 2, 2048, c, 16, 1024, 512)
+    vals, idx, starts = windowed(0, 2, 2048, c, 16, 1024, 512)
     want = np.asarray(gather_neighbour(jnp.asarray(vals), jnp.asarray(idx)))
     got = tg.gather_window(t(vals), t(idx), t(starts), 1024, 512).numpy()
     np.testing.assert_array_equal(got, want)
 
 
 def test_plain_gather_within_bf16_of_tpu_kernel():
-    vals, idx, starts = _windowed(1, 2, 2048, 16, 16, 1024, 128)
+    vals, idx, starts = windowed(1, 2, 2048, 16, 16, 1024, 128)
     with interpret():
         want = np.asarray(jg.gather_window(
             jnp.asarray(vals), jnp.asarray(idx), jnp.asarray(starts), 1024,
@@ -72,7 +61,7 @@ def test_gather_window_auto_matches_tpu_and_never_clamps():
 
 
 def test_out_of_window_index_reads_zero():
-    vals, idx, starts = _windowed(3, 1, 1024, 8, 4, 512, 128)
+    vals, idx, starts = windowed(3, 1, 1024, 8, 4, 512, 128)
     idx[0, 5, 2] = starts[0, 0] + 512          # one past the window
     got = tg.gather_window(t(vals), t(idx), t(starts), 512, 128)
     assert float(got[0, 5, 2].abs().sum()) == 0.0

@@ -24,9 +24,14 @@ def test_every_submodule_is_listed():
     for name in ("ssdr_al_torch.ops.knn", "ssdr_al_torch.ops.gather",
                  "ssdr_al_torch.ops.chamfer", "ssdr_al_torch.kernels.build",
                  "ssdr_al_torch.models.randlanet", "ssdr_al_torch.config",
-                 "ssdr_al_torch.data",
+                 "ssdr_al_torch.data", "ssdr_al_torch.data.cloud",
+                 "ssdr_al_torch.data.dataset", "ssdr_al_torch.data.ply",
+                 "ssdr_al_torch.data.synthetic", "ssdr_al_torch.device",
                  "ssdr_al_torch.active.samplers",
-                 "ssdr_al_torch.train.trainer"):
+                 "ssdr_al_torch.train.trainer",
+                 "ssdr_al_torch.train.evaluator",
+                 "ssdr_al_torch.train.metrics", "ssdr_al_torch.cli.common",
+                 "ssdr_al_torch.cli.seed", "ssdr_al_torch.cli.al_loop"):
         assert name in SUBMODULES
 
 

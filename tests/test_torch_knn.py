@@ -53,9 +53,10 @@ def test_sort_by_codes_stable_on_ties():
 
 
 @pytest.mark.parametrize("ns,nq,k", [(700, 300, 16), (160, 160, 16),
-                                     (640, 2560, 1)])
+                                     (640, 2560, 1), (8, 5, 16)])
 def test_knn_xla_matches_jax(ns, nq, k):
-    """Exact KNN equals JAX knn_xla except where distances tie."""
+    """Exact KNN equals JAX knn_xla except where distances tie; with fewer
+    support points than k the missing slots are index 0 on both sides."""
     rng = np.random.RandomState(2)
     s = rng.randn(2, ns, 3).astype(np.float32)
     q = rng.randn(2, nq, 3).astype(np.float32)

@@ -19,6 +19,7 @@ from torch_parity import (
     random_flax_variables,
     small_cfg,
     t,
+    to_torch_pyramid,
 )
 
 torch.set_num_threads(1)
@@ -61,21 +62,6 @@ def _torch_model(cfg, variables):
     model.load_state_dict(tr.params_from_flax(variables["params"],
                                               variables["batch_stats"]))
     return model.eval()
-
-
-def _to_torch_pyramid(p):
-    if isinstance(p, jr.SortedPyramid):
-        conv = [None if s is None else t(s, torch.int32) for s in p.starts]
-        return tr.SortedPyramid(
-            [t(x) for x in p.xyz], [t(x, torch.int32) for x in p.neigh_idx],
-            conv, [t(x, torch.int32) for x in p.sub_idx],
-            [t(x, torch.int32) for x in p.interp_idx],
-            t(p.order, torch.int32), t(p.inv, torch.int32),
-            windows=tuple(p.windows))
-    return tr.Pyramid([t(x) for x in p.xyz],
-                      [t(x, torch.int32) for x in p.neigh_idx],
-                      [t(x, torch.int32) for x in p.sub_idx],
-                      [t(x, torch.int32) for x in p.interp_idx])
 
 
 def test_params_from_flax_loads_strict(flax_init):
@@ -134,7 +120,7 @@ def test_forward_on_exact_pyramid_matches_jax(flax_init):
     logits, penult = jax.jit(model.apply)(v, jnp.asarray(feats), pyr)
     tm = _torch_model(cfg, v)
     with torch.inference_mode():
-        got_l, got_p = tm(t(feats), _to_torch_pyramid(pyr))
+        got_l, got_p = tm(t(feats), to_torch_pyramid(pyr))
     np.testing.assert_allclose(got_l.numpy(), np.asarray(logits),
                                rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(penult),
@@ -210,7 +196,7 @@ def test_forward_on_sorted_pyramid_close_to_jax(sorted_case):
     cfg, _, feats, v, pyr, logits, penult = sorted_case
     tm = _torch_model(cfg, v)
     with torch.inference_mode():
-        got_l, got_p = tm(t(feats), _to_torch_pyramid(pyr))
+        got_l, got_p = tm(t(feats), to_torch_pyramid(pyr))
     agree = float((got_l.numpy().argmax(-1) == logits.argmax(-1)).mean())
     rel = float(np.linalg.norm(got_p.numpy() - penult)
                 / np.linalg.norm(penult))
@@ -240,10 +226,12 @@ def test_eval_step_sorted_outputs_follow_order():
     model = tr.RandLANet(cfg)
     state = tt.init_params(cfg, torch.Generator().manual_seed(1))
     batch = {"xyz": xyz, "features": feats}
-    p_s, f_s, order = tt.make_eval_step(model, cfg, "window", True)(state,
-                                                                     batch)
-    p_o, f_o = tt.make_eval_step(model, cfg, "window", False)(state, batch)
+    p_s, f_s, order = tt.make_eval_step(model, cfg, "window", True,
+                                        device="cpu")(state, batch)
+    p_o, f_o = tt.make_eval_step(model, cfg, "window", False,
+                                 device="cpu")(state, batch)
     o = order[0].long()
     assert torch.equal(p_s[0], p_o[0][o]) and torch.equal(f_s[0], f_o[0][o])
-    _, _, ident = tt.make_eval_step(model, cfg, "xla", True)(state, batch)
+    _, _, ident = tt.make_eval_step(model, cfg, "xla", True,
+                                    device="cpu")(state, batch)
     assert torch.equal(ident[0], torch.arange(SORTED_N, dtype=torch.int32))

@@ -28,9 +28,9 @@ from ssdr_al_torch.active import region_graph as t_rg
 from ssdr_al_torch.active import samplers as t_samplers
 from ssdr_al_torch.active import state as t_state
 from ssdr_al_torch.active import uncertainty as t_unc
-from ssdr_al_torch.data import NUM_SYNTH_CLASSES
-from ssdr_al_torch.data import grid_superpoints as t_grid_superpoints
-from ssdr_al_torch.data import make_dataset as t_make_dataset
+from ssdr_al_torch.data.synthetic import NUM_SYNTH_CLASSES
+from ssdr_al_torch.data.synthetic import grid_superpoints as t_grid_superpoints
+from ssdr_al_torch.data.synthetic import make_dataset as t_make_dataset
 from ssdr_al_torch.models.randlanet import RandLANet, params_from_flax
 from ssdr_al_torch.ops import fps as t_fps
 from ssdr_al_torch.ops import segment as t_seg
@@ -133,7 +133,8 @@ def test_gcn_fps_sampling_picks_equal(gcn_top):
     want = j_fps_gcn.gcn_fps_sampling(jg, feats, unl, 12, gcn_top=gcn_top,
                                       rng=np.random.RandomState(6))
     got = t_fps_gcn.gcn_fps_sampling(tg, feats, unl, 12, gcn_top=gcn_top,
-                                     rng=np.random.RandomState(6))
+                                     rng=np.random.RandomState(6),
+                                     device="cpu")
     assert got == want
 
 
@@ -159,12 +160,13 @@ def test_build_region_graph_matches_jax(cached):
                                    max_points_per_sp=64, mxu=False)
     cache = None
     if cached:
-        cache = t_rg.SuperpointBlockCache(64)
+        cache = t_rg.SuperpointBlockCache(64, device="cpu")
         for name in clouds:
             cache.ensure(name, clouds[name], comps[name])
         cache.finalize()
     got = t_rg.build_region_graph(regions, clouds, comps,
-                                  max_points_per_sp=64, cache=cache)
+                                  max_points_per_sp=64, cache=cache,
+                                  device="cpu")
     c, s = got.mask.shape
     np.testing.assert_array_equal(got.mask, want.mask[:c, :s])
     np.testing.assert_array_equal(got.block_of, want.block_of)
@@ -297,9 +299,10 @@ def test_selection_round_matches_jax(tmp_path):
 
     t_sampler = t_samplers.TSampler(
         t_state.ALState(t_dir, SSDR_ARGS), train, cfg,
-        t_samplers.TSamplerArgs(), sp_num)
+        t_samplers.TSamplerArgs(), sp_num, device="cpu")
     stats = t_state.RoundStats()
-    t_sampler.sampling(make_eval_step(RandLANet(cfg), cfg, "xla", True),
+    t_sampler.sampling(make_eval_step(RandLANet(cfg), cfg, "xla", True,
+                                      device="cpu"),
                        params_from_flax(v["params"], v["batch_stats"]), 20,
                        1, stats)
 

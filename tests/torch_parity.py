@@ -13,6 +13,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from ssdr_al_tpu.config import ConfigS3DIS
+from ssdr_al_tpu.models import randlanet as jr
+from ssdr_al_torch.models import randlanet as tr
 
 # the K1 tie rule: the TPU kernel packs the window index into the low 12
 # mantissa bits of d2, so two candidates within 2^-11 relative may swap
@@ -35,6 +37,18 @@ def small_cfg(**over):
     base = dict(num_layers=3, d_out=(8, 16, 32), sub_sampling_ratio=(4, 4, 2))
     base.update(over)
     return dataclasses.replace(ConfigS3DIS, **base)
+
+
+def windowed(seed, b, n, c, k, window, tq):
+    """values [B, N, C] f32, 128-aligned window starts per query tile
+    [B, N/tq] and neighbour indices [B, N, k] inside each tile's window."""
+    rng = np.random.RandomState(seed)
+    vals = rng.randn(b, n, c).astype(np.float32)
+    starts = (rng.randint(0, (n - window) // 128 + 1, (b, n // tq)) * 128
+              ).astype(np.int32)
+    lo = np.repeat(starts, tq, axis=1)[..., None]
+    idx = (lo + rng.randint(0, window, (b, n, k))).astype(np.int32)
+    return vals, idx, starts
 
 
 def sorted_d2(xyz_q, xyz_s, idx):
@@ -91,3 +105,43 @@ def random_flax_variables(variables, seed=0):
 def _plain_dict(d):
     return {k: _plain_dict(v) if hasattr(v, "items") else v
             for k, v in d.items()}
+
+
+def flax_param_dict(params, batch_stats):
+    """Flax variables → {state_dict key: numpy array} of the port's model."""
+    return {k: v.numpy() for k, v in tr.params_from_flax(
+        _plain_dict(jax_to_numpy(params)),
+        _plain_dict(jax_to_numpy(batch_stats))).items()}
+
+
+def jax_to_numpy(tree):
+    return {k: jax_to_numpy(v) if hasattr(v, "items") else np.asarray(v)
+            for k, v in tree.items()}
+
+
+class _IdentityDropout(torch.nn.Module):
+    def forward(self, x, generator=None):
+        return x
+
+
+def identity_dropout():
+    """A stand-in for the port model's dropout (`model.dp1`): there is no
+    RNG shared between the frameworks, so parity tests switch dropout off
+    on both sides."""
+    return _IdentityDropout()
+
+
+def to_torch_pyramid(p):
+    """A JAX Pyramid / SortedPyramid as the port's, on the CPU."""
+    if isinstance(p, jr.SortedPyramid):
+        conv = [None if s is None else t(s, torch.int32) for s in p.starts]
+        return tr.SortedPyramid(
+            [t(x) for x in p.xyz], [t(x, torch.int32) for x in p.neigh_idx],
+            conv, [t(x, torch.int32) for x in p.sub_idx],
+            [t(x, torch.int32) for x in p.interp_idx],
+            t(p.order, torch.int32), t(p.inv, torch.int32),
+            windows=tuple(p.windows))
+    return tr.Pyramid([t(x) for x in p.xyz],
+                      [t(x, torch.int32) for x in p.neigh_idx],
+                      [t(x, torch.int32) for x in p.sub_idx],
+                      [t(x, torch.int32) for x in p.interp_idx])
