@@ -3,7 +3,11 @@ hold each against its plain PyTorch version at the main path's shapes,
 then drive the closed active-learning loop at RandLA-Net S3DIS width
 through the kernels: seed labels, round-1 training with evaluation to
 snap-1, a full-SSDR selection round from the trained snap-1, and round-2
-training from its pseudo-GT to snap-2.
+training from its pseudo-GT to snap-2. Then the exact-KNN engine at the
+same width: a training round with --knn_engine pallas (K6) from the seed
+labels, the standalone evaluation (cli.evaluate) of its snapshot on the
+validation room, and one eval step each on the window_og (K1), approx and
+window-with-K5 (MXU_DISTANCE_DEFAULT) engines.
 
     python3 chip_smoke.py [--profile [PATH]]
 
@@ -45,10 +49,15 @@ KERNELS = {
                      "ssdr_al_tpu/ops/chamfer.py:320"),
     "scatter_window": ("ssdr_al_torch/csrc/scatter_window.cu",
                        "ssdr_al_tpu/ops/gather.py:184"),
+    "window_topk_mxu": ("ssdr_al_torch/csrc/window_topk.cu",
+                        "ssdr_al_tpu/ops/knn.py:326"),
+    "knn_tiled": ("ssdr_al_torch/csrc/knn_tiled.cu",
+                  "ssdr_al_tpu/ops/knn.py:760"),
 }
 ROOMS, ROOM_POINTS, TARGET_SP, BUDGET = 4, 150_000, 2048, 400
 CHAMFER_SHAPE = (8, 256, 512)     # [C, S, P]: one K3 dispatch
 TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 8, 2
+EXACT_EPOCHS, EXACT_STEPS = 1, 4      # the --knn_engine pallas round
 SSDR_ARGS = ["t0", "sb", "clsbal", "gcn_fps", "WetSU", "NAIL", "0.9", "1",
              "1", "0"]
 # H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the tensor
@@ -81,21 +90,27 @@ def cuda_ms(fn, reps):
 
 
 def kernel_counters():
+    """{kernel: (wrapper, attribute holding its launch count)}."""
     from ssdr_al_torch.ops.chamfer import chamfer_sums
     from ssdr_al_torch.ops.gather import gather_window, scatter_window
-    from ssdr_al_torch.ops.knn import window_topk
+    from ssdr_al_torch.ops.knn import knn_tiled, window_topk
 
-    return {"window_topk": window_topk, "gather_window": gather_window,
-            "chamfer_sums": chamfer_sums, "scatter_window": scatter_window}
+    return {"window_topk": (window_topk, "launches"),
+            "gather_window": (gather_window, "launches"),
+            "chamfer_sums": (chamfer_sums, "launches"),
+            "scatter_window": (scatter_window, "launches"),
+            "window_topk_mxu": (window_topk, "launches_mxu"),
+            "knn_tiled": (knn_tiled, "launches")}
 
 
 def reset_counts():
-    for fn in kernel_counters().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in kernel_counters().items()}
 
 
 def require_launched(path, counts, names):
@@ -159,10 +174,110 @@ def check_kernels(cfg, dev):
           f"(plain {plain_ms:.3f} ms, bound {k1_bound[0]:.4f} ms by "
           f"{k1_bound[1]}); k=1 W=1024: equal, {ms1:.3f} ms (plain "
           f"{plain1:.3f} ms, bound {bound1[0]:.4f} ms by {bound1[1]})")
+    # K1 on the window_og path: the self-searches of L0 (W=4096, 48 KB of
+    # shared memory) and of L1 ([8x10240], W=2048); a RandomState of their
+    # own keeps the inputs of the checks below as they were
+    og = {}
+    rng_og = np.random.RandomState(4)
+    for layer, m, w_og in (("L0", n, 4096), ("L1", n // 4, 2048)):
+        x_og = xs if m == n else sorted_batch(rng_og, b, m, dev)
+        st_og = kn.self_query_starts(m, m, w_og, device=dev).expand(
+            b, -1).contiguous()
+        got_og = kn.window_topk(x_og, x_og, st_og, cfg.k_n, w_og)
+        want_og = kn._window_topk_plain(x_og, x_og, st_og, cfg.k_n, w_og,
+                                        kn.QUERY_TILE)
+        if not torch.equal(got_og, want_og):
+            raise AssertionError(f"K1 window_og {layer} W={w_og}: "
+                                 f"{(got_og != want_og).sum().item()} "
+                                 "indices differ from the plain version")
+        ms_og = cuda_ms(lambda: kn.window_topk(x_og, x_og, st_og, cfg.k_n,
+                                               w_og), 20)
+        plain_og = cuda_ms(lambda: kn._window_topk_plain(
+            x_og, x_og, st_og, cfg.k_n, w_og, kn.QUERY_TILE), 3)
+        b_og = bound(nbytes(x_og, st_og, got_og), 9 * b * m * w_og)
+        og[layer] = dict(window=w_og, ms=ms_og, plain_ms=plain_og,
+                         bound_ms=b_og[0])
+        print(f"K1 window_topk window_og {layer} [{b}x{m}] k={cfg.k_n} "
+              f"W={w_og}: equal, {ms_og:.3f} ms (plain {plain_og:.3f} ms, "
+              f"bound {b_og[0]:.4f} ms by {b_og[1]})")
     out["window_topk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=k1_bound[0], bound_by=k1_bound[1],
                               library_ms=None, ms_k1=ms1, plain_ms_k1=plain1,
-                              bound_ms_k1=bound1[0])
+                              bound_ms_k1=bound1[0], window_og=og)
+
+    # K5: K1 with the centred-product distance, at the same two shapes
+    before = kn.window_topk.launches_mxu
+    got5 = kn.window_topk(xs, xs, st, cfg.k_n, w, mxu=True)
+    want5 = kn._window_topk_plain(xs, xs, st, cfg.k_n, w, kn.QUERY_TILE,
+                                  mxu=True)
+    got51 = kn.window_topk(sub, xs, st1, 1, 1024, mxu=True)
+    want51 = kn._window_topk_plain(sub, xs, st1, 1, 1024, kn.QUERY_TILE,
+                                   mxu=True)
+    if kn.window_topk.launches_mxu != before + 2:
+        raise AssertionError("K5 check: the kernel did not launch")
+    if not (torch.equal(got5, want5) and torch.equal(got51, want51)):
+        raise AssertionError(f"K5: {(got5 != want5).sum().item()} + "
+                             f"{(got51 != want51).sum().item()} indices "
+                             "differ from the plain version")
+    err5 = (got5.long() - want5.long()).abs().max().item()
+    ms5 = cuda_ms(lambda: kn.window_topk(xs, xs, st, cfg.k_n, w, mxu=True),
+                  20)
+    plain5 = cuda_ms(lambda: kn._window_topk_plain(
+        xs, xs, st, cfg.k_n, w, kn.QUERY_TILE, mxu=True), 3)
+    ms51 = cuda_ms(lambda: kn.window_topk(sub, xs, st1, 1, 1024, mxu=True),
+                   20)
+    agree5 = (got5 == got).float().mean().item()
+    print(f"K5 window_topk mxu [8x40960] k=16 W={w}: equal, {ms5:.3f} ms "
+          f"(K1 {ms:.3f} ms, plain {plain5:.3f} ms, bound {k1_bound[0]:.4f} "
+          f"ms by {k1_bound[1]}); k=1 W=1024: equal, {ms51:.3f} ms (K1 "
+          f"{ms1:.3f} ms); indices equal to K1's on {agree5:.5f}")
+    out["window_topk_mxu"] = dict(max_abs_err=err5, ms=ms5, plain_ms=plain5,
+                                  bound_ms=k1_bound[0], bound_by=k1_bound[1],
+                                  library_ms=None, ms_k1=ms51,
+                                  agreement_with_k1=agree5)
+
+    # K6 at L0 of the exact pyramid: the [6, 40960] self-search (k=16) and
+    # the 1-NN upsample of 40960 queries against the 10240-point subset;
+    # per (query, candidate) 8 operations of d² and 1 compare
+    bt = cfg.batch_size
+    pts = torch.from_numpy((rng.rand(bt, n, 3) * 6).astype(np.float32)
+                           ).to(dev)
+    sub6 = pts[:, : n // 4].contiguous()
+    got6 = kn.knn_tiled(pts, pts, cfg.k_n)
+    want6 = kn._knn_tiled_plain(pts, pts, cfg.k_n)
+    got6u = kn.knn_tiled(sub6, pts, 1)
+    want6u = kn._knn_tiled_plain(sub6, pts, 1)
+    if not (torch.equal(got6, want6) and torch.equal(got6u, want6u)):
+        raise AssertionError(f"K6: {(got6 != want6).sum().item()} + "
+                             f"{(got6u != want6u).sum().item()} indices "
+                             "differ from the plain version")
+    err6 = (got6.long() - want6.long()).abs().max().item()
+    ms6 = cuda_ms(lambda: kn.knn_tiled(pts, pts, cfg.k_n), 5)
+    plain6 = cuda_ms(lambda: kn._knn_tiled_plain(pts, pts, cfg.k_n), 1)
+    lib6 = cuda_ms(lambda: cdist_topk(pts, pts, cfg.k_n), 2)
+    ms6u = cuda_ms(lambda: kn.knn_tiled(sub6, pts, 1), 5)
+    plain6u = cuda_ms(lambda: kn._knn_tiled_plain(sub6, pts, 1), 1)
+    lib6u = cuda_ms(lambda: cdist_topk(sub6, pts, 1), 2)
+    recall = (cdist_topk(pts, pts, cfg.k_n).sort(-1).values
+              == got6.long().sort(-1).values).float().mean().item()
+    b6 = bound(2 * nbytes(pts) + nbytes(got6), 9 * bt * n * n)
+    b6u = bound(nbytes(sub6, pts, got6u), 9 * bt * n * (n // 4))
+    print(f"K6 knn_tiled [6x40960] k=16: equal, {ms6:.3f} ms (plain "
+          f"{plain6:.3f} ms, cdist+topk {lib6:.3f} ms as two calls, bound "
+          f"{b6[0]:.4f} ms by {b6[1]}); upsample 40960 -> 10240 k=1: equal, "
+          f"{ms6u:.3f} ms (plain {plain6u:.3f} ms, cdist+topk {lib6u:.3f} "
+          f"ms, bound {b6u[0]:.4f} ms by {b6u[1]}); cdist+topk index sets "
+          f"equal on {recall:.5f}")
+    out["knn_tiled"] = dict(max_abs_err=err6, ms=ms6, plain_ms=plain6,
+                            bound_ms=b6[0], bound_by=b6[1], library_ms=lib6,
+                            library_call="torch.topk(torch.cdist(q, s)) in "
+                                         "4096-query chunks (two calls)",
+                            ms_k1=ms6u, plain_ms_k1=plain6u,
+                            bound_ms_k1=b6u[0], library_ms_k1=lib6u)
+    # hand the plain version's and cdist's multi-GB blocks back, so the
+    # paths below start from an allocator state like the earlier checks'
+    del pts, sub6, got6, want6, got6u, want6u
+    torch.cuda.empty_cache()
 
     # K2: the L0 LFA gather of [xyz | 8 features] with the merged windows
     neigh = (torch.repeat_interleave(st, kn.QUERY_TILE, 1)[..., None] + got
@@ -248,6 +363,15 @@ def check_kernels(cfg, dev):
                                ms=cms, plain_ms=cplain, bound_ms=c_bound[0],
                                bound_by=c_bound[1], library_ms=None)
     return out
+
+
+def cdist_topk(support, query, k, chunk=4096):
+    """The library reference for K6: torch.cdist then torch.topk, chunked
+    over queries so the [B, chunk, Ns] distance block fits."""
+    return torch.cat([torch.topk(torch.cdist(query[:, q0:q0 + chunk],
+                                             support), k, dim=-1,
+                                 largest=False).indices
+                      for q0 in range(0, query.shape[1], chunk)], 1)
 
 
 def check_forward_reference(cfg, state, dev):
@@ -383,6 +507,7 @@ def train_round(trainer, round_num, clouds, val, pseudo, seed):
     cfg = trainer.cfg
     pipe = TrainingPipeline(clouds, cfg, pseudo_gt=pseudo, seed=seed)
     losses, step = [], trainer.train_step
+    engine = trainer.knn_engine
 
     def recording(state, batch, gen):
         state, metrics = step(state, batch, gen)
@@ -401,12 +526,12 @@ def train_round(trainer, round_num, clouds, val, pseudo, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     loss = torch.stack(losses).cpu()
-    if len(losses) != TRAIN_EPOCHS * TRAIN_STEPS or \
+    if len(losses) != cfg.max_epoch * cfg.train_steps or \
             not torch.isfinite(loss).all():
         raise AssertionError(f"round {round_num}: losses {loss.tolist()}")
     if not os.path.exists(trainer.snapshot_path(round_num)):
         raise AssertionError(f"round {round_num}: no snap-{round_num}")
-    print(f"round {round_num} training: {len(losses)} steps of "
+    print(f"round {round_num} training ({engine}): {len(losses)} steps of "
           f"[{cfg.batch_size}x{cfg.num_points}], {wall:.3f} s wall with "
           f"evaluation, loss {loss[0]:.4f} -> {loss[-1]:.4f}, best mIoU "
           f"{miou:.4f} OA {oa:.4f}, snap-{round_num} written")
@@ -430,11 +555,11 @@ def al_loop(cfg, dev, work, profile_out=None):
     # --- round 1: train from the seed labels, evaluate, keep snap-1 -------
     trainer = Trainer(cfg, "S3DIS", save_dir=saver(["seed"]), device=dev)
     trainer.init_state()
-    pseudo = {c.name: seed_state.load_pseudo_gt(seed_state.round_dir(1),
-                                                c.name) for c in train}
+    pseudo1 = {c.name: seed_state.load_pseudo_gt(seed_state.round_dir(1),
+                                                 c.name) for c in train}
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    pipe, wall = train_round(trainer, 1, train, val, pseudo, seed=1)
+    pipe, wall = train_round(trainer, 1, train, val, pseudo1, seed=1)
     paths["train_round_1"] = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     print("launches train_round_1 " + json.dumps(paths["train_round_1"]))
@@ -494,6 +619,8 @@ def al_loop(cfg, dev, work, profile_out=None):
                      ("window_topk", "gather_window", "scatter_window"))
     report["train_round_2_wall_s"] = wall
 
+    paths.update(exact_engine_paths(cfg, dev, work, train, val, pseudo1))
+
     if profile_out:
         prof = profile_rounds(cfg, dev, sampler, trainer.eval_step,
                               trainer.state)
@@ -503,6 +630,129 @@ def al_loop(cfg, dev, work, profile_out=None):
             json.dump(prof, f, indent=1)
         print(f"profile written to {profile_out}")
     return paths
+
+
+def exact_engine_paths(cfg, dev, work, train, val, pseudo):
+    """The other KNN engines at full width, each path's launches counted
+    from 0: a --knn_engine pallas training round from the seed labels
+    (EXACT_EPOCHS x EXACT_STEPS at B=6, with an evaluation) to its snap-1;
+    cli.evaluate of that snapshot on the validation room, written as an
+    S3DIS Area_5 room; then one eval step [8x40960] each on window_og
+    (K1), approx (exact knn_xla) and window with MXU_DISTANCE_DEFAULT (K5),
+    printing each engine's class agreement with pallas (K6)."""
+    from ssdr_al_torch.active.state import sampler_args_str
+    from ssdr_al_torch.cli import evaluate
+    from ssdr_al_torch.data.dataset import PossibilityEvalPipeline
+    from ssdr_al_torch.data.ply import write_ply
+    from ssdr_al_torch.models.randlanet import RandLANet
+    from ssdr_al_torch.ops import knn as kn
+    from ssdr_al_torch.train.trainer import Trainer, make_eval_step
+
+    paths = {}
+    cfg_p = dataclasses.replace(cfg, max_epoch=EXACT_EPOCHS,
+                                train_steps=EXACT_STEPS)
+    saver = os.path.join(work, "saver", sampler_args_str(["pallas"]),
+                         "snapshots")
+    trainer = Trainer(cfg_p, "S3DIS", save_dir=saver, knn_engine="pallas",
+                      device=dev)
+    trainer.init_state()
+    reset_counts()
+    pipe, _ = train_round(trainer, 1, train, val, pseudo, seed=3)
+    paths["pallas_train_round"] = read_counts()
+    print("launches pallas_train_round "
+          + json.dumps(paths["pallas_train_round"]))
+    require_launched("pallas_train_round", paths["pallas_train_round"],
+                     ("knn_tiled",))
+    batch = pipe.sample_batch(cfg.batch_size)
+    step_ms = cuda_ms(lambda: trainer.train_step(
+        trainer.train_state, batch, trainer.dropout_gen), 5)
+    print(f"train step --knn_engine pallas [{cfg.batch_size}x"
+          f"{cfg.num_points}] {step_ms:.3f} ms by CUDA events (host upload "
+          "included)")
+
+    data_root = os.path.join(work, "data")
+    room_dir = os.path.join(data_root, "S3DIS", "input_0.040")
+    os.makedirs(room_dir, exist_ok=True)
+    for c in val:
+        write_ply(os.path.join(room_dir, f"Area_5_{c.name}.ply"),
+                  [c.xyz, c.colors, c.labels.astype(np.int32)],
+                  ["x", "y", "z", "red", "green", "blue", "class"])
+    args = evaluate.parser().parse_args([
+        "--device", str(dev), "--data_root", data_root, "--knn_engine",
+        "pallas", "--num_points", str(cfg.num_points), "--snapshot",
+        trainer.snapshot_path(1), "--out", os.path.join(work, "preds")])
+    reset_counts()
+    t0 = time.perf_counter()
+    result = evaluate.run_evaluate(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["pallas_evaluate"] = read_counts()
+    plys = sorted(os.listdir(args.out))
+    print(f"cli.evaluate --knn_engine pallas: {wall:.3f} s wall, wrote "
+          f"{plys}, OA {result['oa']:.4f} mIoU {result['miou']:.4f}")
+    print("launches pallas_evaluate " + json.dumps(paths["pallas_evaluate"]))
+    require_launched("pallas_evaluate", paths["pallas_evaluate"],
+                     ("knn_tiled",))
+    if plys != [f"Area_5_{c.name}.ply" for c in val] or \
+            not 0 <= result["miou"] <= 1:
+        raise AssertionError(f"cli.evaluate wrote {plys}: {result}")
+
+    # a few training steps leave the model predicting one class almost
+    # everywhere; weights spread at O(1) scale make the engines' class
+    # agreement mean something
+    batch = PossibilityEvalPipeline(val, cfg, seed=0).get_batch(8)
+    state = spread_weights(trainer.state, seed=0)
+    model = RandLANet(cfg).to(dev)
+    classes = {}
+    for name, engine, mxu, needs in (
+            ("pallas_eval_step", "pallas", False, "knn_tiled"),
+            ("window_og_eval_step", "window_og", False, "window_topk"),
+            ("approx_eval_step", "approx", False, None),
+            ("window_eval_step", "window", False, "window_topk"),
+            ("mxu_eval_step", "window", True, "window_topk_mxu")):
+        step = make_eval_step(model, cfg, engine, False, device=dev)
+        kn.MXU_DISTANCE_DEFAULT = mxu
+        reset_counts()
+        try:
+            p, f = step(state, batch)
+            torch.cuda.synchronize()
+            paths[name] = read_counts()
+            ms = cuda_ms(lambda: step(state, batch), 3)
+        finally:
+            kn.MXU_DISTANCE_DEFAULT = False
+        if not (torch.isfinite(p).all() and torch.isfinite(f).all()) or \
+                p.shape != (8, cfg.num_points, cfg.num_classes):
+            raise AssertionError(f"{name}: outputs {tuple(p.shape)} bad")
+        if needs:
+            require_launched(name, paths[name], (needs,))
+        classes[name] = p.argmax(-1)
+        agree = {k: (classes[name] == c).float().mean().item()
+                 for k, c in classes.items() if k != name}
+        print(f"{name} [8x{cfg.num_points}]: {ms:.3f} ms by CUDA events "
+              f"(host upload included), {len(classes[name].unique())} "
+              f"classes predicted, class agreement {json.dumps(agree)}; "
+              f"launches " + json.dumps(paths[name]))
+    return paths
+
+
+def spread_weights(state, seed):
+    """state with every float tensor redrawn at O(1) scale: matrices
+    N(0, 2/fan_in), BatchNorm scales and variances U(0.5, 1.5), biases and
+    means N(0, 0.1²)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, v in state.items():
+        if not v.is_floating_point():
+            out[name] = v
+        elif v.dim() == 2:
+            out[name] = torch.randn(v.shape, generator=gen) * (
+                2.0 / v.shape[1]) ** 0.5
+        elif name.endswith("running_var") or (
+                name.endswith("weight") and v.dim() == 1):
+            out[name] = torch.rand(v.shape, generator=gen) + 0.5
+        else:
+            out[name] = torch.randn(v.shape, generator=gen) * 0.1
+    return {k: v.to(state[k].device) for k, v in out.items()}
 
 
 def device_time(prof):

@@ -4,13 +4,17 @@ Ported so far: the closed active-learning loop of the full SSDR
 configuration at RandLA-Net S3DIS width: the seed round, then per round
 restore → TSampler selection (sb / WetSU / clsbal / GCN-FPS / NAIL) →
 retraining on the host pipeline → evaluation → best-mIoU snapshot
-(cli/seed.py, cli/al_loop.py). The TPU's Pallas kernels on that path are
-hand-written CUDA kernels (csrc/, built by kernels/build.py):
+(cli/seed.py, cli/al_loop.py), on every KNN engine, and the standalone
+evaluation (cli/evaluate.py). Every Pallas kernel of the TPU package is a
+hand-written CUDA kernel here (csrc/, built by kernels/build.py):
 
   K1 window top-k search   ops/knn.py::window_topk
   K2 windowed gather       ops/gather.py::gather_window (forward)
   K3 chamfer sums          ops/chamfer.py::chamfer_sums
   K4 windowed scatter-add  ops/gather.py::scatter_window (K2's backward)
+  K5 window top-k, centred-product distance
+                           ops/knn.py::window_topk(mxu=True)
+  K6 exact tiled KNN       ops/knn.py::knn_tiled (the "pallas" engine)
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors. Entry points run on the card unless the caller

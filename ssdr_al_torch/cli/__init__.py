@@ -1,1 +1,2 @@
-"""Command-line entry points of the AL loop (seed round, AL rounds)."""
+"""Command-line entry points: the seed round, AL rounds and the standalone
+evaluation."""

@@ -4,8 +4,8 @@ data/<ds>/<reg_strength>/, plus `--device`, the port's counterpart of
 JAX_PLATFORMS (default: the card).
 
 Flag values whose path is not ported yet raise NotImplementedError naming
-ROADMAP.md: --dataset other than S3DIS, --knn_engine other than window /
-xla, --compute_dtype bfloat16 and --num_devices > 1.
+ROADMAP.md: --dataset other than S3DIS, --compute_dtype bfloat16 and
+--num_devices > 1. Every --knn_engine is ported.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from ssdr_al_torch.data.synthetic import (
     make_dataset,
 )
 from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
+from ssdr_al_torch.models.randlanet import KNN_ENGINES
 from ssdr_al_torch.train.evaluator import Evaluator
 from ssdr_al_torch.train.trainer import Trainer
 
@@ -71,7 +72,7 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--batch_size", type=int, default=0,
                    help="override cfg.batch_size (0 = dataset default)")
     p.add_argument("--knn_engine", type=str, default="window",
-                   choices=["window", "window_og", "approx", "xla", "pallas"])
+                   choices=list(KNN_ENGINES))
     p.add_argument("--compute_dtype", type=str, default="",
                    choices=["", "float32", "bfloat16"],
                    help="activation dtype ('' = float32; bfloat16 is not "
@@ -88,9 +89,6 @@ def check_ported(args):
     """Raise on a flag value whose path the port does not have yet, and on
     --device cuda without a card."""
     resolve_device(getattr(args, "device", DEFAULT_DEVICE))
-    if args.knn_engine not in ("window", "xla"):
-        raise NotImplementedError(f"--knn_engine {args.knn_engine} "
-                                  + NOT_PORTED)
     if getattr(args, "compute_dtype", "") == "bfloat16":
         raise NotImplementedError("--compute_dtype bfloat16 " + NOT_PORTED)
     if getattr(args, "num_devices", 1) > 1:
@@ -103,6 +101,7 @@ class Experiment:
     cfg: Config
     dataset_name: str
     data_path: str          # data/<ds>/<reg_strength>
+    input_path: str         # data/<ds>/input_<grid>
     train_clouds: List[Cloud]
     val_clouds: List[Cloud]
     class_weight_name: str  # key for config.class_weights, or "" for flat
@@ -180,7 +179,7 @@ def setup_experiment(args) -> Experiment:
         cw_name = args.dataset
 
     return Experiment(cfg=cfg, dataset_name=args.dataset,
-                      data_path=data_path,
+                      data_path=data_path, input_path=input_path,
                       train_clouds=train_clouds, val_clouds=val_clouds,
                       class_weight_name=cw_name)
 

@@ -40,6 +40,9 @@ class Config:
     # morton search window of the big (> 16384-point) pyramid layers before
     # the gather-tile derate (models/randlanet.py); a multiple of 512
     search_window: int = 2048
+    # space-filling curve the window engines sort along: "morton" or
+    # "hilbert" (a key of ops.knn.CURVES)
+    curve: str = "morton"
     # --- AL loop ---
     sp_batch_size: int = 10000         # superpoint clicks per round
     al_rounds: Tuple[int, int] = (2, 33)

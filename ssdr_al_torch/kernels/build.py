@@ -9,8 +9,8 @@ a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the cached file. The first call to `library()` builds;
 importing this module builds nothing.
 
-Each wrapper (ops/knn.window_topk, ops/gather.gather_window and
-scatter_window, ops/chamfer.chamfer_sums) passes tensor pointers and the
+Each wrapper (ops/knn.window_topk and knn_tiled, ops/gather.gather_window
+and scatter_window, ops/chamfer.chamfer_sums) passes tensor pointers and the
 current CUDA stream as ctypes.c_void_p and raises if the launcher's
 returned cudaError_t is not 0.
 """
@@ -38,8 +38,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every launcher (all return cudaError_t as int)
 SIGNATURES = {
-    # support, queries, starts, out, B, ns, nq, window, k, tq, stream
-    "window_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # support, queries, starts, out, B, ns, nq, window, k, tq, centered,
+    # stream
+    "window_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # support, query, out, B, ns, nq, k, stream
+    "knn_tiled_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # values, idx, starts, out, B, N, nq, k, C, window, tq, stream
     "gather_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # g, idx, starts, dv, B, N, nq, k, C, window, tq, stream

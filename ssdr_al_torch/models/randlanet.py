@@ -9,10 +9,12 @@ Architecture, parameter shapes and names follow the flax model, so
   fc1 (64) → fc2 (32) = penultimate → fc (classes)
 Every tensor is channels-last ([B, N, C] / [B, N, k, C]) as in JAX.
 
-`build_pyramid` makes the per-layer neighbourhoods on the device:
-engine "window" builds the morton-sorted pyramid (K1 window search, gathers
-through K2, whose backward is K4), batched over B; engine "xla" builds the
-exact original-order pyramid with `knn_xla`. `model.train()` switches
+`build_pyramid` makes the per-layer neighbourhoods on the device, batched
+over B: engine "window" builds the curve-sorted pyramid (K1 window search,
+gathers through K2, whose backward is K4); "window_og" the original-order
+pyramid of per-layer window searches (K1, plain gathers); "xla", "approx"
+and "pallas" the exact original-order pyramid, whose searches are
+`knn_xla` or, for "pallas", kernel K6. `model.train()` switches
 BatchNorm to batch statistics (flax's arithmetic, below) and turns on the
 head's dropout, whose mask comes from the generator passed to forward;
 `model.eval()` uses the running statistics and no dropout.
@@ -35,12 +37,17 @@ from torch import nn
 from ssdr_al_torch.config import Config
 from ssdr_al_torch.ops.gather import gather_window, gather_window_auto
 from ssdr_al_torch.ops.knn import (
+    CURVES,
     QUERY_TILE,
+    SortedCloud,
+    gather_rows,
     invert_permutation,
+    knn,
+    knn_window_sorted,
     knn_window_sorted_raw,
     knn_xla,
-    morton_codes,
     sort_by_codes,
+    sort_cloud,
     window_topk,
 )
 
@@ -250,21 +257,16 @@ class SortedPyramid:
     windows: tuple = ()
 
 
-def _rows(x, idx):
-    """x [B, N, ...] rows at idx [B, M] → [B, M, ...]."""
-    shape = idx.shape + x.shape[2:]
-    flat = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
-    return torch.gather(x, 1, flat.expand(shape))
-
-
 def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
-    """Batched sorted pyramid (randlanet.py:350-460): one morton sort at full
-    resolution; each layer's order is its restriction to the kept subset."""
+    """Batched sorted pyramid (randlanet.py:350-460): one sort along
+    cfg.curve at full resolution; each layer's order is its restriction to
+    the kept subset."""
     b = xyz.shape[0]
     dev = xyz.device
     lo = xyz.amin(1, keepdim=True)
     hi = xyz.amax(1, keepdim=True)
-    _, order, cur_x = sort_by_codes(morton_codes(xyz, lo, hi), xyz)
+    codes = CURVES[cfg.curve](xyz, lo, hi)
+    _, order, cur_x = sort_by_codes(codes, xyz)
     inv = invert_permutation(order)
     cur_r = order                   # original-layer rank of each sorted row
     xyzs, neighs, starts_l, subs, interps, windows = [], [], [], [], [], []
@@ -277,7 +279,9 @@ def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
                                  f"not a multiple of {GATHER_TQ}")
             sw = cfg.search_window
             w = (sw if n > 16384 else sw // 2) - (GATHER_TQ - QUERY_TILE)
-            neigh, sts = knn_window_sorted_raw(cur_x, n, cfg.k_n, window=w)
+            sc = SortedCloud(cur_x, None, None, n)
+            neigh, sts = knn_window_sorted_raw(sc, sc, cfg.k_n, window=w,
+                                               self_query=True)
             # a gather tile merges GATHER_TQ/256 search tiles, so its window
             # widens by their start spread (self-query starts step ≤ 256)
             w_g = w + (GATHER_TQ - QUERY_TILE)
@@ -286,7 +290,9 @@ def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
             w = w_g
         elif 2048 <= n <= 4096 and n % GATHER_TQ == 0:
             # the window covers the whole sorted layer
-            neigh, _ = knn_window_sorted_raw(cur_x, n, cfg.k_n, window=n)
+            sc = SortedCloud(cur_x, None, None, n)
+            neigh, _ = knn_window_sorted_raw(sc, sc, cfg.k_n, window=n,
+                                             self_query=True)
             sts = torch.zeros((b, n // GATHER_TQ), dtype=torch.int32,
                               device=dev)
             w = n
@@ -298,9 +304,9 @@ def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
         kept = cur_r < n_sub
         ar = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
         kept_pos = torch.sort(torch.where(kept, ar, n), dim=1).values[:, :n_sub]
-        nxt_x = _rows(cur_x, kept_pos).contiguous()
-        nxt_r = _rows(cur_r, kept_pos)
-        pool_i = _rows(neigh, kept_pos).contiguous()
+        nxt_x = gather_rows(cur_x, kept_pos).contiguous()
+        nxt_r = gather_rows(cur_r, kept_pos)
+        pool_i = gather_rows(neigh, kept_pos).contiguous()
         if n_sub > 2048 and n % 256 == 0 and n_sub % 128 == 0:
             # 1-NN upsample: each query's rank in the kept subset is an
             # exact cumsum, so tile starts need no search
@@ -327,33 +333,82 @@ def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
                          windows=tuple(windows))
 
 
-def _pyramid_exact(xyz, cfg: Config) -> Pyramid:
+def _pyramid_window_og(xyz, cfg: Config) -> Pyramid:
+    """Window-search pyramid in original order (randlanet.py:299-347,
+    engine "window_og"): each big layer is sorted once along cfg.curve and
+    that view serves its self-search (window 4096 above 16384 points, else
+    2048) and, as the query cloud, the next layer's 1-NN upsample search
+    (window 1024); layers of ≤ 4096 points (or kept subsets of ≤ 2048)
+    take knn_xla."""
+    lo = xyz.amin(1, keepdim=True)
+    hi = xyz.amax(1, keepdim=True)
+    xyzs, neighs, subs, interps = [], [], [], []
+    cur, sorted_cur = xyz, None
+    for i in range(cfg.num_layers):
+        n = cur.shape[1]
+        n_sub = n // cfg.sub_sampling_ratio[i]
+        if n > 4096:
+            if sorted_cur is None:
+                sorted_cur = sort_cloud(cur, lo, hi, curve=cfg.curve)
+            neigh = knn_window_sorted(sorted_cur, sorted_cur, cfg.k_n,
+                                      window=4096 if n > 16384 else 2048,
+                                      self_query=True)
+        else:
+            neigh = knn_xla(cur, cur, cfg.k_n)
+        sub_points = cur[:, :n_sub]
+        if n_sub > 2048:
+            sorted_sub = sort_cloud(sub_points, lo, hi, curve=cfg.curve)
+            if sorted_cur is None:
+                sorted_cur = sort_cloud(cur, lo, hi, curve=cfg.curve)
+            up = knn_window_sorted(sorted_sub, sorted_cur, 1, window=1024)
+        else:
+            sorted_sub = None
+            up = knn_xla(sub_points, cur, 1)
+        xyzs.append(cur)
+        neighs.append(neigh)
+        subs.append(neigh[:, :n_sub])
+        interps.append(up)
+        cur, sorted_cur = sub_points, sorted_sub
+    return Pyramid(xyzs, neighs, subs, interps)
+
+
+def _pyramid_exact(xyz, cfg: Config, engine: str) -> Pyramid:
+    """The generic pyramid (randlanet.py:484-498): every layer's self-search
+    and upsample through knn(..., engine)."""
     xyzs, neighs, subs, interps = [], [], [], []
     cur = xyz
     for i in range(cfg.num_layers):
         n_sub = cur.shape[1] // cfg.sub_sampling_ratio[i]
-        neigh = knn_xla(cur, cur, cfg.k_n)
+        neigh = knn(cur, cur, cfg.k_n, engine=engine)
         sub_points = cur[:, :n_sub]
         xyzs.append(cur)
         neighs.append(neigh)
         subs.append(neigh[:, :n_sub])
-        interps.append(knn_xla(sub_points, cur, 1))
+        interps.append(knn(sub_points, cur, 1, engine=engine))
         cur = sub_points
     return Pyramid(xyzs, neighs, subs, interps)
 
 
+KNN_ENGINES = ("window", "window_og", "xla", "approx", "pallas")
+
+
 def build_pyramid(xyz: torch.Tensor, cfg: Config, *, engine: str = "window"):
     """Per-layer neighbourhoods of xyz [B, N, 3] (already shuffled, so the
-    prefix of each layer is RandLA-Net's random subsample).
+    prefix of each layer is RandLA-Net's random subsample), as JAX builds
+    them on the TPU.
 
     engine "window": SortedPyramid through the window search (K1 on CUDA,
-    its plain version on CPU). engine "xla": exact Pyramid, original order."""
+    its plain version on CPU). "window_og": Pyramid in original order from
+    per-layer window searches. "xla", "approx", "pallas": exact Pyramid in
+    original order ("approx" is served exactly; "pallas" searches with K6)."""
     xyz = xyz.float().contiguous()
     if engine == "window":
         return _pyramid_sorted(xyz, cfg)
-    if engine == "xla":
-        return _pyramid_exact(xyz, cfg)
-    raise ValueError(f"unknown knn engine {engine!r}")
+    if engine == "window_og":
+        return _pyramid_window_og(xyz, cfg)
+    if engine in ("xla", "approx", "pallas"):
+        return _pyramid_exact(xyz, cfg, engine)
+    raise ValueError(f"unknown knn engine {engine!r}; options: {KNN_ENGINES}")
 
 
 class RandLANet(nn.Module):
@@ -390,7 +445,7 @@ class RandLANet(nn.Module):
         a sorted pyramid leaves the outputs in morton-sorted row order."""
         sorted_mode = isinstance(pyramid, SortedPyramid)
         if sorted_mode:
-            features = _rows(features, pyramid.order)
+            features = gather_rows(features, pyramid.order)
         f = leaky_relu(self.fc0_bn(self.fc0(features.float())))
         f_encoder_list = []
         for i, enc in enumerate(self.encoder):
@@ -410,8 +465,8 @@ class RandLANet(nn.Module):
         penultimate = self.fc2(self.fc1(f))
         logits = self.fc(self.dp1(penultimate, generator))
         if sorted_mode and unsort:
-            logits = _rows(logits, pyramid.inv)
-            penultimate = _rows(penultimate, pyramid.inv)
+            logits = gather_rows(logits, pyramid.inv)
+            penultimate = gather_rows(penultimate, pyramid.inv)
         return logits, penultimate
 
 

@@ -1,1 +1,2 @@
-"""Morton sort, window KNN (K1), windowed gather (K2), chamfer (K3), segments, FPS."""
+"""Curve sorts and KNN (K1, K5, K6), windowed gather (K2, K4), chamfer (K3),
+segments, FPS."""

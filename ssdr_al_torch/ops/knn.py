@@ -1,27 +1,51 @@
-"""K-nearest-neighbour search: morton sort, exact KNN and the window kernel K1.
+"""K-nearest-neighbour search (counterpart of ssdr_al_tpu/ops/knn.py).
 
-Counterpart of ssdr_al_tpu/ops/knn.py, slice part: the morton codes and the
-stable payload sort that put a cloud in z-order, the exact search `knn_xla`
-(used for the small pyramid layers and for the "xla" engine), and the
-window search `knn_window_sorted_raw`, whose per-tile top-k runs in the
-hand-written CUDA kernel K1 (csrc/window_topk.cu) on CUDA tensors and in
-`_window_topk_plain` on CPU tensors.
+Each search returns int32 indices [B, Nq, k], ascending by squared
+distance:
+
+  knn_window_sorted(_raw) — space-filling-curve window search between
+               clouds sorted along the morton (or Hilbert) curve by
+               `sort_cloud`: each 256-query tile searches one window of the
+               sorted support through the window kernel (K1, or K5 with the
+               centred-product distance).
+  knn_tiled  — exact brute force, the counterpart of knn_pallas: kernel K6
+               streams the support through shared memory and keeps a
+               register top-k per query.
+  knn_xla    — exact, in the matmul form of the JAX engine (dense products
+               and torch.topk), for the small pyramid layers.
+  knn_approx — the TPU's approx_min_k path; served with exact knn_xla here.
+
+The exact searches take support [B, Ns, 3] and query [B, Nq, 3] f32.
+The sorted-space helpers let the model pyramid search, pool and upsample
+on one sort per layer. Kernels run on CUDA tensors (csrc/window_topk.cu,
+csrc/knn_tiled.cu); CPU tensors take each kernel's plain PyTorch version,
+which computes the same distances in the same order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Optional
 
 import torch
 
 from ssdr_al_torch.kernels import build as _kb
 
 QUERY_TILE = 256   # queries per K1 tile (the TPU kernel's query_chunk)
-KERNEL_K = (1, 16)  # the widths K1 is built for: the 1-NN upsample and k_n
+KERNEL_K = (1, 16)  # the widths K1, K5 and K6 are built for: the 1-NN
+                    # upsample and k_n
+SENTINEL = 3e18    # coordinate of the pad rows of a sorted cloud
+# K5 (centred-product distance) in place of K1 for window searches that do
+# not choose; off, as ssdr_al_tpu/ops/knn.py::_MXU_DISTANCE_DEFAULT
+MXU_DISTANCE_DEFAULT = False
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+# --------------------------------------------------- space-filling curves ---
 
 
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
@@ -45,6 +69,48 @@ def morton_codes(xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             | (_part1by2(q[..., 2]) << 2))
 
 
+def _hilbert_transpose(q: torch.Tensor, bits: int):
+    """Skilling's AxestoTranspose for 3 axes, vectorised over points:
+    q [..., 3] int32 in [0, 2**bits) → the 3 transposed-index planes."""
+    x = [q[..., 0], q[..., 1], q[..., 2]]
+    big = 1 << (bits - 1)
+    b = big
+    while b > 1:
+        p = b - 1
+        x[0] = torch.where((x[0] & b) != 0, x[0] ^ p, x[0])
+        for i in (1, 2):
+            cond = (x[i] & b) != 0
+            t = (x[0] ^ x[i]) & p
+            x0, xi = x[0], x[i]
+            x[0] = torch.where(cond, x0 ^ p, x0 ^ t)
+            x[i] = torch.where(cond, xi, xi ^ t)
+        b >>= 1
+    x[1] = x[1] ^ x[0]
+    x[2] = x[2] ^ x[1]
+    t = torch.zeros_like(x[0])
+    b = big
+    while b > 1:
+        t = torch.where((x[2] & b) != 0, t ^ (b - 1), t)
+        b >>= 1
+    return [v ^ t for v in x]
+
+
+def hilbert_codes(xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                  bits: int = 10) -> torch.Tensor:
+    """30-bit Hilbert-curve codes over the [lo, hi] box, bit for bit those
+    of ssdr_al_tpu's hilbert_codes (an alternative to morton_codes for the
+    window engines, Config.curve="hilbert")."""
+    span = torch.clamp(hi - lo, min=1e-9)
+    top = (1 << bits) - 1
+    q = torch.clamp(((xyz - lo) / span * top).to(torch.int32), 0, top)
+    x0, x1, x2 = _hilbert_transpose(q, bits)
+    return (_part1by2(x0) << 2) | (_part1by2(x1) << 1) | _part1by2(x2)
+
+
+# the sort curves of the window engines, chosen by Config.curve
+CURVES = {"morton": morton_codes, "hilbert": hilbert_codes}
+
+
 def sort_by_codes(codes: torch.Tensor, xyz: torch.Tensor):
     """Stable sort along the last point axis → (codes_sorted, order,
     xyz_sorted). codes [..., N]; xyz [..., N, 3]. Ties keep input order,
@@ -61,6 +127,13 @@ def invert_permutation(order: torch.Tensor) -> torch.Tensor:
     ar = torch.arange(order.shape[-1], device=order.device).expand_as(order)
     inv.scatter_(-1, order, ar)
     return inv.to(torch.int32)
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, N, ...] rows at idx [B, M] → [B, M, ...]."""
+    shape = idx.shape + x.shape[2:]
+    flat = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, flat.expand(shape))
 
 
 # ---------------------------------------------------------------- exact ---
@@ -96,11 +169,85 @@ def knn_xla(support: torch.Tensor, query: torch.Tensor, k: int, *,
     return out
 
 
+def knn_approx(support: torch.Tensor, query: torch.Tensor,
+               k: int) -> torch.Tensor:
+    """The "approx" engine name. JAX serves it with the TPU's approx_min_k
+    (≥ 0.99 recall); there is no such hardware path here, so the port
+    answers it exactly with knn_xla."""
+    return knn_xla(support, query, k)
+
+
+def _sq_dist(qx, qy, qz, sx, sy, sz):
+    """(dx·dx + dy·dy) + dz·dz, each operation rounded on its own (no FMA),
+    as the kernels compute it."""
+    dx, dy, dz = qx - sx, qy - sy, qz - sz
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def _knn_tiled_plain(support, query, k, query_chunk=1024):
+    """Plain PyTorch version of K6: per chunk of queries the distances to
+    the whole support, then a stable sort."""
+    b, ns, _ = support.shape
+    nq = query.shape[1]
+    kk = min(k, ns)
+    out = torch.zeros((b, nq, k), dtype=torch.int32, device=support.device)
+    for bi in range(b):
+        s = support[bi]
+        for q0 in range(0, nq, query_chunk):
+            q = query[bi, q0:q0 + query_chunk]
+            d2 = _sq_dist(q[:, None, 0], q[:, None, 1], q[:, None, 2],
+                          s[None, :, 0], s[None, :, 1], s[None, :, 2])
+            idx = torch.sort(d2, dim=-1, stable=True).indices[:, :kk]
+            out[bi, q0:q0 + query_chunk, :kk] = idx.to(torch.int32)
+    return out
+
+
+def knn_tiled(support: torch.Tensor, query: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """K6: exact KNN, the counterpart of ssdr_al_tpu's knn_pallas.
+
+    support [B, Ns, 3] f32, query [B, Nq, 3] f32 → int32 [B, Nq, k],
+    ascending by (d², support index) with d² = (dx·dx + dy·dy) + dz·dz in
+    f32 without FMA (the broadcast-subtraction form of the TPU kernel).
+    Ties go to the lower support index; with Ns < k the slots past Ns hold
+    index 0. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (csrc/knn_tiled.cu), for k in KERNEL_K."""
+    if support.dim() != 3 or query.dim() != 3 or support.shape[-1] != 3 \
+            or query.shape[-1] != 3 or support.shape[0] != query.shape[0]:
+        raise ValueError(f"knn_tiled: bad shapes {tuple(support.shape)} "
+                         f"{tuple(query.shape)}")
+    if support.device.type == "cpu":
+        return _knn_tiled_plain(support.float(), query.float(), k)
+    if support.dtype != torch.float32 or query.dtype != torch.float32:
+        raise TypeError("knn_tiled: float32 points")
+    support, query = support.contiguous(), query.contiguous()
+    _kb.require_cuda("knn_tiled", support, query)
+    if k not in KERNEL_K:
+        raise ValueError(f"knn_tiled: the kernel is built for k in "
+                         f"{KERNEL_K}, not {k}")
+    b, ns, _ = support.shape
+    nq = query.shape[1]
+    out = torch.empty((b, nq, k), dtype=torch.int32, device=support.device)
+    if nq == 0:
+        return out
+    err = _kb.library().knn_tiled_launch(
+        support.data_ptr(), query.data_ptr(), out.data_ptr(), b, ns, nq, k,
+        ctypes.c_void_p(_kb.stream_ptr(support.device)))
+    _kb.check(err, "knn_tiled")
+    knn_tiled.launches += 1
+    return out
+
+
+knn_tiled.launches = 0
+
+
 # --------------------------------------------------------- window search ---
 
 
-def _window_topk_plain(support, queries, starts, k, window, tq):
-    """Plain PyTorch version of K1: same distances, same order."""
+def _window_topk_plain(support, queries, starts, k, window, tq, mxu=False):
+    """Plain PyTorch version of K1 (mxu=False) and K5 (mxu=True): same
+    distances, same order. K5's d² is max(−2·q'·s' + (|s'|² + |q'|²), 0)
+    with q' = q − c, s' = s − c and c the window's first support point."""
     b, ns, _ = support.shape
     nq = queries.shape[1]
     tiles = nq // tq
@@ -110,10 +257,23 @@ def _window_topk_plain(support, queries, starts, k, window, tq):
     for bi in range(b):
         win = support[bi][st[bi][:, None] + ar[None, :]]           # [T, W, 3]
         qs = queries[bi].reshape(tiles, tq, 3)
-        dx = qs[:, :, None, 0] - win[:, None, :, 0]
-        dy = qs[:, :, None, 1] - win[:, None, :, 1]
-        dz = qs[:, :, None, 2] - win[:, None, :, 2]
-        d2 = dx * dx + dy * dy + dz * dz                           # [T, tq, W]
+        if mxu:
+            c = win[:, :1, :]
+            sc, qc = win - c, qs - c
+            s2 = (sc[..., 0] * sc[..., 0] + sc[..., 1] * sc[..., 1]) \
+                + sc[..., 2] * sc[..., 2]                          # [T, W]
+            q2 = (qc[..., 0] * qc[..., 0] + qc[..., 1] * qc[..., 1]) \
+                + qc[..., 2] * qc[..., 2]                          # [T, tq]
+            m = qc * -2.0
+            cross = (m[:, :, None, 0] * sc[:, None, :, 0]
+                     + m[:, :, None, 1] * sc[:, None, :, 1]) \
+                + m[:, :, None, 2] * sc[:, None, :, 2]             # [T, tq, W]
+            d2 = torch.clamp(cross + (s2[:, None, :] + q2[:, :, None]),
+                             min=0.0)
+        else:
+            d2 = _sq_dist(qs[:, :, None, 0], qs[:, :, None, 1],
+                          qs[:, :, None, 2], win[:, None, :, 0],
+                          win[:, None, :, 1], win[:, None, :, 2])
         _, idx = torch.sort(d2, dim=-1, stable=True)
         out[bi] = idx[..., :k].reshape(nq, k).to(torch.int32)
     return out
@@ -121,23 +281,29 @@ def _window_topk_plain(support, queries, starts, k, window, tq):
 
 def window_topk(support: torch.Tensor, queries: torch.Tensor,
                 starts: torch.Tensor, k: int, window: int,
-                tq: int = QUERY_TILE) -> torch.Tensor:
-    """K1: per query tile t, the k nearest of support[b, s:s+window] with
-    s = starts[b, t], as window-relative ranks.
+                tq: int = QUERY_TILE, mxu: Optional[bool] = None
+                ) -> torch.Tensor:
+    """K1 / K5: per query tile t, the k nearest of support[b, s:s+window]
+    with s = starts[b, t], as window-relative ranks.
 
     support [B, Ns, 3] f32, queries [B, Nq, 3] f32, starts [B, Nq/tq] i32
     → [B, Nq, k] i32, ascending by squared distance, ties to the lower rank.
-    CPU tensors take the plain version; CUDA tensors launch the kernel, for
-    k in KERNEL_K."""
+    mxu=True takes K5's centred-product distance, False K1's difference
+    form, None MXU_DISTANCE_DEFAULT. CPU tensors take the plain version;
+    CUDA tensors launch the kernel, for k in KERNEL_K, and count it in
+    `window_topk.launches` (K1) or `window_topk.launches_mxu` (K5)."""
     b, ns, _ = support.shape
     nq = queries.shape[1]
+    if mxu is None:
+        mxu = MXU_DISTANCE_DEFAULT
     if queries.shape[0] != b or starts.shape != (b, nq // tq) or nq % tq:
         raise ValueError(f"window_topk: bad shapes {support.shape} "
                          f"{queries.shape} {starts.shape} tq={tq}")
     if not 1 <= k <= 16 or not k <= window <= ns:
         raise ValueError(f"window_topk: k={k} window={window} ns={ns}")
     if support.device.type == "cpu":
-        return _window_topk_plain(support, queries, starts, k, window, tq)
+        return _window_topk_plain(support, queries, starts, k, window, tq,
+                                  mxu)
     if support.dtype != torch.float32 or queries.dtype != torch.float32 \
             or starts.dtype != torch.int32:
         raise TypeError("window_topk: float32 points and int32 starts")
@@ -146,17 +312,58 @@ def window_topk(support: torch.Tensor, queries: torch.Tensor,
         raise ValueError(f"window_topk: the kernel is built for k in "
                          f"{KERNEL_K}, not {k}")
     out = torch.empty((b, nq, k), dtype=torch.int32, device=support.device)
-    lib = _kb.library()
-    err = lib.window_topk_launch(
+    err = _kb.library().window_topk_launch(
         support.data_ptr(), queries.data_ptr(), starts.data_ptr(),
-        out.data_ptr(), b, ns, nq, window, k, tq,
+        out.data_ptr(), b, ns, nq, window, k, tq, int(mxu),
         ctypes.c_void_p(_kb.stream_ptr(support.device)))
     _kb.check(err, "window_topk")
-    window_topk.launches += 1
+    if mxu:
+        window_topk.launches_mxu += 1
+    else:
+        window_topk.launches += 1
     return out
 
 
 window_topk.launches = 0
+window_topk.launches_mxu = 0
+
+
+@dataclasses.dataclass
+class SortedCloud:
+    """Clouds sorted along a space-filling curve, reusable across several
+    window searches (a pyramid layer is self-support, self-query and
+    up-query at once).
+
+    xyz_sorted [B, N_pad, 3] (rows past n_real are SENTINEL pad rows);
+    order [B, n_real] int32, the original index of each sorted row (None
+    where no caller maps back); codes_sorted [B, n_real] (None for a
+    self-query-only cloud, whose window starts need no codes)."""
+
+    xyz_sorted: torch.Tensor
+    order: Optional[torch.Tensor]
+    codes_sorted: Optional[torch.Tensor]
+    n_real: int
+
+
+def pad_rows(xyz: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """xyz [B, N, 3] with SENTINEL rows appended up to n_pad."""
+    b, n, _ = xyz.shape
+    if n_pad == n:
+        return xyz
+    pad = torch.full((b, n_pad - n, 3), SENTINEL, dtype=xyz.dtype,
+                     device=xyz.device)
+    return torch.cat([xyz, pad], dim=1)
+
+
+def sort_cloud(xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+               pad_to: int = 128, curve: str = "morton") -> SortedCloud:
+    """Sort xyz [B, N, 3] along the curve (a key of CURVES) over the
+    [lo, hi] box ([B, 1, 3]) and pad to a multiple of pad_to rows."""
+    codes = CURVES[curve](xyz, lo, hi)
+    codes_s, order, xyz_s = sort_by_codes(codes, xyz)
+    n = xyz.shape[1]
+    return SortedCloud(pad_rows(xyz_s, _round_up(n, pad_to)).contiguous(),
+                       order, codes_s, n)
 
 
 def self_query_starts(n_pad: int, ns_pad: int, window: int,
@@ -169,27 +376,86 @@ def self_query_starts(n_pad: int, ns_pad: int, window: int,
     return (starts // 128) * 128
 
 
-def knn_window_sorted_raw(xyz_sorted: torch.Tensor, n: int, k: int, *,
-                          window: int = 2048,
-                          query_chunk: int = QUERY_TILE):
-    """Self-query window KNN on morton-sorted clouds, staying in sorted space.
+def median_floor(x: torch.Tensor) -> torch.Tensor:
+    """jnp.median(x, axis=-1).astype(int32) for non-negative ints: the mean
+    of the two middle values of an even-length row, truncated (torch.median
+    would return the lower middle value)."""
+    s = torch.sort(x, dim=-1).values
+    m = s.shape[-1]
+    return (s[..., (m - 1) // 2] + s[..., m // 2]) // 2
 
-    xyz_sorted [B, N_pad, 3] (rows past n are sentinels at 3e18). Returns
-    (idx [B, n, k] into the sorted rows, starts [B, n_pad/tq]) with
+
+def _pad_last(x: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """x [B, N, ...] padded to n_pad rows by repeating row N − 1."""
+    n = x.shape[1]
+    if n_pad == n:
+        return x
+    tail = x[:, n - 1:n].expand((x.shape[0], n_pad - n) + x.shape[2:])
+    return torch.cat([x, tail], dim=1)
+
+
+def knn_window_sorted_raw(sup: SortedCloud, qry: SortedCloud, k: int, *,
+                          query_chunk: int = QUERY_TILE, window: int = 2048,
+                          self_query: bool = False,
+                          mxu: Optional[bool] = None):
+    """Window KNN between sorted clouds, staying in sorted space.
+
+    Returns (idx [B, nq, k] into the support's sorted rows, rows in the
+    query's sorted order; starts [B, nq_pad / query_chunk]) with
     idx[tile t] ∈ [starts[t], starts[t] + window): the invariant
-    ops.gather.gather_window relies on. Only self-query starts are ported;
-    they are what the sorted pyramid uses (models/randlanet.py)."""
-    b, ns_pad, _ = xyz_sorted.shape
-    nq_pad = _round_up(n, query_chunk)
-    q = xyz_sorted[:, :n]
-    if nq_pad > n:
-        q = torch.cat([q, q[:, n - 1:n].expand(b, nq_pad - n, 3)], dim=1)
-    starts = self_query_starts(nq_pad, ns_pad, window, query_chunk,
-                               xyz_sorted.device).expand(b, -1).contiguous()
-    rel = window_topk(xyz_sorted.contiguous(), q.contiguous(), starts, k,
-                      window, query_chunk)
+    ops.gather.gather_window relies on. A self-search (support IS the
+    query cloud) centres tile t on its own ranks; otherwise each query's
+    rank is its searchsorted position in the support's codes and a tile
+    centres on the median of its ranks (jnp.median's: the truncated mean
+    of the two middle values). Starts are clipped to [0, ns_pad − window]
+    and aligned down to 128."""
+    b, ns_pad, _ = sup.xyz_sorted.shape
+    ns, nq = sup.n_real, qry.n_real
+    nq_pad = _round_up(nq, query_chunk)
+    q = _pad_last(qry.xyz_sorted[:, :nq], nq_pad).contiguous()
+    dev = sup.xyz_sorted.device
+    if self_query:
+        starts = self_query_starts(nq_pad, ns_pad, window, query_chunk, dev)
+        starts = starts.expand(b, -1).contiguous()
+    else:
+        q_codes = _pad_last(qry.codes_sorted, nq_pad)
+        pos = torch.searchsorted(sup.codes_sorted.contiguous(),
+                                 q_codes.contiguous())
+        pos_med = median_floor(pos.reshape(b, -1, query_chunk))
+        starts = torch.clamp(pos_med - window // 2, 0, ns_pad - window)
+        starts = ((starts // 128) * 128).to(torch.int32).contiguous()
+    rel = window_topk(sup.xyz_sorted.contiguous(), q, starts, k, window,
+                      query_chunk, mxu)
     out = torch.repeat_interleave(starts, query_chunk, dim=1)[..., None] + rel
     # sentinel picks (only when the last window overhangs the pad rows)
     # clamp to the last real row, which stays inside that window
-    out = torch.clamp(out, max=n - 1)
-    return out[:, :n], starts
+    out = torch.clamp(out, max=ns - 1)
+    return out[:, :nq], starts
+
+
+def knn_window_sorted(sup: SortedCloud, qry: SortedCloud, k: int, *,
+                      query_chunk: int = QUERY_TILE, window: int = 2048,
+                      self_query: bool = False) -> torch.Tensor:
+    """Window KNN between sorted clouds; indices in the ORIGINAL support
+    order, rows in the ORIGINAL query order."""
+    out_sorted, _ = knn_window_sorted_raw(
+        sup, qry, k, query_chunk=query_chunk, window=window,
+        self_query=self_query)
+    b, nq, _ = out_sorted.shape
+    out = torch.gather(sup.order.long(), 1,
+                       out_sorted.reshape(b, -1).long()).reshape(b, nq, k)
+    return gather_rows(out, invert_permutation(qry.order)).to(torch.int32)
+
+
+def knn(support: torch.Tensor, query: torch.Tensor, k: int, *,
+        engine: str = "xla") -> torch.Tensor:
+    """KNN by the name of an exact engine: "xla", "approx" (served exact)
+    or "pallas" (kernel K6). The window engines search sorted clouds and
+    are built into the pyramid (models/randlanet.py::build_pyramid)."""
+    if engine == "xla":
+        return knn_xla(support, query, k)
+    if engine == "approx":
+        return knn_approx(support, query, k)
+    if engine == "pallas":
+        return knn_tiled(support, query, k)
+    raise ValueError(f"unknown knn engine {engine!r}")

@@ -28,6 +28,7 @@ from torch.func import functional_call
 from ssdr_al_torch.config import Config, class_weights as get_class_weights
 from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
 from ssdr_al_torch.models.randlanet import (
+    KNN_ENGINES,
     RandLANet,
     SortedPyramid,
     build_pyramid,
@@ -153,7 +154,8 @@ def make_eval_step(model: RandLANet, cfg: Config, knn_engine: str = "window",
     sorted_outputs=True adds `order` [B, N] int32 and, on a sorted pyramid,
     leaves probs and penult in morton-sorted row order (row r is input row
     order[r]); callers permute their host index maps instead of the device
-    rows. On an exact pyramid (engine "xla") order is the identity."""
+    rows. On an original-order Pyramid (every engine but "window") order
+    is the identity."""
     device = resolve_device(device)
 
     def eval_step(state, batch):
@@ -202,8 +204,12 @@ class Trainer:
                  log_fn: Callable[[str], None] = print,
                  weights: Optional[np.ndarray] = None,
                  device: torch.device | str = DEFAULT_DEVICE):
+        if knn_engine not in KNN_ENGINES:
+            raise ValueError(f"unknown knn engine {knn_engine!r}; options: "
+                             f"{KNN_ENGINES}")
         self.cfg = cfg
         self.dataset_name = dataset_name
+        self.knn_engine = knn_engine
         self.save_dir = save_dir
         self.seed_save_dir = seed_save_dir
         self.log = log_fn

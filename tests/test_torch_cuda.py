@@ -55,6 +55,42 @@ def test_window_topk_refuses_unbuilt_k(dev):
         kn.window_topk(xs, xs, starts.contiguous(), 4, 512)
 
 
+@pytest.mark.parametrize("n,window,k", [(40960, 1792, 16), (10240, 4096, 16),
+                                        (10240, 1024, 1)])
+def test_window_topk_mxu_matches_plain(dev, n, window, k):
+    """K5 (centred-product distance) equals its plain version index for
+    index, counted apart from K1."""
+    xs = _sorted_cloud(np.random.RandomState(4), 2, n)
+    starts = kn.self_query_starts(n, n, window).expand(2, -1).contiguous()
+    want = kn.window_topk(xs, xs, starts, k, window, mxu=True)
+    before = (kn.window_topk.launches, kn.window_topk.launches_mxu)
+    got = kn.window_topk(xs.to(dev), xs.to(dev), starts.to(dev), k, window,
+                         mxu=True)
+    torch.cuda.synchronize()
+    assert (kn.window_topk.launches, kn.window_topk.launches_mxu) == \
+        (before[0], before[1] + 1)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,ns,nq,k", [(2, 40960, 40960, 16),
+                                       (2, 10240, 40960, 1),
+                                       (1, 300, 130, 16), (1, 5, 40, 16)])
+def test_knn_tiled_matches_plain(dev, b, ns, nq, k):
+    """K6 equals its plain version index for index (the plain version runs
+    on the card too at these sizes), ragged tiles and Ns < k included."""
+    rng = np.random.RandomState(5)
+    s = torch.from_numpy((rng.rand(b, ns, 3) * 6).astype(np.float32)).to(dev)
+    q = torch.from_numpy((rng.rand(b, nq, 3) * 6).astype(np.float32)).to(dev)
+    want = kn._knn_tiled_plain(s, q, k)
+    before = kn.knn_tiled.launches
+    got = kn.knn_tiled(s, q, k)
+    torch.cuda.synchronize()
+    assert kn.knn_tiled.launches == before + 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="built for k"):
+        kn.knn_tiled(s, q, 4)
+
+
 @pytest.mark.parametrize("c,window,tq", [(11, 2048, 512), (32, 4096, 128),
                                          (64, 2560, 512)])
 def test_gather_window_matches_plain(dev, c, window, tq):

@@ -31,7 +31,10 @@ def test_every_submodule_is_listed():
                  "ssdr_al_torch.train.trainer",
                  "ssdr_al_torch.train.evaluator",
                  "ssdr_al_torch.train.metrics", "ssdr_al_torch.cli.common",
-                 "ssdr_al_torch.cli.seed", "ssdr_al_torch.cli.al_loop"):
+                 "ssdr_al_torch.cli.seed", "ssdr_al_torch.cli.al_loop",
+                 "ssdr_al_torch.cli.evaluate",
+                 "ssdr_al_torch.train.cross_val",
+                 "ssdr_al_torch.utils.visualize"):
         assert name in SUBMODULES
 
 

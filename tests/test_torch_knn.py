@@ -97,10 +97,12 @@ def test_knn_window_sorted_raw_matches_jax():
         sc = jk.sort_cloud(jnp.asarray(xyz), jnp.asarray(lo), jnp.asarray(hi))
         want, want_st = jk.knn_window_sorted_raw(sc, sc, 16, window=w,
                                                  self_query=True)
-    _, _, xs = tk.sort_by_codes(tk.morton_codes(t(xyz), t(lo), t(hi)), t(xyz))
-    pad = torch.full((128 - n % 128, 3), 3e18)
-    got, got_st = tk.knn_window_sorted_raw(torch.cat([xs, pad])[None], n, 16,
-                                           window=w)
+    sc_t = tk.sort_cloud(t(xyz)[None], t(lo)[None, None], t(hi)[None, None])
+    assert sc_t.xyz_sorted.shape == (1, 1920, 3)
+    assert (sc_t.xyz_sorted[0, n:] == 3e18).all()
+    xs = sc_t.xyz_sorted[0, :n]
+    got, got_st = tk.knn_window_sorted_raw(sc_t, sc_t, 16, window=w,
+                                           self_query=True)
     np.testing.assert_array_equal(got_st[0].numpy(), np.asarray(want_st))
     xs_np = xs.numpy()
     assert_near_ties(xs_np, xs_np, got[0].numpy(), np.asarray(want))
