@@ -1,13 +1,15 @@
 """Smoke run of ssdr_al_torch on one NVIDIA GPU: build the CUDA kernels,
-hold each against its plain PyTorch version at the main path's shapes,
-then drive the closed active-learning loop at RandLA-Net S3DIS width
-through the kernels: seed labels, round-1 training with evaluation to
-snap-1, a full-SSDR selection round from the trained snap-1, and round-2
-training from its pseudo-GT to snap-2. Then the exact-KNN engine at the
-same width: a training round with --knn_engine pallas (K6) from the seed
-labels, the standalone evaluation (cli.evaluate) of its snapshot on the
-validation room, and one eval step each on the window_og (K1), approx and
-window-with-K5 (MXU_DISTANCE_DEFAULT) engines.
+hold each against its plain PyTorch version at the main path's shapes
+(K1 and K2 at every call of one forward, both K2 sources, and tie-heavy
+inputs: ssdr_al_torch/kernels/measure.py), then drive the closed
+active-learning loop at RandLA-Net S3DIS width through the kernels: seed
+labels, round-1 training with evaluation to snap-1, a full-SSDR selection
+round from the trained snap-1, and round-2 training from its pseudo-GT to
+snap-2. Then the exact-KNN engine at the same width: a training round
+with --knn_engine pallas (K6) from the seed labels, the standalone
+evaluation (cli.evaluate) of its snapshot on the validation room, and one
+eval step each on the window_og (K1), approx and window-with-K5
+(MXU_DISTANCE_DEFAULT) engines.
 
     python3 chip_smoke.py [--profile [PATH]]
 
@@ -60,19 +62,6 @@ TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 8, 2
 EXACT_EPOCHS, EXACT_STEPS = 1, 4      # the --knn_engine pallas round
 SSDR_ARGS = ["t0", "sb", "clsbal", "gcn_fps", "WetSU", "NAIL", "0.9", "1",
              "1", "0"]
-# H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the tensor
-# cores (none of the kernels uses them)
-PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
-
-
-def bound(nbytes, nops):
-    """(ms, "bytes" | "operations"): the least time for the work."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_F32_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_ms(fn, reps):
@@ -132,8 +121,10 @@ def sorted_batch(rng, b, n, dev):
 def check_kernels(cfg, dev):
     """Each kernel vs its plain version on the card, at the main path's
     shapes: its time, the plain version's, the bound and, where one PyTorch
-    call computes the same function, that call's time."""
-    from ssdr_al_torch.models.randlanet import GATHER_TQ
+    call computes the same function, that call's time. K1 and K2 at every
+    call of one forward, and on tie-heavy inputs (kernels/measure.py)."""
+    from ssdr_al_torch.kernels import measure
+    from ssdr_al_torch.kernels.measure import bound, nbytes
     from ssdr_al_torch.ops import chamfer as ch
     from ssdr_al_torch.ops import gather as ga
     from ssdr_al_torch.ops import knn as kn
@@ -142,98 +133,47 @@ def check_kernels(cfg, dev):
     b, n = 8, cfg.num_points
     out = {}
 
-    # K1 at L0: self-search k=16 in the 1792-point window; per (query,
-    # candidate) 8 operations of d² and 1 compare with the k-th best
-    w = cfg.search_window - (GATHER_TQ - kn.QUERY_TILE)
-    xs = sorted_batch(rng, b, n, dev)
-    st = kn.self_query_starts(n, n, w, device=dev).expand(b, -1).contiguous()
-    got = kn.window_topk(xs, xs, st, cfg.k_n, w)
-    want = kn._window_topk_plain(xs, xs, st, cfg.k_n, w, kn.QUERY_TILE)
-    if not torch.equal(got, want):
-        raise AssertionError(f"K1 L0: {(got != want).sum().item()} "
-                             "indices differ from the plain version")
-    err = (got.long() - want.long()).abs().max().item()
-    ms = cuda_ms(lambda: kn.window_topk(xs, xs, st, cfg.k_n, w), 20)
-    plain_ms = cuda_ms(lambda: kn._window_topk_plain(
-        xs, xs, st, cfg.k_n, w, kn.QUERY_TILE), 3)
-    k1_bound = bound(nbytes(xs, st, got), 9 * b * n * w)
-    # K1 k=1 upsample: 40960 queries against the 10240-point kept subset
-    sub = sorted_batch(rng, b, n // 4, dev)
-    st1 = torch.from_numpy(rng.randint(0, (n // 4 - 1024) // 128 + 1,
-                                       (b, n // 256)).astype(np.int32) * 128
-                           ).to(dev)
-    got1 = kn.window_topk(sub, xs, st1, 1, 1024)
-    want1 = kn._window_topk_plain(sub, xs, st1, 1, 1024, kn.QUERY_TILE)
-    if not torch.equal(got1, want1):
-        raise AssertionError("K1 k=1 upsample differs from the plain version")
-    ms1 = cuda_ms(lambda: kn.window_topk(sub, xs, st1, 1, 1024), 20)
-    plain1 = cuda_ms(lambda: kn._window_topk_plain(sub, xs, st1, 1, 1024,
-                                                   kn.QUERY_TILE), 3)
-    bound1 = bound(nbytes(sub, xs, st1, got1), 9 * b * n * 1024)
-    print(f"K1 window_topk [8x40960] k=16 W={w}: equal, {ms:.3f} ms "
-          f"(plain {plain_ms:.3f} ms, bound {k1_bound[0]:.4f} ms by "
-          f"{k1_bound[1]}); k=1 W=1024: equal, {ms1:.3f} ms (plain "
-          f"{plain1:.3f} ms, bound {bound1[0]:.4f} ms by {bound1[1]})")
-    # K1 on the window_og path: the self-searches of L0 (W=4096, 48 KB of
-    # shared memory) and of L1 ([8x10240], W=2048); a RandomState of their
-    # own keeps the inputs of the checks below as they were
+    main = measure.check_main_path(cfg, dev)
+    k1_calls, k2_calls = main["calls"]
+    # the L0 self-search (k=16, W=1792) and the L0 1-NN upsample
+    i0 = next(i for i, c in enumerate(k1_calls)
+              if c["self"] and c["queries"].shape[1] == n)
+    iu = next(i for i, c in enumerate(k1_calls)
+              if not c["self"] and c["queries"].shape[1] == n)
+    l0, up = k1_calls[i0], k1_calls[iu]
+    xs, st, w = l0["support"], l0["starts"], l0["window"]
+    r1 = main["window_topk"][i0]
+    out["window_topk"] = dict(r1, ms_k1=main["window_topk"][iu]["ms"],
+                              shapes=main["window_topk"], ties=main["ties"])
+    # K1 on the window_og path: the self-searches of L0 (W=4096) and of L1
+    # ([8x10240], W=2048)
     og = {}
     rng_og = np.random.RandomState(4)
     for layer, m, w_og in (("L0", n, 4096), ("L1", n // 4, 2048)):
         x_og = xs if m == n else sorted_batch(rng_og, b, m, dev)
         st_og = kn.self_query_starts(m, m, w_og, device=dev).expand(
             b, -1).contiguous()
-        got_og = kn.window_topk(x_og, x_og, st_og, cfg.k_n, w_og)
-        want_og = kn._window_topk_plain(x_og, x_og, st_og, cfg.k_n, w_og,
-                                        kn.QUERY_TILE)
-        if not torch.equal(got_og, want_og):
-            raise AssertionError(f"K1 window_og {layer} W={w_og}: "
-                                 f"{(got_og != want_og).sum().item()} "
-                                 "indices differ from the plain version")
-        ms_og = cuda_ms(lambda: kn.window_topk(x_og, x_og, st_og, cfg.k_n,
-                                               w_og), 20)
-        plain_og = cuda_ms(lambda: kn._window_topk_plain(
-            x_og, x_og, st_og, cfg.k_n, w_og, kn.QUERY_TILE), 3)
-        b_og = bound(nbytes(x_og, st_og, got_og), 9 * b * m * w_og)
-        og[layer] = dict(window=w_og, ms=ms_og, plain_ms=plain_og,
-                         bound_ms=b_og[0])
-        print(f"K1 window_topk window_og {layer} [{b}x{m}] k={cfg.k_n} "
-              f"W={w_og}: equal, {ms_og:.3f} ms (plain {plain_og:.3f} ms, "
-              f"bound {b_og[0]:.4f} ms by {b_og[1]})")
-    out["window_topk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=k1_bound[0], bound_by=k1_bound[1],
-                              library_ms=None, ms_k1=ms1, plain_ms_k1=plain1,
-                              bound_ms_k1=bound1[0], window_og=og)
+        r = measure.check_k1(dict(support=x_og, queries=x_og, starts=st_og,
+                                  k=cfg.k_n, window=w_og,
+                                  tq=kn.QUERY_TILE, self=True))
+        og[layer] = dict(window=w_og, ms=r["ms"], plain_ms=r["plain_ms"],
+                         bound_ms=r["bound_ms"])
+        print(f"K1 window_topk window_og {layer} {r['shape']}: equal, "
+              f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+    out["window_topk"]["window_og"] = og
 
     # K5: K1 with the centred-product distance, at the same two shapes
-    before = kn.window_topk.launches_mxu
-    got5 = kn.window_topk(xs, xs, st, cfg.k_n, w, mxu=True)
-    want5 = kn._window_topk_plain(xs, xs, st, cfg.k_n, w, kn.QUERY_TILE,
-                                  mxu=True)
-    got51 = kn.window_topk(sub, xs, st1, 1, 1024, mxu=True)
-    want51 = kn._window_topk_plain(sub, xs, st1, 1, 1024, kn.QUERY_TILE,
-                                   mxu=True)
-    if kn.window_topk.launches_mxu != before + 2:
-        raise AssertionError("K5 check: the kernel did not launch")
-    if not (torch.equal(got5, want5) and torch.equal(got51, want51)):
-        raise AssertionError(f"K5: {(got5 != want5).sum().item()} + "
-                             f"{(got51 != want51).sum().item()} indices "
-                             "differ from the plain version")
-    err5 = (got5.long() - want5.long()).abs().max().item()
-    ms5 = cuda_ms(lambda: kn.window_topk(xs, xs, st, cfg.k_n, w, mxu=True),
-                  20)
-    plain5 = cuda_ms(lambda: kn._window_topk_plain(
-        xs, xs, st, cfg.k_n, w, kn.QUERY_TILE, mxu=True), 3)
-    ms51 = cuda_ms(lambda: kn.window_topk(sub, xs, st1, 1, 1024, mxu=True),
-                   20)
-    agree5 = (got5 == got).float().mean().item()
-    print(f"K5 window_topk mxu [8x40960] k=16 W={w}: equal, {ms5:.3f} ms "
-          f"(K1 {ms:.3f} ms, plain {plain5:.3f} ms, bound {k1_bound[0]:.4f} "
-          f"ms by {k1_bound[1]}); k=1 W=1024: equal, {ms51:.3f} ms (K1 "
-          f"{ms1:.3f} ms); indices equal to K1's on {agree5:.5f}")
-    out["window_topk_mxu"] = dict(max_abs_err=err5, ms=ms5, plain_ms=plain5,
-                                  bound_ms=k1_bound[0], bound_by=k1_bound[1],
-                                  library_ms=None, ms_k1=ms51,
+    r5 = measure.check_k1(l0, mxu=True)
+    r51 = measure.check_k1(up, mxu=True)
+    agree5 = (kn.window_topk(xs, xs, st, cfg.k_n, w, mxu=True)
+              == kn.window_topk(xs, xs, st, cfg.k_n, w)).float().mean().item()
+    print(f"K5 window_topk mxu {r5['shape']}: equal, {r5['ms']:.3f} ms (K1 "
+          f"{r1['ms']:.3f} ms, plain {r5['plain_ms']:.3f} ms, bound "
+          f"{r5['bound_ms']:.4f} ms by {r5['bound_by']}); {r51['shape']}: "
+          f"equal, {r51['ms']:.3f} ms (K1 {out['window_topk']['ms_k1']:.3f} "
+          f"ms); indices equal to K1's on {agree5:.5f}")
+    out["window_topk_mxu"] = dict(r5, ms_k1=r51["ms"],
                                   agreement_with_k1=agree5)
 
     # K6 at L0 of the exact pyramid: the [6, 40960] self-search (k=16) and
@@ -279,31 +219,12 @@ def check_kernels(cfg, dev):
     del pts, sub6, got6, want6, got6u, want6u
     torch.cuda.empty_cache()
 
-    # K2: the L0 LFA gather of [xyz | 8 features] with the merged windows
-    neigh = (torch.repeat_interleave(st, kn.QUERY_TILE, 1)[..., None] + got
-             ).contiguous()
-    w_g = w + GATHER_TQ - kn.QUERY_TILE
-    gst = torch.clamp(st[:, :: GATHER_TQ // kn.QUERY_TILE], max=n - w_g
-                      ).contiguous()
-    vals = torch.cat([xs, torch.randn(b, n, 8, device=dev)], -1).contiguous()
-    g = ga.gather_window(vals, neigh, gst, w_g, GATHER_TQ)
-    gp = ga._gather_window_plain(vals, neigh, gst, w_g, GATHER_TQ)
-    if not torch.equal(g, gp):
-        raise AssertionError("K2 differs from the plain version")
-    gms = cuda_ms(lambda: ga.gather_window(vals, neigh, gst, w_g, GATHER_TQ),
-                  20)
-    gplain = cuda_ms(lambda: ga._gather_window_plain(vals, neigh, gst, w_g,
-                                                     GATHER_TQ), 5)
-    flat = neigh.long().reshape(b, -1, 1).expand(-1, -1, vals.shape[-1])
-    glib = cuda_ms(lambda: torch.gather(vals, 1, flat), 20)
-    gerr = (g - gp).abs().max().item()
-    g_bound = bound(nbytes(vals, neigh, gst, g), 0)
-    print(f"K2 gather_window [8x40960x16x11] W={w_g}: bitwise equal, "
-          f"{gms:.3f} ms (plain {gplain:.3f} ms, torch.gather {glib:.3f} ms, "
-          f"bound {g_bound[0]:.4f} ms by {g_bound[1]})")
-    out["gather_window"] = dict(max_abs_err=gerr, ms=gms, plain_ms=gplain,
-                                bound_ms=g_bound[0], bound_by=g_bound[1],
-                                library_ms=glib)
+    # K2 at the L0 LFA gather of [xyz | 8 features] (the first K2 call)
+    g0 = k2_calls[0]
+    vals, neigh, gst, w_g, tq_g = (g0[key] for key in (
+        "values", "idx", "starts", "window", "tq"))
+    out["gather_window"] = dict(main["gather_window"][0],
+                                shapes=main["gather_window"])
 
     # K4: the backward of the same L0 gather at the training batch B=6;
     # one add per cotangent value
@@ -313,19 +234,19 @@ def check_kernels(cfg, dev):
     # f32 atomics sum in no fixed order: two orders of a sum of m values
     # differ by at most 2·m·ε·Σ|g|, so each element within 1e-5 relative
     # plus that bound
-    dv = ga.scatter_window(cot, idx6, st6, n, w_g, GATHER_TQ)
-    dvp = ga._scatter_window_plain(cot, idx6, st6, n, w_g, GATHER_TQ)
+    dv = ga.scatter_window(cot, idx6, st6, n, w_g, tq_g)
+    dvp = ga._scatter_window_plain(cot, idx6, st6, n, w_g, tq_g)
     m = ga._scatter_window_plain(torch.ones_like(cot), idx6, st6, n, w_g,
-                                 GATHER_TQ)
+                                 tq_g)
     tol = 1e-5 * dvp.abs() + 2 * m * 2.0 ** -23 * ga._scatter_window_plain(
-        cot.abs(), idx6, st6, n, w_g, GATHER_TQ)
+        cot.abs(), idx6, st6, n, w_g, tq_g)
     serr = (dv - dvp).abs().max().item()
     if not bool(((dv - dvp).abs() <= tol).all()):
         raise AssertionError(f"K4 differs from the plain version: {serr}")
     sms = cuda_ms(lambda: ga.scatter_window(cot, idx6, st6, n, w_g,
-                                            GATHER_TQ), 20)
+                                            tq_g), 20)
     splain = cuda_ms(lambda: ga._scatter_window_plain(cot, idx6, st6, n, w_g,
-                                                      GATHER_TQ), 5)
+                                                      tq_g), 5)
     rows = (idx6.long() + (torch.arange(bt, device=dev) * n)[:, None, None]
             ).reshape(-1)
     cot2 = cot.reshape(-1, cot.shape[-1])
@@ -928,7 +849,8 @@ def main() -> int:
                                            for k, p in paths.items()},
                          max_abs_err=c["max_abs_err"], ms=c["ms"],
                          plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-                         bound_by=c["bound_by"], library_ms=c["library_ms"]))
+                         bound_by=c["bound_by"], library_ms=c["library_ms"],
+                         **{k: c[k] for k in ("shapes", "ties") if k in c}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "ssdr_al_tpu"))
     if jax_side:

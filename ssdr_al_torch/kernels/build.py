@@ -34,17 +34,24 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# streaming multiprocessors of the H100 SXM the launch plans size grids for
+# (ops/knn.py::window_topk_plan, ops/gather.py::gather_plan)
+SMS = 132
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every launcher (all return cudaError_t as int)
 SIGNATURES = {
     # support, queries, starts, out, B, ns, nq, window, k, tq, centered,
-    # stream
-    "window_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # split, queries per CTA, threads, self-search, stream
+    "window_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P],
     # support, query, out, B, ns, nq, k, stream
     "knn_tiled_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # values, idx, starts, out, B, N, nq, k, C, window, tq, stream
-    "gather_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # values, idx, starts, out, B, N, nq, k, C, window, tq, slab, rows,
+    # threads, stream
+    "gather_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
     # g, idx, starts, dv, B, N, nq, k, C, window, tq, stream
     "scatter_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # points, mask, out, C, S, P, stream

@@ -18,6 +18,7 @@ the JAX sorted path can send to its kernels goes through K2 and K4 here.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -53,6 +54,54 @@ def _gather_window_plain(values, idx, starts, window, tq):
     return torch.where(inside[..., None], out, torch.zeros_like(out))
 
 
+# K2's launch plan (csrc/gather_window.cu): a CTA copies its tile's window
+# into shared memory when the slab is at most SLAB_MAX_BYTES and the tiles
+# alone fill two waves of the card's SMs; otherwise CTAs of GATHER_THREADS
+# read through L1/L2 and each writes at most GATHER_SPAN floats of one
+# tile. On the H100 the slab wins at L0's 64 KB window of 8 channels and
+# loses at its 88 KB window of 11 (PERF.md).
+SLAB_MAX_BYTES = 64 * 1024
+SLAB_THREADS = 1024
+GATHER_THREADS = 256
+GATHER_SPAN = 32768
+
+
+def gather_plan(b: int, nq: int, k: int, c: int, window: int, tq: int,
+                slab: Optional[bool] = None):
+    """(slab, rows per CTA, threads per CTA) of K2 for these shapes; `slab`
+    forces the source (chip_smoke.py checks both). A CTA's rows divide the
+    tile's tq·k rows and rows·c is a multiple of 4, so every CTA writes
+    whole float4s; that needs tq % 4 == 0."""
+    if tq % 4:
+        raise ValueError(f"gather_window: the kernel takes tq % 4 == 0, "
+                         f"not {tq}")
+    rows = tq * k
+    if slab is None:
+        slab = (window * c * 4 <= SLAB_MAX_BYTES
+                and b * (nq // tq) >= 2 * _kb.SMS)
+    if slab:
+        return True, rows, SLAB_THREADS
+    while rows * c > GATHER_SPAN and rows % 8 == 0:
+        rows //= 2
+    return False, rows, GATHER_THREADS
+
+
+def _gather_window_launch(values, idx, starts, window, tq, plan):
+    """Launch K2 with a given plan (gather_plan's, or another for a check
+    of both sources) and count the launch."""
+    b, n, c = values.shape
+    nq, k = idx.shape[1], idx.shape[2]
+    slab, rows, threads = plan
+    out = torch.empty((b, nq, k, c), dtype=values.dtype, device=values.device)
+    err = _kb.library().gather_window_launch(
+        values.data_ptr(), idx.data_ptr(), starts.data_ptr(), out.data_ptr(),
+        b, n, nq, k, c, window, tq, int(slab), rows, threads,
+        ctypes.c_void_p(_kb.stream_ptr(values.device)))
+    _kb.check(err, "gather_window")
+    gather_window.launches += 1
+    return out
+
+
 def _gather_window_fwd(values, idx, starts, window, tq):
     """K2 on CUDA tensors, its plain version on CPU tensors."""
     b, n, c = values.shape
@@ -64,14 +113,8 @@ def _gather_window_fwd(values, idx, starts, window, tq):
             or starts.dtype != torch.int32:
         raise TypeError("gather_window: float32 values, int32 idx and starts")
     _kb.require_cuda("gather_window", values, idx, starts)
-    out = torch.empty((b, nq, k, c), dtype=values.dtype, device=values.device)
-    err = _kb.library().gather_window_launch(
-        values.data_ptr(), idx.data_ptr(), starts.data_ptr(), out.data_ptr(),
-        b, n, nq, k, c, window, tq,
-        ctypes.c_void_p(_kb.stream_ptr(values.device)))
-    _kb.check(err, "gather_window")
-    gather_window.launches += 1
-    return out
+    return _gather_window_launch(values, idx, starts, window, tq,
+                                 gather_plan(b, nq, k, c, window, tq))
 
 
 def _scatter_window_plain(g, idx, starts, n, window, tq):

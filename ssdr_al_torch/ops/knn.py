@@ -279,6 +279,34 @@ def _window_topk_plain(support, queries, starts, k, window, tq, mxu=False):
     return out
 
 
+# K1/K5's launch plan (csrc/window_topk.cu): `split` threads share a query
+# (each walks 1/split of the window) until TOPK_MIN_WARPS warps are in
+# flight, while each still walks TOPK_MIN_WALK candidates or more; then
+# CTAs shrink from TOPK_THREADS to 64 threads until the grid has
+# TOPK_MIN_CTAS of them, which spreads a small grid evenly over the SMs.
+TOPK_THREADS = 256
+TOPK_MIN_WARPS = 16 * _kb.SMS
+TOPK_MIN_CTAS = 4 * _kb.SMS
+TOPK_MIN_WALK = 256
+
+
+def window_topk_plan(b: int, nq: int, window: int, tq: int):
+    """(split, queries per CTA, threads per CTA) of K1/K5 for these shapes:
+    the CTAs of a tile each take qpc of its queries, with `split` threads
+    per query, rounded up to whole warps."""
+    split = 1
+    while split < 8 and window >= 2 * split * TOPK_MIN_WALK and \
+            b * nq * split < 32 * TOPK_MIN_WARPS:
+        split *= 2
+    tiles, threads = b * (nq // tq), TOPK_THREADS
+    while threads > 64 and \
+            tiles * -(-tq * split // threads) < TOPK_MIN_CTAS:
+        threads //= 2
+    parts = -(-tq * split // threads)
+    qpc = -(-tq // parts)
+    return split, qpc, _round_up(qpc * split, 32)
+
+
 def window_topk(support: torch.Tensor, queries: torch.Tensor,
                 starts: torch.Tensor, k: int, window: int,
                 tq: int = QUERY_TILE, mxu: Optional[bool] = None
@@ -311,10 +339,12 @@ def window_topk(support: torch.Tensor, queries: torch.Tensor,
     if k not in KERNEL_K:
         raise ValueError(f"window_topk: the kernel is built for k in "
                          f"{KERNEL_K}, not {k}")
+    split, qpc, threads = window_topk_plan(b, nq, window, tq)
     out = torch.empty((b, nq, k), dtype=torch.int32, device=support.device)
     err = _kb.library().window_topk_launch(
         support.data_ptr(), queries.data_ptr(), starts.data_ptr(),
-        out.data_ptr(), b, ns, nq, window, k, tq, int(mxu),
+        out.data_ptr(), b, ns, nq, window, k, tq, int(mxu), split, qpc,
+        threads, int(support.data_ptr() == queries.data_ptr() and ns == nq),
         ctypes.c_void_p(_kb.stream_ptr(support.device)))
     _kb.check(err, "window_topk")
     if mxu:

@@ -46,6 +46,38 @@ def test_window_topk_matches_plain(dev, n, window, k):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("n", [40960, 10240])
+def test_window_topk_upsample_matches_plain(dev, n):
+    """K1 k=1 at the 1-NN upsample of the sorted pyramid: n queries against
+    their kept quarter, W=1024, starts from the kept ranks as
+    models/randlanet.py computes them."""
+    xs = _sorted_cloud(np.random.RandomState(6), 2, n)
+    rng = np.random.RandomState(7)
+    kept = torch.from_numpy(np.stack([rng.permutation(n) < n // 4
+                                      for _ in range(2)]))
+    ranks = torch.cumsum(kept.int(), 1) - 1
+    sub = torch.stack([xs[i][kept[i]] for i in range(2)]).contiguous()
+    tq, w = kn.QUERY_TILE, 1024
+    centers = torch.arange(n // tq) * tq + tq // 2
+    st = torch.clamp(ranks[:, centers] - w // 2, 0, n // 4 - w)
+    st = ((st // 128) * 128).int().contiguous()
+    want = kn.window_topk(sub, xs, st, 1, w)
+    got = kn.window_topk(sub.to(dev), xs.to(dev), st.to(dev), 1, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_window_topk_ties_match_plain(dev):
+    """K1 (k=16 and 1) and K5 on clouds full of exact ties (every point four
+    times, a coarse grid, SENTINEL pad rows) with starts clamped at the
+    cloud's end, and K2 on the same starts with both sources: equal to
+    their plain versions (kernels/measure.py::check_ties raises if not)."""
+    from ssdr_al_torch.kernels import measure
+
+    done = measure.check_ties(dev)
+    assert len(done) == 12
+
+
 def test_window_topk_refuses_unbuilt_k(dev):
     """K1 is built for k in (1, 16); another k raises instead of falling
     back to the plain version."""
@@ -111,6 +143,36 @@ def test_gather_window_matches_plain(dev, c, window, tq):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     assert float(want[0, 0, 0].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("tq", [512, 128])
+@pytest.mark.parametrize("c", [8, 11, 32, 35, 64, 67, 128, 256])
+def test_gather_window_every_channel_count(dev, c, tq):
+    """K2 at every channel count the model gathers and both tile sizes
+    (GATHER_TQ for the LFA gathers, 128 for gather_window_auto), with the
+    wrapper's plan and with each source forced (the shared-memory slab
+    where it fits in an SM): bitwise equal to the plain version."""
+    rng = np.random.RandomState(c + tq)
+    b, n, k, window = 2, 4096, 16, 1024
+    vals = torch.from_numpy(rng.randn(b, n, c).astype(np.float32))
+    starts = torch.from_numpy(
+        (rng.randint(0, (n - window) // 128 + 2, (b, n // tq)) * 128)
+        .astype(np.int32))
+    lo = torch.repeat_interleave(torch.clamp(starts, 0, n - window), tq,
+                                 1)[..., None]
+    idx = (lo + torch.from_numpy(rng.randint(-9, window + 9, (b, n, k))))
+    idx = torch.clamp(idx, 0, n - 1).int()
+    want = ga.gather_window(vals, idx, starts, window, tq)
+    v, i, st = vals.to(dev), idx.to(dev), starts.to(dev)
+    got = [ga.gather_window(v, i, st, window, tq)]
+    for slab in (True, False):
+        if slab and window * c * 4 > 227 * 1024:
+            continue
+        plan = ga.gather_plan(b, n, k, c, window, tq, slab=slab)
+        got.append(ga._gather_window_launch(v, i, st, window, tq, plan))
+    torch.cuda.synchronize()
+    for g in got:
+        assert torch.equal(g.cpu(), want)
 
 
 def test_chamfer_sums_matches_plain(dev):
