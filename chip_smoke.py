@@ -1,11 +1,16 @@
 """Smoke run of ssdr_al_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version at the main path's shapes
-(K1 and K2 at every call of one forward, both K2 sources, and tie-heavy
-inputs: ssdr_al_torch/kernels/measure.py), then drive the closed
-active-learning loop at RandLA-Net S3DIS width through the kernels: seed
-labels, round-1 training with evaluation to snap-1, a full-SSDR selection
-round from the trained snap-1, and round-2 training from its pseudo-GT to
-snap-2. Then the exact-KNN engine at the same width: a training round
+(K1 and K2 at every call of one forward, both K2 sources, tie-heavy
+inputs, K4 at every call of one train step, bitwise, and K3 at a fixed
+dispatch and the selection round's shape: ssdr_al_torch/kernels/
+measure.py), then drive the closed active-learning loop at RandLA-Net
+S3DIS width through the kernels: seed labels, round-1 training with
+evaluation to snap-1, the card's train-mode gradient against float32 and
+float64 CPU gradients at a seeded state, a full-SSDR selection round from
+the trained snap-1 (its K3 call checked again and its GCN-FPS picks
+compared on K3's and the plain version's chamfer matrices), and round-2
+training from its pseudo-GT to snap-2. Then the exact-KNN engine at the
+same width: a training round
 with --knn_engine pallas (K6) from the seed labels, the standalone
 evaluation (cli.evaluate) of its snapshot on the validation room, and one
 eval step each on the window_og (K1), approx and window-with-K5
@@ -57,8 +62,11 @@ KERNELS = {
                   "ssdr_al_tpu/ops/knn.py:760"),
 }
 ROOMS, ROOM_POINTS, TARGET_SP, BUDGET = 4, 150_000, 2048, 400
-CHAMFER_SHAPE = (8, 256, 512)     # [C, S, P]: one K3 dispatch
 TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 8, 2
+# the gradient check's seeded state, and its limit: the card's f32 error
+# to the f64 gradient within this multiple of the CPU f32 error, plus a
+# floor
+GRAD_SEED, GRAD_ERR_MULTIPLE, GRAD_ERR_FLOOR = 5, 4.0, 1e-6
 EXACT_EPOCHS, EXACT_STEPS = 1, 4      # the --knn_engine pallas round
 SSDR_ARGS = ["t0", "sb", "clsbal", "gcn_fps", "WetSU", "NAIL", "0.9", "1",
              "1", "0"]
@@ -122,11 +130,10 @@ def check_kernels(cfg, dev):
     """Each kernel vs its plain version on the card, at the main path's
     shapes: its time, the plain version's, the bound and, where one PyTorch
     call computes the same function, that call's time. K1 and K2 at every
-    call of one forward, and on tie-heavy inputs (kernels/measure.py)."""
+    call of one forward and on tie-heavy inputs, K4 at every call of one
+    train step, K3 at two shapes (kernels/measure.py)."""
     from ssdr_al_torch.kernels import measure
     from ssdr_al_torch.kernels.measure import bound, nbytes
-    from ssdr_al_torch.ops import chamfer as ch
-    from ssdr_al_torch.ops import gather as ga
     from ssdr_al_torch.ops import knn as kn
 
     rng = np.random.RandomState(0)
@@ -134,7 +141,7 @@ def check_kernels(cfg, dev):
     out = {}
 
     main = measure.check_main_path(cfg, dev)
-    k1_calls, k2_calls = main["calls"]
+    k1_calls, _ = main["calls"]
     # the L0 self-search (k=16, W=1792) and the L0 1-NN upsample
     i0 = next(i for i, c in enumerate(k1_calls)
               if c["self"] and c["queries"].shape[1] == n)
@@ -220,69 +227,22 @@ def check_kernels(cfg, dev):
     torch.cuda.empty_cache()
 
     # K2 at the L0 LFA gather of [xyz | 8 features] (the first K2 call)
-    g0 = k2_calls[0]
-    vals, neigh, gst, w_g, tq_g = (g0[key] for key in (
-        "values", "idx", "starts", "window", "tq"))
     out["gather_window"] = dict(main["gather_window"][0],
                                 shapes=main["gather_window"])
 
-    # K4: the backward of the same L0 gather at the training batch B=6;
-    # one add per cotangent value
-    bt = cfg.batch_size
-    cot = torch.randn(bt, n, cfg.k_n, vals.shape[-1], device=dev)
-    idx6, st6 = neigh[:bt].contiguous(), gst[:bt].contiguous()
-    # f32 atomics sum in no fixed order: two orders of a sum of m values
-    # differ by at most 2·m·ε·Σ|g|, so each element within 1e-5 relative
-    # plus that bound
-    dv = ga.scatter_window(cot, idx6, st6, n, w_g, tq_g)
-    dvp = ga._scatter_window_plain(cot, idx6, st6, n, w_g, tq_g)
-    m = ga._scatter_window_plain(torch.ones_like(cot), idx6, st6, n, w_g,
-                                 tq_g)
-    tol = 1e-5 * dvp.abs() + 2 * m * 2.0 ** -23 * ga._scatter_window_plain(
-        cot.abs(), idx6, st6, n, w_g, tq_g)
-    serr = (dv - dvp).abs().max().item()
-    if not bool(((dv - dvp).abs() <= tol).all()):
-        raise AssertionError(f"K4 differs from the plain version: {serr}")
-    sms = cuda_ms(lambda: ga.scatter_window(cot, idx6, st6, n, w_g,
-                                            tq_g), 20)
-    splain = cuda_ms(lambda: ga._scatter_window_plain(cot, idx6, st6, n, w_g,
-                                                      tq_g), 5)
-    rows = (idx6.long() + (torch.arange(bt, device=dev) * n)[:, None, None]
-            ).reshape(-1)
-    cot2 = cot.reshape(-1, cot.shape[-1])
-    slib = cuda_ms(lambda: torch.zeros(bt * n, cot.shape[-1], device=dev)
-                   .index_add_(0, rows, cot2), 20)
-    s_bound = bound(nbytes(cot, idx6, st6, dv), cot.numel())
-    print(f"K4 scatter_window [6x40960x16x11] -> [6x40960x11] W={w_g}: max "
-          f"abs err {serr:.2e} (within 1e-5 rel + 2·m·eps·sum|g|), "
-          f"{sms:.3f} ms (plain "
-          f"{splain:.3f} ms, index_add_ {slib:.3f} ms, bound "
-          f"{s_bound[0]:.4f} ms by {s_bound[1]})")
-    out["scatter_window"] = dict(max_abs_err=serr, ms=sms, plain_ms=splain,
-                                 bound_ms=s_bound[0], bound_by=s_bound[1],
-                                 library_ms=slib)
-
-    # K3: one [8, S, P] chamfer dispatch; per pair of valid points of one
-    # block, 8 operations of d² and 1 min
-    c, s, p = CHAMFER_SHAPE
-    pts = torch.from_numpy((rng.randn(c, s, p, 3) * 0.3).astype(np.float32)
-                           ).to(dev)
-    msk = torch.from_numpy(rng.rand(c, s, p) < 0.6).to(dev)
-    o = ch.chamfer_sums(pts, msk)
-    op = ch._chamfer_sums_plain(pts, msk)
-    rel = ((o - op).abs() / op.abs().clamp(min=1e-6)).max().item()
-    if not rel <= 1e-5:
-        raise AssertionError(f"K3 relative error {rel}")
-    cms = cuda_ms(lambda: ch.chamfer_sums(pts, msk), 5)
-    cplain = cuda_ms(lambda: ch._chamfer_sums_plain(pts, msk), 1)
-    pairs = float((msk.sum((1, 2)).double() ** 2).sum())
-    c_bound = bound(nbytes(pts, msk, o), 9 * pairs)
-    print(f"K3 chamfer_sums [{c},{s},{p}]: max rel err {rel:.2e}, "
-          f"{cms:.3f} ms (plain {cplain:.3f} ms, bound {c_bound[0]:.4f} ms "
-          f"by {c_bound[1]})")
-    out["chamfer_sums"] = dict(max_abs_err=(o - op).abs().max().item(),
-                               ms=cms, plain_ms=cplain, bound_ms=c_bound[0],
-                               bound_by=c_bound[1], library_ms=None)
+    # K4: the 9 calls of one train step [6 x 40960], each bitwise equal to
+    # the CPU plain version and to itself (measure.check_k4); the row sums
+    # them, each field over the same 9 calls
+    k4 = main["scatter_window"]
+    out["scatter_window"] = dict(
+        {key: sum(r[key] for r in k4) for key in ("ms", "plain_ms",
+                                                  "bound_ms", "library_ms")},
+        max_abs_err=max(r["max_abs_err"] for r in k4), bound_by="bytes",
+        calls=len(k4), shapes=k4)
+    # K3: one [8, 256, 512] dispatch at 60 % valid, and the selection
+    # round's call shape (measure.check_k3)
+    out["chamfer_sums"] = dict(main["chamfer_sums"][0],
+                               shapes=main["chamfer_sums"])
     return out
 
 
@@ -322,21 +282,27 @@ def check_forward_reference(cfg, state, dev):
         raise AssertionError("card forward disagrees with the CPU reference")
 
 
-def check_gradient_reference(cfg, state, dev):
-    """One 40960-point block in train mode, dropout off: the loss and the
-    gradient of every parameter on the card (K1, K2, K4) against the CPU
-    (plain versions) on the same sorted pyramid. Loss within 1e-4
-    relative; all gradients as one vector within 1e-3 relative L2 (f32
-    sums in other orders, K4's atomics in none). Prints the shapes of the
-    step's K4 calls."""
+def check_gradient_reference(cfg, dev, seed=GRAD_SEED):
+    """One 40960-point block in train mode, dropout off, at a state drawn
+    from a seed (the flax initialisers' weights, spread at O(1) scale):
+    the loss and the gradient of every parameter on the card (K1, K2, K4)
+    and on the CPU in float32 (plain versions), each against the CPU in
+    float64, all on one sorted pyramid. The card's loss within 1e-4
+    relative of the CPU's; its gradient's relative L2 error to the f64
+    gradient at most GRAD_ERR_MULTIPLE times the CPU f32 gradient's plus
+    GRAD_ERR_FLOOR, so the limit follows the f32 conditioning of the
+    state. Prints the three errors and the shapes of the step's K4 calls."""
     from ssdr_al_torch.models.randlanet import (
         RandLANet,
         SortedPyramid,
         build_pyramid,
+        init_params,
         masked_weighted_ce,
     )
     from ssdr_al_torch.ops import gather as ga
 
+    state = spread_weights(init_params(cfg, torch.Generator().manual_seed(0)),
+                           seed)
     rng = np.random.RandomState(3)
     n = cfg.num_points
     xyz = torch.from_numpy((rng.rand(1, n, 3) * 6).astype(np.float32))
@@ -357,6 +323,8 @@ def check_gradient_reference(cfg, state, dev):
                                         pyr.sub_idx, pyr.interp_idx,
                                         pyr.order, pyr.inv)],
                             windows=pyr.windows)
+    f64_pyr = dataclasses.replace(cpu_pyr, xyz=[t.double()
+                                                for t in cpu_pyr.xyz])
     grads, losses, k4_shapes = [], [], []
     kernel = ga.scatter_window
 
@@ -368,34 +336,83 @@ def check_gradient_reference(cfg, state, dev):
     # is `recording` while it stands in
     recording.launches = 0
 
-    for d, p in ((dev, pyr), (torch.device("cpu"), cpu_pyr)):
-        model = RandLANet(cfg).to(d)
+    cpu = torch.device("cpu")
+    for d, p, dt in ((dev, pyr, torch.float32), (cpu, cpu_pyr, torch.float32),
+                     (cpu, f64_pyr, torch.float64)):
+        model = RandLANet(cfg).to(d, dt)
         model.load_state_dict({k: v.to(d) for k, v in state.items()})
         model.train()
         model.dp1.eval()
         order = p.order.long()
         ga.scatter_window = recording if d == dev else kernel
         try:
-            logits, _ = model(feats.to(d), p, unsort=False)
+            logits, _ = model(feats.to(d, dt), p, unsort=False)
             loss, _ = masked_weighted_ce(
                 logits, torch.gather(labels.to(d), 1, order),
                 torch.gather(act.to(d), 1, order),
-                torch.gather(labels.to(d), 1, order), weights.to(d))
+                torch.gather(labels.to(d), 1, order), weights.to(d, dt))
             loss.backward()
         finally:
             ga.scatter_window = kernel
         losses.append(loss.item())
-        grads.append(torch.cat([q.grad.reshape(-1).cpu()
+        grads.append(torch.cat([q.grad.reshape(-1).cpu().double()
                                 for q in model.parameters()]))
     print("K4 calls of one train step, (g shape, n, window, tq): "
           + json.dumps(k4_shapes))
     lrel = abs(losses[0] - losses[1]) / abs(losses[1])
-    grel = float((grads[0] - grads[1]).norm() / grads[1].norm())
-    print(f"train-mode gradient [1x{n}] card vs CPU plain: loss "
-          f"{losses[0]:.6f} vs {losses[1]:.6f} (rel {lrel:.2e}), gradient "
-          f"rel L2 {grel:.2e}")
-    if not (np.isfinite(losses[0]) and lrel <= 1e-4 and grel <= 1e-3):
+    ref = grads[2].norm()
+    card, host = [float((g - grads[2]).norm() / ref) for g in grads[:2]]
+    between = float((grads[0] - grads[1]).norm() / grads[1].norm())
+    limit = GRAD_ERR_MULTIPLE * host + GRAD_ERR_FLOOR
+    print(f"train-mode gradient [1x{n}] at seeded state {seed}: loss card "
+          f"{losses[0]:.6f}, CPU f32 {losses[1]:.6f} (rel {lrel:.2e}), CPU "
+          f"f64 {losses[2]:.6f}; gradient rel L2 to f64: card {card:.3e}, "
+          f"CPU f32 {host:.3e} (limit {limit:.3e}); card vs CPU f32 "
+          f"{between:.3e}")
+    if not (np.isfinite(losses[0]) and lrel <= 1e-4 and card <= limit):
         raise AssertionError("card gradient disagrees with the CPU reference")
+    return dict(card=card, cpu_f32=host, card_vs_cpu=between, limit=limit)
+
+
+def check_selection_picks(k3_call, fps_call):
+    """GCN-FPS of the selection round on the chamfer matrix from K3 and on
+    the one from its plain version (the same epilogue, on the card), from
+    the round's own rng state: the same superpoints. Both matrices are
+    rebuilt from one ED part, graph.ed_cd − CD(K3)."""
+    from ssdr_al_torch.ops import chamfer as ch
+
+    points, mask = k3_call
+    fps, graph, args, kwargs, rng_state = fps_call
+    cds = [ch.chamfer_pairwise_blocks(points, mask).cpu().numpy()]
+    kernel = ch.chamfer_sums
+    ch.chamfer_sums = ch._chamfer_sums_plain
+    try:
+        cds.append(ch.chamfer_pairwise_blocks(points, mask).cpu().numpy())
+    finally:
+        ch.chamfer_sums = kernel
+    ed = graph.ed_cd.copy()
+    for ci, s in enumerate(graph.mask.sum(1)):
+        ed[ci, :s, :s] -= cds[0][ci, :s, :s]
+    picks = []
+    for cd in cds:
+        m = graph.ed_cd.copy()
+        for ci, s in enumerate(graph.mask.sum(1)):
+            m[ci, :s, :s] = ed[ci, :s, :s] + cd[ci, :s, :s]
+        rng = np.random.RandomState()
+        rng.set_state(rng_state)
+        got = fps(dataclasses.replace(graph, ed_cd=m), *args,
+                  **dict(kwargs, rng=rng))
+        picks.append({k: sorted(int(x) for x in v) for k, v in got.items()})
+    real = (cds[1] < 1e12) & (cds[1] > 0)
+    rel = float((np.abs(cds[0] - cds[1])[real] / cds[1][real]).max())
+    shape = "x".join(map(str, mask.shape))
+    print(f"GCN-FPS on the selection call's chamfer [{shape}] from K3 and "
+          f"from the plain version: {sum(map(len, picks[0].values()))} "
+          f"picks, identical {picks[0] == picks[1]} (matrices' max rel diff "
+          f"{rel:.2e})")
+    if picks[0] != picks[1]:
+        raise AssertionError("GCN-FPS picks differ between K3 and its plain "
+                             "version")
 
 
 def make_workload(cfg, work):
@@ -463,8 +480,11 @@ def al_loop(cfg, dev, work, profile_out=None):
     """Seed round → round-1 training to snap-1 → selection from snap-1 →
     round-2 training to snap-2, each path's kernel launches counted from 0.
     Returns {path: launch counts} and the timings to report."""
+    from ssdr_al_torch.active import region_graph as rg
+    from ssdr_al_torch.active import samplers as sm
     from ssdr_al_torch.active.samplers import TSampler, TSamplerArgs
     from ssdr_al_torch.active.state import ALState, RoundStats, sampler_args_str
+    from ssdr_al_torch.kernels import measure
     from ssdr_al_torch.train.trainer import Trainer
 
     train, val, total = make_workload(cfg, work)
@@ -497,7 +517,7 @@ def al_loop(cfg, dev, work, profile_out=None):
     snap1 = trainer.snapshot_path(1)
 
     check_forward_reference(cfg, trainer.state, dev)
-    check_gradient_reference(cfg, trainer.state, dev)
+    report["gradient_check"] = check_gradient_reference(cfg, dev)
 
     # --- round 2: restore snap-1, select, label, retrain to snap-2 ---------
     state = ALState(work, SSDR_ARGS)
@@ -507,10 +527,28 @@ def al_loop(cfg, dev, work, profile_out=None):
     sampler = TSampler(state, train, cfg, TSamplerArgs(), total["sp_num"],
                        device=dev)
     stats = RoundStats()
+    # record the round's chamfer call and its GCN-FPS call, for the picks
+    # check after it
+    k3_calls, fps_calls = [], []
+    cd_fn, fps_fn = rg.chamfer_pairwise_blocks, sm.gcn_fps_sampling
+
+    def rec_cd(points, mask):
+        k3_calls.append((points.contiguous(), mask.contiguous()))
+        return cd_fn(points, mask)
+
+    def rec_fps(graph, *args, **kwargs):
+        fps_calls.append((fps_fn, graph, args, kwargs,
+                          kwargs["rng"].get_state()))
+        return fps_fn(graph, *args, **kwargs)
+
+    rg.chamfer_pairwise_blocks, sm.gcn_fps_sampling = rec_cd, rec_fps
     reset_counts()
     t0 = time.perf_counter()
-    sampler.sampling(trainer.eval_step, trainer.state, BUDGET, 1, stats)
-    torch.cuda.synchronize()
+    try:
+        sampler.sampling(trainer.eval_step, trainer.state, BUDGET, 1, stats)
+        torch.cuda.synchronize()
+    finally:
+        rg.chamfer_pairwise_blocks, sm.gcn_fps_sampling = cd_fn, fps_fn
     wall = time.perf_counter() - t0
     paths["selection"] = read_counts()
     r2 = state.round_dir(2)
@@ -530,6 +568,16 @@ def al_loop(cfg, dev, work, profile_out=None):
         raise AssertionError("round did not label or did not write .gt files")
     report.update(selection_wall_s=wall,
                   nail_labelled_points=stats.p_num + stats.sub_p_num)
+    if len(k3_calls) != 1 or len(fps_calls) != 1:
+        raise AssertionError(f"selection made {len(k3_calls)} chamfer and "
+                             f"{len(fps_calls)} GCN-FPS calls, not 1 each")
+    r3 = measure.check_k3(*k3_calls[0], "selection round")
+    print(f"K3 at the selection round's call {r3['shape']}: max rel err "
+          f"{r3['max_rel_err']:.2e}, run to run {r3['run_to_run']}, "
+          f"{r3['ms']:.3f} ms (plain {r3['plain_ms']:.3f} ms, bound "
+          f"{r3['bound_ms']:.4f} ms by {r3['bound_by']})")
+    report["k3_selection_call"] = r3
+    check_selection_picks(k3_calls[0], fps_calls[0])
 
     pseudo = {c.name: state.load_pseudo_gt(r2, c.name) for c in train}
     reset_counts()

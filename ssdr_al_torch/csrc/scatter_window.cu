@@ -4,72 +4,402 @@
 // (launched by _scatter_window_impl from _gather_window_bwd, the VJP of
 // gather_window). dv[b, r, :] = sum of g[b, q, j, :] over the (q, j) with
 // idx[b, q, j] == r, for every index inside its query tile's window
-// [starts[b, q / tq], starts[b, q / tq] + window); an index outside the
-// window contributes nothing, as K2 reads it as a zero row.
+// [starts[b, q / tq], starts[b, q / tq] + window), starts clamped to
+// [0, n - window]; an index outside the window contributes nothing, as K2
+// reads it as a zero row. Accumulation in f32.
 //
 // Bound on the H100: device-memory bytes. One add per cotangent value; g
-// (B * nq * k rows of C values) is read once and dominates the traffic,
-// dv is zeroed and accumulated in L2 (at most ~11 MB on the training path).
-// Design: the TPU carried the whole [N, C] slab in VMEM across a
-// sequential grid axis and built one-hot OH^T @ G products on the MXU;
-// CUDA blocks run in no order, so here each thread owns one cotangent value
-// and adds it into dv with an f32 atomicAdd (compiled to RED, no return).
-// Neighbouring threads read neighbouring values of g (coalesced) and add
-// into neighbouring channels of one dv row. Each dv row receives ~k adds,
-// so contention is low. The summation order varies from run to run: the
-// result is not bitwise reproducible (checked against the plain version
-// to a tolerance). The TPU kernel also rounded g to bf16; this one keeps
-// f32. 32-bit index arithmetic when the value count fits, 64-bit beyond.
+// (B * nq * k rows of c values) is read once and dominates the traffic, dv
+// is written once. The first design (one thread per cotangent value, four
+// integer divisions and a reload of starts per value, an f32 atomicAdd
+// into a zeroed dv) ran at a quarter of the bound and summed in an order
+// that changed from run to run.
+// Design: output-owned and deterministic. The TPU kernel accumulated each
+// tile into a VMEM slab along a sequential grid axis, a fixed order. Here
+// the entries (q, j) are first binned by their dv row (int32 entry ids;
+// g is not touched), and then each dv row is summed by one group of lanes
+// in ascending (q, j) order, the order of the plain version's index_add_
+// on the CPU, so the result equals it bit for bit. No atomic touches a
+// float and dv needs no memset.
+//  1. scatter_fill_kernel, a CTA of 1024 threads per (tile, batch
+//     element): reads the tile's idx once into registers, counts its
+//     in-window entries per row of the window in shared memory, sorts
+//     the tile's entry ids by row there (a scan of the counts), claims a
+//     run of slots per row with one integer atomicAdd on the row's count
+//     (zeroed), and writes each run into the row's bin of LIST_CAP slots,
+//     neighbouring threads on neighbouring slots; a slot past the bin goes,
+//     with its row, to the batch element's overflow list. The order in a
+//     bin is whatever the atomics gave. One scattered 4-byte store per
+//     entry costs five times the rest of this kernel at L0. A window
+//     wider than HIST_MAX rows or a tile of more than 8192 entries claims
+//     one slot per entry with a global atomic instead.
+//  2. scatter_sum_kernel, G lanes per dv row: the row's m ids (about k on
+//     average; the first 16 loaded with m, as int4s) sorted in shared
+//     memory by rank counting, then each lane adds its channels (float4
+//     where c % 4 == 0) over the sorted ids, 8-16 loads in flight, and
+//     writes them once. A row with more than LIST_CAP ids (rare: about k
+//     on average) takes the next id in ascending order from its bin and
+//     the overflow list by a group minimum.
+// No scan and no loop division: tile and batch come from the grid,
+// channels from the lane. ops/gather.py::scatter_plan picks G and the
+// counting mode.
 #include <cuda_runtime.h>
 
-template <typename I>
-__global__ void scatter_window_kernel(const float* __restrict__ g,
-                                      const int* __restrict__ idx,
-                                      const int* __restrict__ starts,
-                                      float* __restrict__ dv, int n, int nq,
-                                      int k, int c, int window, int tq,
-                                      int tiles, I total) {
-  const I stride = (I)gridDim.x * blockDim.x;
-  for (I t = (I)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    const I row = t / c;                        // (b * nq + q) * k + j
-    const int ch = (int)(t - row * c);
-    const I bq = row / k;
-    const int b = (int)(bq / nq);
-    const int q = (int)(bq - (I)b * nq);
-    int lo = starts[b * tiles + q / tq];
-    lo = min(max(lo, 0), n - window);           // the plain version clamps too
-    const int i = idx[row];
-    if (i >= lo && i < lo + window)
-      atomicAdd(&dv[((long long)b * n + i) * c + ch], g[t]);
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int LIST_CAP = 48;     // slots of a row's bin, sorted in smem
+constexpr int HIST_MAX = 12288;  // window rows counted in shared memory
+constexpr int FILL_THREADS = 1024;
+constexpr int FILL_PER = 8;      // entries a fill thread keeps in registers
+
+__device__ __forceinline__ int window_lo(const int* starts, int t, int n,
+                                         int window) {
+  return min(max(__ldg(starts + t), 0), n - window);
+}
+
+// The row of index i in the window [lo, lo + window), or -1 outside it
+// (unsigned: an index below lo wraps past the window).
+__device__ __forceinline__ int window_row(int i, int lo, int window) {
+  const unsigned r = (unsigned)i - (unsigned)lo;
+  return r < (unsigned)window ? (int)r : -1;
+}
+
+// The tile's in-window entries visited by this thread: f(row, entry).
+template <typename F>
+__device__ __forceinline__ void for_window_entries(const int* ix, int ne,
+                                                   int lo, int window, F f) {
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    const int r = window_row(__ldg(ix + e), lo, window);
+    if (r >= 0) f(r, e);
   }
 }
 
+// slot[r] holds the tile's count of row lo + r; claim that many slots of
+// the row's bin (four claims in flight a thread), leaving the first slot.
+__device__ void claim_runs(int* slot, int* cb, int window) {
+  for (int r0 = threadIdx.x; r0 < window; r0 += 4 * blockDim.x) {
+    int h[4], got[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = r0 + u * blockDim.x;
+      h[u] = r < window ? slot[r] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (h[u]) got[u] = atomicAdd(cb + r0 + u * blockDim.x, h[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (h[u]) slot[r0 + u * blockDim.x] = got[u];
+  }
+  __syncthreads();
+}
+
+// Exclusive scan of one int per thread over the CTA; *total gets the sum.
+// Every thread of the CTA calls it (it synchronises).
+__device__ int block_exclusive_scan(int v, int* wsum, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < nw ? wsum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < nw) wsum[lane] = s;
+  }
+  __syncthreads();
+  const int before = warp ? wsum[warp - 1] : 0;
+  *total = wsum[nw - 1];
+  __syncthreads();
+  return before + x - v;
+}
+
+// bins [B, n, LIST_CAP] entry ids; cnt [B, n] ids per row (zeroed);
+// ovf [B, nq * k] (row, id) past a bin, ovf_n [B] their count (zeroed).
+// Shared memory (hist): claim[window], end[window], ids[ne], rows[ne].
+__global__ void __launch_bounds__(FILL_THREADS)
+scatter_fill_kernel(const int* __restrict__ idx,
+                    const int* __restrict__ starts, int* __restrict__ cnt,
+                    int* __restrict__ bins, int2* __restrict__ ovf,
+                    int* __restrict__ ovf_n, int n, int nq, int k,
+                    int window, int tq, int hist) {
+  extern __shared__ int smem[];
+  __shared__ int wsum[32];
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int lo = window_lo(starts, b * (nq / tq) + t, n, window);
+  const int ne = tq * k;
+  const int* ix = idx + ((size_t)b * nq + (size_t)t * tq) * k;
+  int* cb = cnt + (size_t)b * n + lo;
+  int* bb = bins + ((size_t)b * n + lo) * LIST_CAP;
+  const int e0 = t * ne;                   // the tile's first entry id
+  auto file = [&](int r, int e, int s) {
+    if (s < LIST_CAP) {
+      bb[(size_t)r * LIST_CAP + s] = e0 + e;
+    } else {
+      const int o = atomicAdd(ovf_n + b, 1);
+      ovf[(size_t)b * nq * k + o] = make_int2(lo + r, e0 + e);
+    }
+  };
+  if (!hist || ne > FILL_PER * (int)blockDim.x) {
+    // one global claim per entry (never at the main path's shapes)
+    for_window_entries(ix, ne, lo, window, [&](int r, int e) {
+      file(r, e, atomicAdd(cb + r, 1));
+    });
+    return;
+  }
+  int* claim = smem;                       // counts, then the bin slots
+  int* end = smem + window;                // the tile list's row runs
+  int* ids = end + window;
+  int* rows = ids + ne;
+  // one read of idx, the window rows kept in registers
+  int rr[FILL_PER];
+#pragma unroll
+  for (int p = 0; p < FILL_PER; ++p) {
+    const int e = p * blockDim.x + threadIdx.x;
+    rr[p] = e < ne ? window_row(__ldg(ix + e), lo, window) : -1;
+  }
+  for (int r = threadIdx.x; r < window; r += blockDim.x) claim[r] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < FILL_PER; ++p)
+    if (rr[p] >= 0) atomicAdd(&claim[rr[p]], 1);
+  __syncthreads();
+  // the tile's list sorted by row: a contiguous run of rows a thread
+  const int per = (window + blockDim.x - 1) / blockDim.x;
+  const int r0 = min((int)threadIdx.x * per, window);
+  const int r1 = min(r0 + per, window);
+  int sum = 0;
+  for (int r = r0; r < r1; ++r) sum += claim[r];
+  int total;
+  int run = block_exclusive_scan(sum, wsum, &total);
+  for (int r = r0; r < r1; ++r) {          // end[r]: cursor, then run end
+    end[r] = run;
+    run += claim[r];
+  }
+  __syncthreads();
+  claim_runs(claim, cb, window);           // claim[r]: the first bin slot
+#pragma unroll
+  for (int p = 0; p < FILL_PER; ++p)
+    if (rr[p] >= 0) {
+      const int pos = atomicAdd(&end[rr[p]], 1);
+      ids[pos] = p * blockDim.x + threadIdx.x;
+      rows[pos] = rr[p];
+    }
+  __syncthreads();
+  // write the list out: neighbouring threads on one row's run write
+  // neighbouring slots of its bin
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = rows[i];
+    const int first = r ? end[r - 1] : 0;  // the run's start in the list
+    file(r, ids[i], claim[r] + (i - first));
+  }
+}
+
+__device__ __forceinline__ void add_to(float& a, float y) { a += y; }
+__device__ __forceinline__ void add_to(float4& a, float4 y) {
+  a.x += y.x;
+  a.y += y.y;
+  a.z += y.z;
+  a.w += y.w;
+}
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <int G> __host__ __device__ constexpr int sum_threads() {
+  return G < 4 ? 128 : 256;
+}
+
+// G lanes per dv row; T = float4 when c % 4 == 0. Lane lg owns the units
+// lg, lg + G, ... of the row.
+template <typename T, int G>
+__global__ void __launch_bounds__(sum_threads<G>(), 2048 / sum_threads<G>() / 2)
+scatter_sum_kernel(const float* __restrict__ g, const int* __restrict__ cnt,
+                   const int* __restrict__ bins,
+                   const int2* __restrict__ ovf,
+                   const int* __restrict__ ovf_n, float* __restrict__ dv,
+                   int n, int nq, int k, int c) {
+  constexpr int V = sizeof(T) / sizeof(float);
+  constexpr int GROUPS = sum_threads<G>() / G;
+  constexpr int STRIDE = 2 * LIST_CAP + 1;  // odd: groups on other banks
+  constexpr int SPEC = G < 16 ? 16 : G;      // ids loaded with the count
+  constexpr int PER = SPEC / G;              // consecutive ids a lane loads
+  constexpr int UNROLL = V == 4 ? 8 : 16;    // loads a lane keeps in flight
+  __shared__ int ids[GROUPS * STRIDE];
+  const int lane = threadIdx.x & 31, lg = lane & (G - 1);
+  const int grp = threadIdx.x / G;
+  const unsigned gmask =
+      G == 32 ? FULL : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const int b = blockIdx.y, row = blockIdx.x * GROUPS + grp;
+  if (row >= n) return;                    // the whole group
+  const size_t rb = (size_t)b * n + row;
+  const int* bin = bins + rb * LIST_CAP;
+  // the bin's first SPEC ids (inside the bin, past m unused) with the
+  // count, as int4s where a lane takes 4 or 8
+  int pre[PER];
+  const int* mine = bin + lg * PER;
+  if constexpr (PER % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < PER; v += 4) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(mine + v));
+      pre[v] = q.x;
+      pre[v + 1] = q.y;
+      pre[v + 2] = q.z;
+      pre[v + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < PER; ++v) pre[v] = __ldg(mine + v);
+  }
+  const int m = __ldg(cnt + rb);
+  const int cv = c / V;                    // units of T in a cotangent row
+  const T* gb = reinterpret_cast<const T*>(g + (size_t)b * nq * k * c);
+  T* out = reinterpret_cast<T*>(dv + rb * c);
+  if (m <= LIST_CAP) {
+    int* s = ids + grp * STRIDE;
+    int* sorted = s + LIST_CAP;
+#pragma unroll
+    for (int v = 0; v < PER; ++v)
+      if (lg * PER + v < m) s[lg * PER + v] = pre[v];
+    for (int i = SPEC + lg; i < m; i += G) s[i] = __ldg(bin + i);
+    __syncwarp(gmask);
+    for (int i = lg; i < m; i += G) {      // ids are distinct: a rank each
+      const int e = s[i];
+      int rank = 0;
+      for (int j = 0; j < m; ++j) rank += s[j] < e;
+      sorted[rank] = e;
+    }
+    __syncwarp(gmask);
+    for (int u = lg; u < cv; u += G) {
+      T acc = zero<T>();
+      for (int i = 0; i < m; i += UNROLL) {
+        T y[UNROLL];
+#pragma unroll
+        for (int q = 0; q < UNROLL; ++q)
+          if (i + q < m) y[q] = __ldg(gb + (size_t)sorted[i + q] * cv + u);
+#pragma unroll
+        for (int q = 0; q < UNROLL; ++q)  // in order
+          if (i + q < m) add_to(acc, y[q]);
+      }
+      out[u] = acc;
+    }
+  } else {
+    // a long row: the next id in ascending order, from the bin and the
+    // overflow list, by a group minimum
+    const int no = ovf_n[b];
+    const int2* ob = ovf + (size_t)b * nq * k;
+    for (int u0 = 0; u0 < cv; u0 += G) {
+      const int u = u0 + lg;
+      T acc = zero<T>();
+      int prev = -1;
+      for (int it = 0; it < m; ++it) {
+        int nxt = 0x7fffffff;
+        for (int i = lg; i < LIST_CAP; i += G) {
+          const int e = __ldg(bin + i);
+          if (e > prev) nxt = min(nxt, e);
+        }
+        for (int i = lg; i < no; i += G) {
+          const int2 o = __ldg(ob + i);
+          if (o.x == row && o.y > prev) nxt = min(nxt, o.y);
+        }
+#pragma unroll
+        for (int o = G / 2; o > 0; o >>= 1)
+          nxt = min(nxt, __shfl_xor_sync(gmask, nxt, o));
+        if (u < cv) add_to(acc, __ldg(gb + (size_t)nxt * cv + u));
+        prev = nxt;
+      }
+      if (u < cv) out[u] = acc;
+    }
+  }
+}
+
+template <typename T, int G>
+cudaError_t launch_sum(const void* g, const int* cnt, const int* bins,
+                       const int2* ovf, const int* ovf_n, void* dv, int B,
+                       int n, int nq, int k, int c, cudaStream_t s) {
+  constexpr int groups = sum_threads<G>() / G;
+  const dim3 grid((n + groups - 1) / groups, B);
+  scatter_sum_kernel<T, G><<<grid, sum_threads<G>(), 0, s>>>(
+      (const float*)g, cnt, bins, ovf, ovf_n, (float*)dv, n, nq, k, c);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sum_g(int group, const void* g, const int* cnt,
+                         const int* bins, const int2* ovf, const int* ovf_n,
+                         void* dv, int B, int n, int nq, int k, int c,
+                         cudaStream_t s) {
+#define K4_SUM(G) \
+  launch_sum<T, G>(g, cnt, bins, ovf, ovf_n, dv, B, n, nq, k, c, s)
+  switch (group) {
+    case 2: return K4_SUM(2);
+    case 4: return K4_SUM(4);
+    case 8: return K4_SUM(8);
+    case 16: return K4_SUM(16);
+    default: return K4_SUM(32);
+  }
+#undef K4_SUM
+}
+
+}  // namespace
+
 // g [B, nq, k, c] f32; idx [B, nq, k] i32; starts [B, nq / tq] i32;
-// dv [B, n, c] f32 (zeroed here, on the stream, before the adds).
+// scratch: counts [B * n + B] i32 (per row, then the overflow counts),
+// bins [B, n, LIST_CAP] i32, ovf [B, nq * k] int2; dv [B, n, c] f32 (every
+// value written). Plan (ops/gather.py::scatter_plan): `group` lanes per
+// dv row (2, 4, 8, 16 or 32), `hist` 1 to sort each tile in shared memory
+// (window <= HIST_MAX and tq * k <= FILL_PER * FILL_THREADS).
 extern "C" int scatter_window_launch(const void* g, const void* idx,
-                                     const void* starts, void* dv, int B,
+                                     const void* starts, void* counts,
+                                     void* bins, void* ovf, void* dv, int B,
                                      int n, int nq, int k, int c, int window,
-                                     int tq, void* stream) {
-  if (B < 1 || n < 1 || tq < 1 || nq % tq || k < 1 || c < 1 || window < 1 ||
-      window > n)
+                                     int tq, int group, int hist,
+                                     void* stream) {
+  if (B < 1 || B > 65535 || n < 1 || tq < 1 || nq < 0 || nq % tq || k < 1 ||
+      c < 1 || window < 1 || window > n ||
+      (group != 2 && group != 4 && group != 8 && group != 16 &&
+       group != 32) ||
+      (hist && (window > HIST_MAX ||
+                (long long)tq * k > FILL_PER * FILL_THREADS)) ||
+      (long long)nq * k >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(dv, 0, (size_t)B * n * c * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)B * nq * k * c;
-  if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond this
-  if (total < (1LL << 31) - (long long)blocks * threads)
-    scatter_window_kernel<int><<<(unsigned)blocks, threads, 0, s>>>(
-        (const float*)g, (const int*)idx, (const int*)starts, (float*)dv, n,
-        nq, k, c, window, tq, nq / tq, (int)total);
-  else
-    scatter_window_kernel<long long><<<(unsigned)blocks, threads, 0, s>>>(
-        (const float*)g, (const int*)idx, (const int*)starts, (float*)dv, n,
-        nq, k, c, window, tq, nq / tq, total);
-  return (int)cudaGetLastError();
+  if (nq == 0) return (int)cudaMemsetAsync(dv, 0, (size_t)B * n * c * 4, s);
+  int* cnt = (int*)counts;
+  int* ovf_n = cnt + (size_t)B * n;
+  cudaError_t e =
+      cudaMemsetAsync(cnt, 0, ((size_t)B * n + B) * sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
+  const size_t fill_smem =
+      hist ? (2 * (size_t)window + 2 * (size_t)tq * k) * sizeof(int) : 0;
+  if (fill_smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(scatter_fill_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)fill_smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  scatter_fill_kernel<<<dim3(nq / tq, B), FILL_THREADS, fill_smem, s>>>(
+      (const int*)idx, (const int*)starts, cnt, (int*)bins, (int2*)ovf, ovf_n,
+      n, nq, k, window, tq, hist);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int2* o = (const int2*)ovf;
+  const int* bn = (const int*)bins;
+  return (int)(c % 4 == 0
+                   ? launch_sum_g<float4>(group, g, cnt, bn, o, ovf_n, dv, B,
+                                          n, nq, k, c, s)
+                   : launch_sum_g<float>(group, g, cnt, bn, o, ovf_n, dv, B,
+                                         n, nq, k, c, s));
 }

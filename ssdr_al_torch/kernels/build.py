@@ -52,10 +52,12 @@ SIGNATURES = {
     # threads, stream
     "gather_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
-    # g, idx, starts, dv, B, N, nq, k, C, window, tq, stream
-    "scatter_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # points, mask, out, C, S, P, stream
-    "chamfer_sums_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # g, idx, starts, counts, bins, ovf, dv, B, N, nq, k, C, window, tq,
+    # group, hist, stream
+    "scatter_window_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P],
+    # points, mask, packed, counts, out, C, S, P, stream
+    "chamfer_sums_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Check and time K1 and K2 at every call the main path makes.
+"""Check and time K1-K4 at every call the main path makes.
 
     python3 ssdr_al_torch/kernels/measure.py [--tree DIR] [--out PATH]
 
@@ -7,13 +7,21 @@ One eval-mode forward of RandLA-Net at ConfigS3DIS width (B=8 × 40960,
 the arguments of every K1 call (`window_topk`: the self-searches of L0-L2
 and the two k=1 upsamples) and every K2 call (`gather_window`: two LFA
 gathers per sorted layer, and the pool gathers through
-`gather_window_auto`). Each recorded call is replayed: the kernel against
-its plain version (K1 equal index for index, K2 bitwise), then timed
-beside the plain version, its bound and, for K2, `torch.gather` on the same
-indices. K2 also runs with its other source (shared-memory slab or L1/L2)
-wherever the slab fits in shared memory. Tie-heavy inputs follow:
-duplicated points, points on a coarse grid, SENTINEL pad rows and window
-starts clamped at the cloud's end, for K1, K5 and K2.
+`gather_window_auto`). One train-mode forward and backward (B=6 × 40960,
+dropout off) records every K4 call (`scatter_window`, the backward of each
+K2 call). K3 (`chamfer_sums`) runs at one [8, 256, 512] dispatch (60 %
+valid) and at the selection round's call: the superpoint slab of the
+smoke's four synthetic rooms (`grid_superpoints`, 2048 a room, capped at
+512 points) gathered by `SuperpointBlockCache.chamfer` for 310 superpoints
+a room. Each call is replayed: the kernel against its plain version (K1
+equal index for index, K2 and K4 bitwise, K4's against the CPU's
+`index_add_`, K3 within 1e-5 relative), two launches compared bit for bit
+(K3, K4), then timed beside the plain version, its bound and, for K2
+`torch.gather` and for K4 `index_add_`, on the same indices. K2 also runs
+with its other source (shared-memory slab or L1/L2) wherever the slab fits
+in shared memory. Tie-heavy inputs follow: duplicated points, points on a
+coarse grid, SENTINEL pad rows and window starts clamped at the cloud's
+end, for K1, K5 and K2.
 
 `--tree DIR` measures the `ssdr_al_torch` package under DIR (for example
 a `git archive` of another commit) with this file's inputs and timing, so
@@ -116,6 +124,179 @@ def record_main_path(cfg, dev, b=8, seed=0):
         (kn.window_topk, rl.window_topk, rl.gather_window,
          ga.gather_window) = saved
     return k1, k2
+
+
+def record_train_backward(cfg, dev, b=6, seed=0):
+    """K4 calls of one train-mode forward and backward [b × cfg.num_points]
+    (dropout off, a random cotangent on the logits): each a dict of the
+    wrapper's arguments, in launch order."""
+    from ssdr_al_torch.models import randlanet as rl
+    from ssdr_al_torch.ops import gather as ga
+
+    calls = []
+    k4 = ga.scatter_window
+
+    def rec(g, idx, starts, n, window, tq=128):
+        calls.append(dict(g=g, idx=idx, starts=starts, n=n, window=window,
+                          tq=tq))
+        return k4(g, idx, starts, n, window, tq)
+
+    # the wrapper counts its launches on the module's name for it
+    rec.launches = 0
+    rng = np.random.RandomState(seed)
+    n = cfg.num_points
+    xyz = (rng.rand(b, n, 3) * 6).astype(np.float32)
+    feats = np.concatenate([xyz, rng.rand(b, n, 3).astype(np.float32)], -1)
+    torch.manual_seed(seed)
+    model = rl.RandLANet(cfg).to(dev).train()
+    model.dp1.eval()
+    with torch.no_grad():
+        pyr = rl.build_pyramid(torch.from_numpy(xyz).to(dev), cfg)
+    logits, _ = model(torch.from_numpy(feats).to(dev), pyr, unsort=False)
+    cot = torch.from_numpy(rng.randn(*logits.shape).astype(np.float32))
+    ga.scatter_window = rec
+    try:
+        logits.backward(cot.to(dev))
+    finally:
+        ga.scatter_window = k4
+    return calls
+
+
+def check_k4(call, reps=20, plain_reps=5):
+    """K4 at one recorded call: two launches equal bit for bit; against
+    the plain version on the CPU (index_add_ in (q, j) order) bitwise, or
+    where the tree's K4 sums in no fixed order, within 1e-5 relative plus
+    2·m·ε·Σ|g| (two orders of an f32 sum of m values); its time, the plain
+    version's on the card, index_add_'s on the same rows and the bound."""
+    from ssdr_al_torch.ops import gather as ga
+
+    g, i, st = call["g"], call["idx"], call["starts"]
+    n, w, tq = call["n"], call["window"], call["tq"]
+    b, nq, k, c = g.shape
+    name = f"[{b},{nq},{k},{c}] -> [{b},{n},{c}] W={w} tq={tq}"
+    before = ga.scatter_window.launches
+    got = ga.scatter_window(g, i, st, n, w, tq)
+    again = ga.scatter_window(g, i, st, n, w, tq)
+    if ga.scatter_window.launches != before + 2:
+        raise AssertionError(f"K4 {name}: the kernel did not launch")
+    cpu = [t.cpu() for t in (g, i, st)]
+    want = ga._scatter_window_plain(*cpu, n, w, tq)
+    got_c = got.cpu()
+    bitwise = torch.equal(got_c, want)
+    if not bitwise:
+        m = ga._scatter_window_plain(torch.ones_like(cpu[0]), *cpu[1:], n, w,
+                                     tq)
+        tol = 1e-5 * want.abs() + 2 * m * 2.0 ** -23 * \
+            ga._scatter_window_plain(cpu[0].abs(), *cpu[1:], n, w, tq)
+        if not bool(((got_c - want).abs() <= tol).all()):
+            raise AssertionError(f"K4 {name}: differs from the plain version")
+    rows = (i.long() + (torch.arange(b, device=i.device) * n)[:, None, None]
+            ).reshape(-1)
+    g2 = g.reshape(-1, c)
+    bd = bound(nbytes(g, i, st, got), g.numel())
+    out = dict(shape=name, bitwise=bitwise,
+               run_to_run=torch.equal(got, again),
+               max_abs_err=(got_c - want).abs().max().item(),
+               ms=device_ms(lambda: ga.scatter_window(g, i, st, n, w, tq),
+                            reps),
+               plain_ms=device_ms(lambda: ga._scatter_window_plain(
+                   g, i, st, n, w, tq), plain_reps),
+               bound_ms=bd[0], bound_by=bd[1],
+               library_ms=device_ms(lambda: torch.zeros(
+                   b * n, c, device=g.device).index_add_(0, rows, g2), reps))
+    if hasattr(ga, "scatter_plan"):
+        out["plan"] = list(ga.scatter_plan(b, n, nq, k, c, w, tq))
+    return out
+
+
+def chamfer_bounds(points, mask, out):
+    """((ms, by) of the least work: each unordered pair of valid points in
+    distinct superpoints once, 8 operations of d² and 2 minima), and (ms,
+    by) of the looser count: every ordered pair of valid points of a
+    block, 9 operations."""
+    cnt = mask.sum(-1).double()                                    # [C, S]
+    tot = cnt.sum(-1)
+    distinct = float(((tot * tot - (cnt * cnt).sum(-1)) / 2).sum())
+    nb = nbytes(points, mask, out)
+    return bound(nb, 10 * distinct), bound(nb, 9 * float((tot * tot).sum()))
+
+
+def fixed_chamfer_call(dev, shape=(8, 256, 512), valid=0.6, seed=0):
+    """K3's arguments at one [C, S, P] dispatch: points N(0, 0.3²), each
+    slot valid with probability `valid`."""
+    c, s, p = shape
+    rng = np.random.RandomState(seed)
+    pts = (rng.randn(c, s, p, 3) * 0.3).astype(np.float32)
+    return (torch.from_numpy(pts).to(dev),
+            torch.from_numpy(rng.rand(c, s, p) < valid).to(dev))
+
+
+def selection_chamfer_call(dev, seed=0, per_room=310):
+    """K3's arguments at the selection round's call shape: the smoke's four
+    synthetic hard rooms of 150 000 points (seed 0), grid superpoints at
+    2048 a room in a SuperpointBlockCache (512-point cap), 310 superpoints
+    a room (about the smoke's 2·B candidates plus anchors) gathered by
+    cache.chamfer, recorded at the chamfer_sums call."""
+    from ssdr_al_torch.active.region_graph import SuperpointBlockCache
+    from ssdr_al_torch.data.synthetic import grid_superpoints, make_dataset
+    from ssdr_al_torch.ops import chamfer as ch
+
+    train, _ = make_dataset(num_train=4, num_val=1, num_points=150_000,
+                            seed=0, hard=True)
+    cache = SuperpointBlockCache(512, device=dev)
+    rng = np.random.RandomState(seed)
+    idx = []
+    for c in train:
+        comps, _ = grid_superpoints(c.xyz, 2048)
+        cache.ensure(c.name, c.xyz, comps)
+        pick = rng.choice(len(comps), min(per_room, len(comps)), replace=False)
+        idx.append(np.sort(pick))
+    cache.finalize()
+    s = max(len(p) for p in idx)
+    rows = np.full((len(train), s), cache.trash_row, np.int64)
+    for ci, (c, p) in enumerate(zip(train, idx)):
+        rows[ci, :len(p)] = cache.rows(c.name, p)
+    calls, k3 = [], ch.chamfer_sums
+
+    def rec(points, mask):
+        calls.append((points, mask))
+        return k3(points, mask)
+
+    rec.launches = 0
+    ch.chamfer_sums = rec
+    try:
+        cache.chamfer(rows)
+    finally:
+        ch.chamfer_sums = k3
+    return calls[0]
+
+
+def check_k3(points, mask, name, reps=5, plain_reps=1):
+    """K3 at one call: two launches equal bit for bit, within 1e-5
+    relative of its plain version; its time, the plain version's, and both
+    bounds (chamfer_bounds)."""
+    from ssdr_al_torch.ops import chamfer as ch
+
+    before = ch.chamfer_sums.launches
+    o = ch.chamfer_sums(points, mask)
+    again = ch.chamfer_sums(points, mask)
+    if ch.chamfer_sums.launches != before + 2:
+        raise AssertionError(f"K3 {name}: the kernel did not launch")
+    op = ch._chamfer_sums_plain(points, mask)
+    rel = ((o - op).abs() / op.abs().clamp(min=1e-6)).max().item()
+    if not rel <= 1e-5:
+        raise AssertionError(f"K3 {name}: relative error {rel}")
+    least, old = chamfer_bounds(points, mask, o)
+    c, s, p = mask.shape
+    return dict(shape=f"{name} [{c},{s},{p}], {mask.float().mean().item():.3f}"
+                      " valid",
+                run_to_run=torch.equal(o, again), max_rel_err=rel,
+                max_abs_err=(o - op).abs().max().item(),
+                ms=device_ms(lambda: ch.chamfer_sums(points, mask), reps),
+                plain_ms=device_ms(lambda: ch._chamfer_sums_plain(
+                    points, mask), plain_reps),
+                bound_ms=least[0], bound_by=least[1],
+                bound_ms_ordered=old[0], library_ms=None)
 
 
 def check_k1(call, mxu=False, reps=20, plain_reps=3):
@@ -267,9 +448,15 @@ def check_ties(dev):
 
 
 def check_main_path(cfg, dev, log=print):
-    """Record one forward's K1 and K2 calls, check and time each, then the
-    tie-heavy inputs. Returns {"window_topk": [...], "gather_window": [...],
-    "ties": [...], "calls": (k1 calls, k2 calls)}."""
+    """Record one forward's K1 and K2 calls and one train-mode backward's
+    K4 calls, check and time each, then the tie-heavy inputs and K3 at its
+    two shapes. Where the tree's K4 has a launch plan (the fixed-order
+    design), every K4 call must equal the plain version and itself bit for
+    bit. Returns {"window_topk": [...], "gather_window": [...],
+    "scatter_window": [...], "chamfer_sums": [...], "ties": [...],
+    "calls": (k1 calls, k2 calls)}."""
+    from ssdr_al_torch.ops import gather as ga
+
     k1_calls, k2_calls = record_main_path(cfg, dev)
     k1 = []
     for call in k1_calls:
@@ -290,8 +477,37 @@ def check_main_path(cfg, dev, log=print):
             f"{r.get('plan')}{alt})")
     ties = check_ties(dev)
     log(f"tie-heavy inputs, equal to the plain versions: {ties}")
-    return {"window_topk": k1, "gather_window": k2, "ties": ties,
-            "calls": (k1_calls, k2_calls)}
+    k4 = []
+    strict = hasattr(ga, "scatter_plan")
+    for call in record_train_backward(cfg, dev):
+        r = check_k4(call)
+        k4.append(r)
+        log(f"K4 {r['shape']}: bitwise equal to the CPU plain version "
+            f"{r['bitwise']}, run to run {r['run_to_run']}, {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.3f} ms, index_add_ "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, plan {r.get('plan')})")
+        if strict and not (r["bitwise"] and r["run_to_run"]):
+            raise AssertionError(f"K4 {r['shape']}: not bitwise equal to "
+                                 "the plain version and to itself")
+    log(f"K4 sum over the {len(k4)} calls of one train step: "
+        f"{sum(r['ms'] for r in k4):.4f} ms (index_add_ "
+        f"{sum(r['library_ms'] for r in k4):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in k4):.4f} ms)")
+    k3 = []
+    for name, call in (("fixed", fixed_chamfer_call(dev)),
+                       ("selection", selection_chamfer_call(dev))):
+        r = check_k3(*call, name)
+        k3.append(r)
+        log(f"K3 {r['shape']}: max rel err {r['max_rel_err']:.2e}, run to "
+            f"run {r['run_to_run']}, {r['ms']:.3f} ms (plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; every ordered pair at 9 operations "
+            f"{r['bound_ms_ordered']:.4f} ms)")
+        if not r["run_to_run"]:
+            raise AssertionError(f"K3 {r['shape']}: two launches differ")
+    return {"window_topk": k1, "gather_window": k2, "scatter_window": k4,
+            "chamfer_sums": k3, "ties": ties, "calls": (k1_calls, k2_calls)}
 
 
 def main() -> int:

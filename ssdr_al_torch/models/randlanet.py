@@ -446,7 +446,8 @@ class RandLANet(nn.Module):
         sorted_mode = isinstance(pyramid, SortedPyramid)
         if sorted_mode:
             features = gather_rows(features, pyramid.order)
-        f = leaky_relu(self.fc0_bn(self.fc0(features.float())))
+        f = leaky_relu(self.fc0_bn(self.fc0(features.to(
+            self.fc0.weight.dtype))))
         f_encoder_list = []
         for i, enc in enumerate(self.encoder):
             starts = pyramid.starts[i] if sorted_mode else None

@@ -48,8 +48,10 @@ def _chamfer_sums_plain(points, mask, row_chunk=8):
 
 def chamfer_sums(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """K3: directional chamfer sums. points [C, S, P, 3] f32, mask
-    [C, S, P] bool → o [C, S, S] f32, o[c, a, b] = Σ_{q∈b} min_{p∈a} ||p−q||.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    [C, S, P] bool → o [C, S, S] f32, o[c, a, b] = Σ_{q∈b} min_{p∈a} ||p−q||
+    (0 when a or b is empty). CPU tensors take the plain version; CUDA
+    tensors launch the kernel, which computes each unordered pair's
+    distances once for both directions."""
     c, s, p, three = points.shape
     if three != 3 or mask.shape != (c, s, p):
         raise ValueError(f"chamfer_sums: bad shapes {points.shape} {mask.shape}")
@@ -58,10 +60,16 @@ def chamfer_sums(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if points.dtype != torch.float32 or mask.dtype != torch.bool:
         raise TypeError("chamfer_sums: float32 points and bool mask")
     _kb.require_cuda("chamfer_sums", points, mask)
-    out = torch.empty((c, s, s), dtype=torch.float32, device=points.device)
+    dev = points.device
+    out = torch.empty((c, s, s), dtype=torch.float32, device=dev)
+    # scratch: each superpoint's valid points packed as float4s, their
+    # counts and the pair kernel's task counter
+    packed = torch.empty((c, s, p, 4), dtype=torch.float32, device=dev)
+    counts = torch.empty(c * s + 1, dtype=torch.int32, device=dev)
     err = _kb.library().chamfer_sums_launch(
-        points.data_ptr(), mask.data_ptr(), out.data_ptr(), c, s, p,
-        ctypes.c_void_p(_kb.stream_ptr(points.device)))
+        points.data_ptr(), mask.data_ptr(), packed.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), c, s, p,
+        ctypes.c_void_p(_kb.stream_ptr(dev)))
     _kb.check(err, "chamfer_sums")
     chamfer_sums.launches += 1
     return out

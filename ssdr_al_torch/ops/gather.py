@@ -6,8 +6,11 @@ neighbour index of a query tile lies inside that tile's search window
 MXU matmul (bf16 output) and its VJP into the transposed one-hot product
 (`_scatter_kernel`); the port gathers rows directly in the hand-written
 CUDA kernel K2 (csrc/gather_window.cu), which keeps the input dtype and is
-exact, and scatter-adds the cotangent back with f32 atomics in K4
-(csrc/scatter_window.cu). `gather_window` is a torch.autograd.Function
+exact, and sums the cotangent back in K4 (csrc/scatter_window.cu), which
+bins the entries by their dv row and adds each row in (q, j) order:
+deterministic, and bitwise equal to its plain version's index_add_ on the
+CPU.
+`gather_window` is a torch.autograd.Function
 with K2 forward and K4 backward; no gradient flows to idx or starts.
 
 The TPU's crossover gate KERNEL_MAX_WC and its VMEM gates
@@ -131,6 +134,39 @@ def _scatter_window_plain(g, idx, starts, n, window, tq):
     return dv.reshape(b, n, c)
 
 
+# K4's launch plan (csrc/scatter_window.cu): a group of G lanes sums each
+# dv row, lane l the units l, l + G, ... of it: float4s where c % 4 == 0,
+# G the power of 2 from 2 to 32 that covers them; else floats, 4 lanes up
+# to 16 channels and 32 above (measured on the H100, PERF.md). A tile is
+# sorted by row in shared memory when its window has at most
+# SCATTER_HIST_MAX rows and it has at most SCATTER_FILL_ENTRIES entries,
+# else each entry claims its slot with a global atomic. Each row bins up
+# to SCATTER_BIN entry ids (the kernel's LIST_CAP), the rest in an
+# overflow list.
+SCATTER_HIST_MAX = 12288
+SCATTER_FILL_ENTRIES = 8192
+SCATTER_BIN = 48
+
+
+def scatter_plan(b: int, n: int, nq: int, k: int, c: int, window: int,
+                 tq: int):
+    """(group, hist) of K4 for these shapes: lanes per dv row, and whether
+    each tile is sorted in shared memory."""
+    if not (1 <= b <= 65535 and n >= 1 and k >= 1 and c >= 1 and tq >= 1
+            and nq >= 0 and nq % tq == 0 and 1 <= window <= n
+            and nq * k < 2 ** 31):
+        raise ValueError(f"scatter_plan: bad shapes b={b} n={n} nq={nq} "
+                         f"k={k} c={c} window={window} tq={tq}")
+    if c % 4 == 0:
+        group = 2
+        while group < min(c // 4, 32):
+            group *= 2
+    else:
+        group = 4 if c <= 16 else 32
+    return group, (window <= SCATTER_HIST_MAX
+                   and tq * k <= SCATTER_FILL_ENTRIES)
+
+
 def scatter_window(g: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor,
                    n: int, window: int, tq: int = 128) -> torch.Tensor:
     """The transpose of gather_window: dv [B, n, C] with
@@ -138,7 +174,7 @@ def scatter_window(g: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor,
     query tile q // tq's window; an index outside its window contributes
     nothing. g [B, Nq, k, C]; idx [B, Nq, k] int32; starts [B, Nq/tq] int32.
     CPU tensors take the plain version; CUDA tensors launch K4, which takes
-    float32 g and sums with atomics in no fixed order."""
+    float32 g and adds in (q, j) order, as the plain version does."""
     b, nq, k, c = g.shape
     if idx.shape != (b, nq, k):
         raise ValueError(f"scatter_window: g {tuple(g.shape)} vs idx "
@@ -150,11 +186,18 @@ def scatter_window(g: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor,
             or starts.dtype != torch.int32:
         raise TypeError("scatter_window: float32 g, int32 idx and starts")
     _kb.require_cuda("scatter_window", g, idx, starts)
-    dv = torch.empty((b, n, c), dtype=g.dtype, device=g.device)
+    group, hist = scatter_plan(b, n, nq, k, c, window, tq)
+    dev = g.device
+    dv = torch.empty((b, n, c), dtype=g.dtype, device=dev)
+    # scratch: ids per row and per overflow list, each row's bin of ids,
+    # and the (row, id) pairs past a full bin
+    counts = torch.empty(b * n + b, dtype=torch.int32, device=dev)
+    bins = torch.empty((b, n, SCATTER_BIN), dtype=torch.int32, device=dev)
+    ovf = torch.empty((b, nq * k, 2), dtype=torch.int32, device=dev)
     err = _kb.library().scatter_window_launch(
-        g.data_ptr(), idx.data_ptr(), starts.data_ptr(), dv.data_ptr(),
-        b, n, nq, k, c, window, tq,
-        ctypes.c_void_p(_kb.stream_ptr(g.device)))
+        g.data_ptr(), idx.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        bins.data_ptr(), ovf.data_ptr(), dv.data_ptr(), b, n, nq, k, c,
+        window, tq, group, int(hist), ctypes.c_void_p(_kb.stream_ptr(dev)))
     _kb.check(err, "scatter_window")
     scatter_window.launches += 1
     return dv

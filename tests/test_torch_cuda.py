@@ -176,7 +176,8 @@ def test_gather_window_every_channel_count(dev, c, tq):
 
 
 def test_chamfer_sums_matches_plain(dev):
-    """K3 agrees with its plain version within 1e-5 relative."""
+    """K3 agrees with its plain version within 1e-5 relative, and two
+    launches agree bit for bit."""
     rng = np.random.RandomState(2)
     c, s, p = 3, 32, 512
     pts = torch.from_numpy(rng.randn(c, s, p, 3).astype(np.float32))
@@ -184,25 +185,69 @@ def test_chamfer_sums_matches_plain(dev):
     msk[0, 3] = False                       # one empty superpoint
     want = ch.chamfer_sums(pts, msk)
     got = ch.chamfer_sums(pts.to(dev), msk.to(dev))
+    again = ch.chamfer_sums(pts.to(dev), msk.to(dev))
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
     cd = ch.chamfer_pairwise_blocks(pts.to(dev), msk.to(dev)).cpu()
     assert (cd[0, 3, torch.arange(s) != 3] >= 1e12).all()
+
+
+@pytest.mark.parametrize("s,p,valid", [
+    (1, 64, 1.0),          # one superpoint: only the diagonal
+    (7, 100, 1.0),         # odd S, all valid, P not a multiple of 32
+    (16, 75, 0.6),         # P not a multiple of the register block
+    (9, 512, 0.12),        # the selection call's sparse slab rows
+    (4, 700, 1.0),         # both sides over 512 points: each direction
+    (5, 600, 0.45),        # one side over 512 points
+])
+def test_chamfer_sums_shapes(dev, s, p, valid):
+    """K3 against its plain version within 1e-5 relative at several
+    (S, P, validity), with one superpoint at 0 % valid and one with a
+    single point; bit for bit the same on a second launch."""
+    rng = np.random.RandomState(s * 1000 + p)
+    c = 2
+    pts = torch.from_numpy((rng.randn(c, s, p, 3) * 0.4).astype(np.float32))
+    msk = torch.from_numpy(rng.rand(c, s, p) < valid)
+    if s > 2:
+        msk[0, 1] = False
+        msk[1, 2] = False
+        msk[1, 2, p // 2] = True
+    want = ch.chamfer_sums(pts, msk)
+    got = ch.chamfer_sums(pts.to(dev), msk.to(dev))
+    again = ch.chamfer_sums(pts.to(dev), msk.to(dev))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, again)
+
+
+def _scatter_inputs(rng, b, n, nq, k, c, window, tq):
+    """Window starts spread over the cloud, the first past its start and
+    the last past its end (clamped to [0, n - window]), and indices
+    around each window, some outside it."""
+    starts = torch.from_numpy(
+        (rng.randint(-2, (n - window) // 128 + 3, (b, nq // tq)) * 128)
+        .astype(np.int32))
+    starts[:, 0], starts[:, -1] = -300, n + 5
+    lo = torch.repeat_interleave(torch.clamp(starts, 0, n - window), tq,
+                                 1)[..., None]
+    idx = lo + torch.from_numpy(rng.randint(-9, window + 9, (b, nq, k)))
+    idx = torch.clamp(idx, 0, n - 1).int()
+    g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))
+    return g, idx, starts
 
 
 @pytest.mark.parametrize("b,n,nq,c,window,tq", [
     (2, 40960, 40960, 11, 2048, 512),    # L0 LFA gather's backward
     (2, 2560, 640, 256, 2560, 128),      # L2 pool gather's, 256 channels
+    (2, 2048, 8192, 8, 2048, 128),       # all 64 tiles' windows on a row
 ])
 def test_scatter_window_matches_plain(dev, b, n, nq, c, window, tq):
-    """K4 against its plain version (index_add_ on the CPU): f32 atomics sum
-    in no fixed order, and two orders of an f32 sum of m values differ by
-    at most 2·m·ε·Σ|g| (ε = 2⁻²³); so each element within 1e-5 relative
-    plus that bound, with m and Σ|g| from the plain version (a near-
-    cancelling sum has a large relative error: measured 2.2e-3 relative,
-    2.2e-6 absolute at the L0 shape). Out-of-window indices contribute
-    nothing. The backward of gather_window on the card launches K4 and
-    gives the same gradient."""
+    """K4 adds each dv value in (q, j) order, as the plain version's
+    index_add_ does on the CPU: bitwise equal to it, and to itself on a
+    second launch. Out-of-window indices contribute nothing. The backward
+    of gather_window on the card launches K4 and gives the same
+    gradient."""
     rng = np.random.RandomState(3)
     k = 16
     starts = torch.from_numpy(
@@ -214,19 +259,56 @@ def test_scatter_window_matches_plain(dev, b, n, nq, c, window, tq):
     idx[-1, -1, -1] = n + 3
     g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))
     want = ga.scatter_window(g, idx, starts, n, window, tq)
-    m = ga.scatter_window(torch.ones_like(g), idx, starts, n, window, tq)
-    tol = 1e-5 * want.abs() + 2 * m * 2.0 ** -23 * ga.scatter_window(
-        g.abs(), idx, starts, n, window, tq)
     before = ga.scatter_window.launches
-    got = ga.scatter_window(g.to(dev), idx.to(dev), starts.to(dev), n,
-                            window, tq)
+    args = (idx.to(dev), starts.to(dev), n, window, tq)
+    got = ga.scatter_window(g.to(dev), *args)
+    again = ga.scatter_window(g.to(dev), *args)
     torch.cuda.synchronize()
-    assert ga.scatter_window.launches == before + 1
-    assert bool(((got.cpu() - want).abs() <= tol).all())
+    assert ga.scatter_window.launches == before + 2
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
 
     vals = torch.from_numpy(rng.randn(b, n, c).astype(np.float32))
     v_dev = vals.to(dev).requires_grad_(True)
     ga.gather_window(v_dev, idx.to(dev), starts.to(dev), window,
                      tq).backward(g.to(dev))
-    assert ga.scatter_window.launches == before + 2
-    assert bool(((v_dev.grad.cpu() - want).abs() <= tol).all())
+    assert ga.scatter_window.launches == before + 3
+    assert torch.equal(v_dev.grad.cpu(), want)
+
+
+@pytest.mark.parametrize("tq", [512, 128])
+@pytest.mark.parametrize("c", [8, 11, 32, 35, 64, 67, 128, 256])
+def test_scatter_window_every_channel_count(dev, c, tq):
+    """K4 at every channel count the model scatters and both tile sizes
+    (the LFA gathers' and gather_window_auto's), starts past both ends
+    and indices outside their windows: bitwise equal to the CPU plain
+    version and to a second launch."""
+    rng = np.random.RandomState(c + tq)
+    b, n, k, window = 2, 4096, 16, 1024
+    g, idx, starts = _scatter_inputs(rng, b, n, n, k, c, window, tq)
+    want = ga.scatter_window(g, idx, starts, n, window, tq)
+    args = (g.to(dev), idx.to(dev), starts.to(dev), n, window, tq)
+    got, again = ga.scatter_window(*args), ga.scatter_window(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+
+
+def test_scatter_window_auto_gradient(dev):
+    """The pool gathers' path: gather_window_auto's clamped indices (index
+    spread wider than the window) scatter back through K4, bitwise equal
+    to the CPU's gradient."""
+    rng = np.random.RandomState(9)
+    b, n, nq, k, c, window = 2, 10240, 2560, 16, 128, 3072
+    centre = np.repeat(np.linspace(0, n - 1, nq // 128), 128)[None, :, None]
+    idx = torch.from_numpy(np.clip(
+        centre + rng.randint(-2500, 2500, (b, nq, k)), 0, n - 1
+    ).astype(np.int32))
+    vals = torch.from_numpy(rng.randn(b, n, c).astype(np.float32))
+    g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))
+    grads = []
+    for d in ("cpu", dev):
+        v = vals.to(d, copy=True).requires_grad_(True)
+        ga.gather_window_auto(v, idx.to(d), window).backward(g.to(d))
+        grads.append(v.grad.cpu())
+    torch.cuda.synchronize()
+    assert ga.window_violations(idx, window) > 0
+    assert torch.equal(grads[0], grads[1])
