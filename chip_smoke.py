@@ -1,20 +1,29 @@
 """Smoke run of ssdr_al_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version at the main path's shapes
 (K1 and K2 at every call of one forward, both K2 sources, tie-heavy
-inputs, K4 at every call of one train step, bitwise, and K3 at a fixed
-dispatch and the selection round's shape: ssdr_al_torch/kernels/
+inputs, K4 at every call of one train step, bitwise, each at S3DIS,
+Semantic3D [4 × 65536] and SemanticKITTI [6 × 45056] width, and K3 at a
+fixed dispatch and the selection round's shape: ssdr_al_torch/kernels/
 measure.py), then drive the closed active-learning loop at RandLA-Net
 S3DIS width through the kernels: seed labels, round-1 training with
 evaluation to snap-1, the card's train-mode gradient against float32 and
 float64 CPU gradients at a seeded state, a full-SSDR selection round from
 the trained snap-1 (its K3 call checked again and its GCN-FPS picks
 compared on K3's and the plain version's chamfer matrices), and round-2
-training from its pseudo-GT to snap-2. Then the exact-KNN engine at the
+training on the device training pool (DeviceTrainPool, al_loop's
+default) from its pseudo-GT to snap-2. Then the exact-KNN engine at the
 same width: a training round
 with --knn_engine pallas (K6) from the seed labels, the standalone
 evaluation (cli.evaluate) of its snapshot on the validation room, and one
 eval step each on the window_og (K1), approx and window-with-K5
-(MXU_DISTANCE_DEFAULT) engines.
+(MXU_DISTANCE_DEFAULT) engines. Then the Semantic3D loop at
+ConfigSemantic3D width ([4 × 65536]): seed labels,
+round-1 training on the PossibilityDevicePool with evaluation, a
+full-SSDR selection round (K3) and round-2 training on the pool; one
+SemanticKITTI train step and eval step at its width ([6 × 45056], 4
+layers); and the median of 20 warm steps of the host-pipeline and pooled
+S3DIS steps and the possibility-pooled Semantic3D step
+(ssdr_al_torch/train/step_times.py).
 
     python3 chip_smoke.py [--profile [PATH]]
 
@@ -63,11 +72,11 @@ KERNELS = {
 }
 ROOMS, ROOM_POINTS, TARGET_SP, BUDGET = 4, 150_000, 2048, 400
 TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 8, 2
-# the gradient check's seeded state, and its limit: the card's f32 error
-# to the f64 gradient within this multiple of the CPU f32 error, plus a
-# floor
-GRAD_SEED, GRAD_ERR_MULTIPLE, GRAD_ERR_FLOOR = 5, 4.0, 1e-6
+GRAD_SEED = 5                 # the gradient check's seeded state
 EXACT_EPOCHS, EXACT_STEPS = 1, 4      # the --knn_engine pallas round
+# the Semantic3D loop: synthetic clouds, grid superpoints a cloud, clicks
+S3D_CLOUDS, S3D_CLOUD_POINTS, S3D_TARGET_SP, S3D_BUDGET = 3, 300_000, 4096, 300
+S3D_EPOCHS, S3D_STEPS = 2, 6
 SSDR_ARGS = ["t0", "sb", "clsbal", "gcn_fps", "WetSU", "NAIL", "0.9", "1",
              "1", "0"]
 
@@ -140,6 +149,24 @@ def check_kernels(cfg, dev):
     b, n = 8, cfg.num_points
     out = {}
 
+    # every K1, K2 and K4 call of one Semantic3D forward and train step
+    # [4 x 65536], first: a launch setting needed only at these shapes
+    # must not be left to an earlier call; then of one SemanticKITTI
+    # forward and train step [6 x 45056] (4 layers)
+    from ssdr_al_torch.config import ConfigSemantic3D, ConfigSemanticKITTI
+
+    wide = {}
+    for name, c in (("Semantic3D", ConfigSemantic3D),
+                    ("SemanticKITTI", ConfigSemanticKITTI)):
+        r = wide[name] = measure.check_main_path(
+            c, dev, b_eval=c.batch_size, b_train=c.batch_size,
+            shape_free=False)
+        k4r = r["scatter_window"]
+        print(f"{name}: {len(r['window_topk'])} K1, "
+              f"{len(r['gather_window'])} K2, {len(k4r)} K4 calls equal to "
+              f"their plain versions; K4 rows past the bins per call "
+              f"{[x.get('overflow_rows') for x in k4r]}")
+    s3d, kitti = wide["Semantic3D"], wide["SemanticKITTI"]
     main = measure.check_main_path(cfg, dev)
     k1_calls, _ = main["calls"]
     # the L0 self-search (k=16, W=1792) and the L0 1-NN upsample
@@ -151,7 +178,9 @@ def check_kernels(cfg, dev):
     xs, st, w = l0["support"], l0["starts"], l0["window"]
     r1 = main["window_topk"][i0]
     out["window_topk"] = dict(r1, ms_k1=main["window_topk"][iu]["ms"],
-                              shapes=main["window_topk"], ties=main["ties"])
+                              shapes=main["window_topk"], ties=main["ties"],
+                              shapes_semantic3d=s3d["window_topk"],
+                              shapes_semantickitti=kitti["window_topk"])
     # K1 on the window_og path: the self-searches of L0 (W=4096) and of L1
     # ([8x10240], W=2048)
     og = {}
@@ -228,17 +257,20 @@ def check_kernels(cfg, dev):
 
     # K2 at the L0 LFA gather of [xyz | 8 features] (the first K2 call)
     out["gather_window"] = dict(main["gather_window"][0],
-                                shapes=main["gather_window"])
+                                shapes=main["gather_window"],
+                                shapes_semantic3d=s3d["gather_window"],
+                                shapes_semantickitti=kitti["gather_window"])
 
     # K4: the 9 calls of one train step [6 x 40960], each bitwise equal to
     # the CPU plain version and to itself (measure.check_k4); the row sums
     # them, each field over the same 9 calls
-    k4 = main["scatter_window"]
+    k4, k4s, k4k = (x["scatter_window"] for x in (main, s3d, kitti))
     out["scatter_window"] = dict(
         {key: sum(r[key] for r in k4) for key in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms")},
-        max_abs_err=max(r["max_abs_err"] for r in k4), bound_by="bytes",
-        calls=len(k4), shapes=k4)
+        max_abs_err=max(r["max_abs_err"] for r in k4 + k4s + k4k),
+        bound_by="bytes", calls=len(k4), shapes=k4, shapes_semantic3d=k4s,
+        shapes_semantickitti=k4k)
     # K3: one [8, 256, 512] dispatch at 60 % valid, and the selection
     # round's call shape (measure.check_k3)
     out["chamfer_sums"] = dict(main["chamfer_sums"][0],
@@ -282,96 +314,20 @@ def check_forward_reference(cfg, state, dev):
         raise AssertionError("card forward disagrees with the CPU reference")
 
 
-def check_gradient_reference(cfg, dev, seed=GRAD_SEED):
-    """One 40960-point block in train mode, dropout off, at a state drawn
-    from a seed (the flax initialisers' weights, spread at O(1) scale):
-    the loss and the gradient of every parameter on the card (K1, K2, K4)
-    and on the CPU in float32 (plain versions), each against the CPU in
-    float64, all on one sorted pyramid. The card's loss within 1e-4
-    relative of the CPU's; its gradient's relative L2 error to the f64
-    gradient at most GRAD_ERR_MULTIPLE times the CPU f32 gradient's plus
-    GRAD_ERR_FLOOR, so the limit follows the f32 conditioning of the
-    state. Prints the three errors and the shapes of the step's K4 calls."""
-    from ssdr_al_torch.models.randlanet import (
-        RandLANet,
-        SortedPyramid,
-        build_pyramid,
-        init_params,
-        masked_weighted_ce,
-    )
-    from ssdr_al_torch.ops import gather as ga
+def check_gradient_reference(cfg, dev):
+    """The train-mode gradient of one 40960-point block at the seeded
+    state GRAD_SEED on the card (K1, K2, K4) and on the CPU in float32,
+    each against the CPU in float64 (train/grad_check.py::
+    gradient_errors): the card's loss within 1e-4 relative of the CPU's,
+    its gradient's relative L2 error to the f64 gradient at most
+    GRAD_ERR_MULTIPLE times the CPU f32 gradient's plus GRAD_ERR_FLOOR."""
+    from ssdr_al_torch.train.grad_check import gradient_errors
 
-    state = spread_weights(init_params(cfg, torch.Generator().manual_seed(0)),
-                           seed)
-    rng = np.random.RandomState(3)
-    n = cfg.num_points
-    xyz = torch.from_numpy((rng.rand(1, n, 3) * 6).astype(np.float32))
-    feats = torch.cat([xyz, torch.from_numpy(rng.rand(1, n, 3).astype(
-        np.float32))], -1)
-    labels = torch.from_numpy(rng.randint(0, cfg.num_classes, (1, n)))
-    act = torch.from_numpy((rng.rand(1, n) < 0.5).astype(np.float32))
-    weights = torch.from_numpy(rng.rand(cfg.num_classes).astype(np.float32)
-                               + 0.5)
-    with torch.no_grad():
-        pyr = build_pyramid(xyz.to(dev), cfg)
-    if not isinstance(pyr, SortedPyramid):
-        raise AssertionError("the full-width block did not take the sorted "
-                             "path")
-    cpu_pyr = SortedPyramid(*[[None if t is None else t.cpu() for t in f]
-                              if isinstance(f, list) else f.cpu()
-                              for f in (pyr.xyz, pyr.neigh_idx, pyr.starts,
-                                        pyr.sub_idx, pyr.interp_idx,
-                                        pyr.order, pyr.inv)],
-                            windows=pyr.windows)
-    f64_pyr = dataclasses.replace(cpu_pyr, xyz=[t.double()
-                                                for t in cpu_pyr.xyz])
-    grads, losses, k4_shapes = [], [], []
-    kernel = ga.scatter_window
-
-    def recording(g, idx, starts, n, window, tq):
-        k4_shapes.append((tuple(g.shape), n, window, tq))
-        return kernel(g, idx, starts, n, window, tq)
-
-    # the wrapper counts its launches on the module's name for it, which
-    # is `recording` while it stands in
-    recording.launches = 0
-
-    cpu = torch.device("cpu")
-    for d, p, dt in ((dev, pyr, torch.float32), (cpu, cpu_pyr, torch.float32),
-                     (cpu, f64_pyr, torch.float64)):
-        model = RandLANet(cfg).to(d, dt)
-        model.load_state_dict({k: v.to(d) for k, v in state.items()})
-        model.train()
-        model.dp1.eval()
-        order = p.order.long()
-        ga.scatter_window = recording if d == dev else kernel
-        try:
-            logits, _ = model(feats.to(d, dt), p, unsort=False)
-            loss, _ = masked_weighted_ce(
-                logits, torch.gather(labels.to(d), 1, order),
-                torch.gather(act.to(d), 1, order),
-                torch.gather(labels.to(d), 1, order), weights.to(d, dt))
-            loss.backward()
-        finally:
-            ga.scatter_window = kernel
-        losses.append(loss.item())
-        grads.append(torch.cat([q.grad.reshape(-1).cpu().double()
-                                for q in model.parameters()]))
-    print("K4 calls of one train step, (g shape, n, window, tq): "
-          + json.dumps(k4_shapes))
-    lrel = abs(losses[0] - losses[1]) / abs(losses[1])
-    ref = grads[2].norm()
-    card, host = [float((g - grads[2]).norm() / ref) for g in grads[:2]]
-    between = float((grads[0] - grads[1]).norm() / grads[1].norm())
-    limit = GRAD_ERR_MULTIPLE * host + GRAD_ERR_FLOOR
-    print(f"train-mode gradient [1x{n}] at seeded state {seed}: loss card "
-          f"{losses[0]:.6f}, CPU f32 {losses[1]:.6f} (rel {lrel:.2e}), CPU "
-          f"f64 {losses[2]:.6f}; gradient rel L2 to f64: card {card:.3e}, "
-          f"CPU f32 {host:.3e} (limit {limit:.3e}); card vs CPU f32 "
-          f"{between:.3e}")
-    if not (np.isfinite(losses[0]) and lrel <= 1e-4 and card <= limit):
+    res = gradient_errors(cfg, dev, GRAD_SEED)
+    if not res["passed"]:
         raise AssertionError("card gradient disagrees with the CPU reference")
-    return dict(card=card, cpu_f32=host, card_vs_cpu=between, limit=limit)
+    return res
+
 
 
 def check_selection_picks(k3_call, fps_call):
@@ -436,33 +392,43 @@ def make_workload(cfg, work):
     return train, val, total
 
 
-def train_round(trainer, round_num, clouds, val, pseudo, seed):
-    """Trainer.train_round on the host pipeline with evaluation; returns the
-    losses of every step (device scalars) and the round's wall clock."""
+def train_round(trainer, round_num, clouds, val, pseudo, seed, pool=None):
+    """Trainer.train_round with evaluation, on the host pipeline or on
+    `pool` (a DeviceTrainPool or PossibilityDevicePool, its planes and
+    streams set for the round here); returns the host pipeline and the
+    round's wall clock after checking every step's loss (device scalars)."""
     from ssdr_al_torch.data.dataset import TrainingPipeline
     from ssdr_al_torch.train.evaluator import Evaluator
+    from ssdr_al_torch.train.possibility_pool import PossibilityDevicePool
 
     cfg = trainer.cfg
     pipe = TrainingPipeline(clouds, cfg, pseudo_gt=pseudo, seed=seed)
-    losses, step = [], trainer.train_step
-    engine = trainer.knn_engine
+    attr = ("train_step" if pool is None else "possibility_step"
+            if isinstance(pool, PossibilityDevicePool) else "pooled_step")
+    if pool is not None:
+        pool.update_pseudo_gt(pseudo)
+        pool.reseed(seed)
+        if isinstance(pool, PossibilityDevicePool):
+            pool.reset_possibility(seed)
+    losses, step = [], getattr(trainer, attr)
 
-    def recording(state, batch, gen):
-        state, metrics = step(state, batch, gen)
-        losses.append(metrics["loss"])
-        return state, metrics
+    def recording(*args):
+        out = step(*args)
+        losses.append(out[-1]["loss"])
+        return out
 
-    trainer.train_step = recording
+    setattr(trainer, attr, recording)
     t0 = time.perf_counter()
     try:
         miou, oa = trainer.train_round(
             round_num, lambda epoch: pipe.batches(cfg.train_steps,
                                                   cfg.batch_size),
-            Evaluator(cfg, val, max_epochs=1))
+            Evaluator(cfg, val, max_epochs=1), device_pool=pool)
     finally:
-        trainer.train_step = step
+        setattr(trainer, attr, step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    engine = f"{trainer.knn_engine}, {attr}"
     loss = torch.stack(losses).cpu()
     if len(losses) != cfg.max_epoch * cfg.train_steps or \
             not torch.isfinite(loss).all():
@@ -580,15 +546,23 @@ def al_loop(cfg, dev, work, profile_out=None):
     check_selection_picks(k3_calls[0], fps_calls[0])
 
     pseudo = {c.name: state.load_pseudo_gt(r2, c.name) for c in train}
+    # round 2 on the device pool, as al_loop trains by default
+    from ssdr_al_torch.train.device_pool import DeviceTrainPool
+
+    pool = DeviceTrainPool(train, cfg, seed=0, device=dev)
+    if not pool.available:
+        raise AssertionError("the S3DIS device pool is over its memory gate")
     reset_counts()
-    _, wall = train_round(trainer, 2, train, val, pseudo, seed=2)
+    _, wall = train_round(trainer, 2, train, val, pseudo, seed=2, pool=pool)
     paths["train_round_2"] = read_counts()
+    del pool
     print("launches train_round_2 " + json.dumps(paths["train_round_2"]))
     require_launched("train_round_2", paths["train_round_2"],
                      ("window_topk", "gather_window", "scatter_window"))
     report["train_round_2_wall_s"] = wall
 
     paths.update(exact_engine_paths(cfg, dev, work, train, val, pseudo1))
+    paths.update(semantickitti_steps(dev, work, train))
 
     if profile_out:
         prof = profile_rounds(cfg, dev, sampler, trainer.eval_step,
@@ -669,6 +643,8 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
     # a few training steps leave the model predicting one class almost
     # everywhere; weights spread at O(1) scale make the engines' class
     # agreement mean something
+    from ssdr_al_torch.train.grad_check import spread_weights
+
     batch = PossibilityEvalPipeline(val, cfg, seed=0).get_batch(8)
     state = spread_weights(trainer.state, seed=0)
     model = RandLANet(cfg).to(dev)
@@ -704,24 +680,138 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
     return paths
 
 
-def spread_weights(state, seed):
-    """state with every float tensor redrawn at O(1) scale: matrices
-    N(0, 2/fan_in), BatchNorm scales and variances U(0.5, 1.5), biases and
-    means N(0, 0.1²)."""
-    gen = torch.Generator().manual_seed(seed)
-    out = {}
-    for name, v in state.items():
-        if not v.is_floating_point():
-            out[name] = v
-        elif v.dim() == 2:
-            out[name] = torch.randn(v.shape, generator=gen) * (
-                2.0 / v.shape[1]) ** 0.5
-        elif name.endswith("running_var") or (
-                name.endswith("weight") and v.dim() == 1):
-            out[name] = torch.rand(v.shape, generator=gen) + 0.5
-        else:
-            out[name] = torch.randn(v.shape, generator=gen) * 0.1
-    return {k: v.to(state[k].device) for k, v in out.items()}
+def semantic3d_loop(dev, work):
+    """The Semantic3D path at ConfigSemantic3D width ([4 x 65536], 8
+    classes, label 0 ignored, the Semantic3D class weights) on synthetic
+    clouds: seed labels (1/20 of the grid superpoints), round-1 training on
+    the PossibilityDevicePool with evaluation to snap-1, a full-SSDR
+    selection round from snap-1, round-2 training on the pool to snap-2;
+    each path's launches counted from 0."""
+    from ssdr_al_torch.active.samplers import (
+        SeedSampler,
+        TSampler,
+        TSamplerArgs,
+    )
+    from ssdr_al_torch.active.state import ALState, RoundStats, sampler_args_str
+    from ssdr_al_torch.cli.common import write_grid_superpoints
+    from ssdr_al_torch.config import ConfigSemantic3D
+    from ssdr_al_torch.data.synthetic import make_dataset
+    from ssdr_al_torch.train.possibility_pool import PossibilityDevicePool
+    from ssdr_al_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(ConfigSemantic3D, max_epoch=S3D_EPOCHS,
+                              train_steps=S3D_STEPS, val_steps=VAL_STEPS)
+    t0 = time.perf_counter()
+    train, val = make_dataset(num_train=S3D_CLOUDS, num_val=1,
+                              num_points=S3D_CLOUD_POINTS, seed=1, hard=True)
+    total = write_grid_superpoints(ALState(work, []), train, S3D_TARGET_SP)
+    sp_num = total["sp_num"]
+    seed_state = ALState(work, ["seed"])
+    SeedSampler(seed_state, train, sp_num).sampling(sp_num // 20, 0,
+                                                    RoundStats())
+    print(f"Semantic3D workload: {S3D_CLOUDS} train clouds + 1 val cloud x "
+          f"{S3D_CLOUD_POINTS} points, {sp_num} superpoints, setup "
+          f"{time.perf_counter() - t0:.1f} s")
+    saver = lambda sargs: os.path.join(  # noqa: E731
+        work, "saver", sampler_args_str(sargs), "snapshots")
+    paths = {}
+    pseudo1 = {c.name: seed_state.load_pseudo_gt(seed_state.round_dir(1),
+                                                 c.name) for c in train}
+    pool = PossibilityDevicePool(train, cfg, seed=1, device=dev)
+    if not pool.available:
+        raise AssertionError("the Semantic3D pool is over its memory gate")
+    trainer = Trainer(cfg, "Semantic3D", save_dir=saver(["seed"]),
+                      device=dev)
+    trainer.init_state()
+    reset_counts()
+    train_round(trainer, 1, train, val, pseudo1, seed=1, pool=pool)
+    paths["semantic3d_train_round_1"] = read_counts()
+    print("launches semantic3d_train_round_1 "
+          + json.dumps(paths["semantic3d_train_round_1"]))
+    require_launched("semantic3d_train_round_1",
+                     paths["semantic3d_train_round_1"],
+                     ("window_topk", "gather_window", "scatter_window"))
+
+    state = ALState(work, SSDR_ARGS)
+    trainer = Trainer(cfg, "Semantic3D", save_dir=saver(SSDR_ARGS),
+                      seed_save_dir=saver(["seed"]), device=dev)
+    trainer.restore_model(1)
+    sampler = TSampler(state, train, cfg, TSamplerArgs(), sp_num, device=dev)
+    stats = RoundStats()
+    reset_counts()
+    t0 = time.perf_counter()
+    sampler.sampling(trainer.eval_step, trainer.state, S3D_BUDGET, 1, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["semantic3d_selection"] = read_counts()
+    r2 = state.round_dir(2)
+    n0 = sum(len(v) for v in total["unlabeled"].values())
+    n2 = sum(len(v) for v in state.load_registry(r2)["unlabeled"].values())
+    print(f"Semantic3D selection round: {wall:.3f} s wall, unlabeled {n0} "
+          f"-> {n2}, stats: {stats}; launches "
+          + json.dumps(paths["semantic3d_selection"]))
+    require_launched("semantic3d_selection", paths["semantic3d_selection"],
+                     ("window_topk", "gather_window", "chamfer_sums"))
+    if not n2 < n0:
+        raise AssertionError("the Semantic3D round labelled nothing")
+    pseudo = {c.name: state.load_pseudo_gt(r2, c.name) for c in train}
+    reset_counts()
+    train_round(trainer, 2, train, val, pseudo, seed=2, pool=pool)
+    paths["semantic3d_train_round_2"] = read_counts()
+    print("launches semantic3d_train_round_2 "
+          + json.dumps(paths["semantic3d_train_round_2"]))
+    require_launched("semantic3d_train_round_2",
+                     paths["semantic3d_train_round_2"],
+                     ("window_topk", "gather_window", "scatter_window"))
+    return paths
+
+
+def semantickitti_steps(dev, work, rooms):
+    """One train step and one eval step at ConfigSemanticKITTI width ([6 x
+    45056], 4 layers, 19 classes) on blocks of the smoke's rooms; each
+    step's launches counted from 0."""
+    from ssdr_al_torch.config import ConfigSemanticKITTI as cfg
+    from ssdr_al_torch.data.dataset import TrainingPipeline
+    from ssdr_al_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, "SemanticKITTI",
+                      save_dir=os.path.join(work, "kitti"), device=dev)
+    trainer.init_state()
+    batch = TrainingPipeline(rooms, cfg, seed=4).sample_batch(cfg.batch_size)
+    paths = {}
+    reset_counts()
+    _, metrics = trainer.train_step(trainer.train_state, batch,
+                                    trainer.dropout_gen)
+    loss = metrics["loss"].item()
+    paths["semantickitti_train_step"] = read_counts()
+    reset_counts()
+    probs, penult, order = trainer.eval_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    paths["semantickitti_eval_step"] = read_counts()
+    shape = (cfg.batch_size, cfg.num_points, cfg.num_classes)
+    print(f"SemanticKITTI [{cfg.batch_size}x{cfg.num_points}], 4 layers: "
+          f"train step loss {loss:.4f}, eval step probs "
+          f"{tuple(probs.shape)}; launches "
+          + json.dumps({k: paths[k] for k in paths}))
+    if not np.isfinite(loss) or tuple(probs.shape) != shape or \
+            not torch.isfinite(probs).all():
+        raise AssertionError(f"SemanticKITTI steps: loss {loss}, probs "
+                             f"{tuple(probs.shape)}")
+    for name in paths:
+        require_launched(name, paths[name], ("window_topk", "gather_window")
+                         + (("scatter_window",) if "train" in name else ()))
+    return paths
+
+
+def warm_steps(dev, work):
+    """The median of 20 warm steps per training path
+    (step_times.measure)."""
+    from ssdr_al_torch.train import step_times
+
+    res = step_times.measure(dev, work=os.path.join(work, "step_times"))
+    print("warm steps " + json.dumps(res))
+    return res
+
 
 
 def device_time(prof):
@@ -884,6 +974,8 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     try:
         paths = al_loop(cfg, dev, work, args.profile)
+        paths.update(semantic3d_loop(dev, os.path.join(work, "semantic3d")))
+        warm_steps(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -898,7 +990,10 @@ def main() -> int:
                          max_abs_err=c["max_abs_err"], ms=c["ms"],
                          plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                          bound_by=c["bound_by"], library_ms=c["library_ms"],
-                         **{k: c[k] for k in ("shapes", "ties") if k in c}))
+                         **{k: c[k] for k in ("shapes", "ties",
+                                              "shapes_semantic3d",
+                                              "shapes_semantickitti")
+                            if k in c}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "ssdr_al_tpu"))
     if jax_side:

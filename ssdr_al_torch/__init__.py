@@ -1,10 +1,13 @@
 """PyTorch + CUDA port of ssdr_al_tpu for one NVIDIA H100.
 
 Ported so far: the closed active-learning loop of the full SSDR
-configuration at RandLA-Net S3DIS width: the seed round, then per round
-restore → TSampler selection (sb / WetSU / clsbal / GCN-FPS / NAIL) →
-retraining on the host pipeline → evaluation → best-mIoU snapshot
-(cli/seed.py, cli/al_loop.py), on every KNN engine, and the standalone
+configuration at RandLA-Net width for S3DIS, Semantic3D and SemanticKITTI:
+the seed round, then per round restore → TSampler selection (sb / WetSU /
+clsbal / GCN-FPS / NAIL) → retraining on the device training pool
+(train/device_pool.py; Semantic3D's possibility-scheduled pool,
+train/possibility_pool.py) or the host pipeline → evaluation →
+best-mIoU snapshot (cli/seed.py, cli/al_loop.py), on every KNN engine,
+and the standalone
 evaluation (cli/evaluate.py). Every Pallas kernel of the TPU package is a
 hand-written CUDA kernel here (csrc/, built by kernels/build.py):
 

@@ -6,10 +6,13 @@ flags of ssdr_main_S3DIS2.py:10-157). The full SSDR method is
       --point_uncertainty_mode sb --classbal 2 --uncertainty_mode WetSU \\
       --oracle_mode NAIL --gcn_fps 1 [--device cpu]
 
-Training uses the host TrainingPipeline (--pool 0). Not ported yet
-(ROADMAP.md), and refused with NotImplementedError: --pool 1 (the device
-training pool), --sampler random, --edcd 1, --gcn 1, --chamfer_mxu 1 and
-the flags common.check_ported lists.
+Every round trains on the device-resident pool by default (--pool 1, as
+in JAX): DeviceTrainPool for S3DIS and SemanticKITTI, the possibility-
+scheduled PossibilityDevicePool for semantic3d; past the pool's memory
+gate, and with --pool 0, on the host pipeline. Not ported yet
+(ROADMAP.md), and refused with NotImplementedError: --sampler random,
+--edcd 1, --gcn 1, --chamfer_mxu 1 and the flags common.check_ported
+lists.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from ssdr_al_torch.cli.common import (
     pseudo_gt_for_round,
     setup_experiment,
 )
+from ssdr_al_torch.train.device_pool import DeviceTrainPool
+from ssdr_al_torch.train.possibility_pool import PossibilityDevicePool
 
 
 def build_sampler_args(args) -> list:
@@ -56,7 +61,6 @@ def build_sampler_args(args) -> list:
 
 def _check_loop_ported(args):
     for flag, value, ported in (
-            ("--pool", getattr(args, "pool", 0), (0,)),
             ("--sampler", args.sampler, ("T",)),
             ("--edcd", args.edcd, (0,)),
             ("--gcn", args.gcn, (0,)),
@@ -95,6 +99,7 @@ def run_al_loop(args):
         total_sp_num, seed=args.t, device=trainer.device)
     pipe0 = make_training_pipeline(exp)
     trainer.init_state(pipe0.sample_batch(exp.cfg.batch_size))
+    pool = make_pool(args, exp, trainer, record)
     evaluate = make_evaluator(exp)
 
     sp_batch_size = args.sp_batch_size or exp.cfg.sp_batch_size
@@ -115,16 +120,46 @@ def run_al_loop(args):
         t0 = time.time()
         round_dir = state.round_dir(r)
         pseudo = pseudo_gt_for_round(state, round_dir, exp.train_clouds)
-        pipe = make_training_pipeline(exp, pseudo_gt=pseudo, seed=r)
-        miou, oa = trainer.train_round(
-            r, lambda epoch: pipe.batches(exp.cfg.train_steps,
-                                          exp.cfg.batch_size),
-            evaluate)
+        if pool is not None:
+            pool.update_pseudo_gt(pseudo)
+            pool.reseed(r)
+            if isinstance(pool, PossibilityDevicePool):
+                pool.reset_possibility(r)
+            batch_iter_fn = None
+        else:
+            pipe = make_training_pipeline(exp, pseudo_gt=pseudo, seed=r)
+
+            def batch_iter_fn(epoch, pipe=pipe):
+                return pipe.batches(exp.cfg.train_steps, exp.cfg.batch_size)
+        miou, oa = trainer.train_round(r, batch_iter_fn, evaluate,
+                                       device_pool=pool)
         log_out(f"round= {r} | best_miou= {miou:.4f}, best_OA= {oa:.4f}, "
                 f"costTime={time.time() - t0:.1f}", record)
         results.append((miou, oa))
     record.close()
     return results
+
+
+def make_pool(args, exp, trainer, record):
+    """The run's device training pool on the trainer's device (--pool 1):
+    the possibility-scheduled pool for semantic3d, DeviceTrainPool
+    otherwise; None with --pool 0 or past the pool's memory gate (the host
+    pipeline then trains, as it does in JAX)."""
+    if not args.pool:
+        return None
+    cls = (PossibilityDevicePool if exp.dataset_name == "semantic3d"
+           else DeviceTrainPool)
+    pool = cls(exp.train_clouds, exp.cfg, seed=args.t, device=trainer.device)
+    if not pool.available:
+        log_out("device pool over budget; host pipeline", record)
+        return None
+    if args.round > 2:
+        # the pool's block stream differs from the host pipeline's, so a
+        # run resumed here switches streams mid-curve
+        log_out(f"resuming at round {args.round} with the device pool: "
+                "block-sampling RNG differs from the host pipeline (pass "
+                "--pool 0 to keep the original stream)", record)
+    return pool
 
 
 def main(argv=None):
@@ -154,9 +189,11 @@ def main(argv=None):
                    help="-1 / 0: exact f32 chamfer (kernel K3); 1 is not "
                         "ported yet")
     p.add_argument("--min_size", type=int, default=1)
-    p.add_argument("--pool", type=int, default=0, choices=[0, 1],
-                   help="0: host training pipeline; 1 (the device-resident "
-                        "training pool) is not ported yet")
+    p.add_argument("--pool", type=int, default=1, choices=[0, 1],
+                   help="1: device-resident training pool (semantic3d: the "
+                        "possibility-scheduled one), falling back to the "
+                        "host pipeline past its memory gate; 0: host "
+                        "pipeline")
     p.add_argument("--t", type=int, default=0)
     p.add_argument("--sp_batch_size", type=int, default=0,
                    help="clicks per round (0 = dataset default)")

@@ -4,8 +4,8 @@ data/<ds>/<reg_strength>/, plus `--device`, the port's counterpart of
 JAX_PLATFORMS (default: the card).
 
 Flag values whose path is not ported yet raise NotImplementedError naming
-ROADMAP.md: --dataset other than S3DIS, --compute_dtype bfloat16 and
---num_devices > 1. Every --knn_engine is ported.
+ROADMAP.md: --compute_dtype bfloat16 and --num_devices > 1. Every
+--dataset and every --knn_engine is ported.
 """
 
 from __future__ import annotations
@@ -20,7 +20,10 @@ import numpy as np
 from ssdr_al_torch.active.state import ALState, sampler_args_str
 from ssdr_al_torch.config import Config, class_weights, get_config
 from ssdr_al_torch.data.cloud import Cloud, load_clouds
-from ssdr_al_torch.data.dataset import TrainingPipeline
+from ssdr_al_torch.data.dataset import (
+    PossibilityTrainingPipeline,
+    TrainingPipeline,
+)
 from ssdr_al_torch.data.ply import write_ply
 from ssdr_al_torch.data.synthetic import (
     NUM_SYNTH_CLASSES,
@@ -176,7 +179,8 @@ def setup_experiment(args) -> Experiment:
         val_split = f"Area_{args.test_area}"
         train_clouds = load_clouds(input_path, exclude=val_split)
         val_clouds = load_clouds(input_path, include=val_split)
-        cw_name = args.dataset
+        cw_name = args.dataset if args.dataset != "semantic3d" \
+            else "Semantic3D"
 
     return Experiment(cfg=cfg, dataset_name=args.dataset,
                       data_path=data_path, input_path=input_path,
@@ -235,6 +239,12 @@ def pseudo_gt_for_round(state: ALState, round_dir: str, clouds) -> dict:
 
 
 def make_training_pipeline(exp: Experiment, pseudo_gt=None, seed=0):
-    """The random spatially regular block sampler (the S3DIS path)."""
+    """The dataset's host training pipeline: Semantic3D's possibility-
+    scheduled, augmented blocks (the train2 path, SSRD_AL_semantic3d/
+    RandLANet.py:260-331); for S3DIS and SemanticKITTI random spatially
+    regular blocks."""
+    if exp.dataset_name == "semantic3d":
+        return PossibilityTrainingPipeline(exp.train_clouds, exp.cfg,
+                                           pseudo_gt=pseudo_gt, seed=seed)
     return TrainingPipeline(exp.train_clouds, exp.cfg, pseudo_gt=pseudo_gt,
                             seed=seed)

@@ -1,8 +1,9 @@
 """Model and workload configuration of the port.
 
-The fields of ssdr_al_tpu's config.py that the selection and training
-slices read, with its S3DIS values (reference SSDR_AL_s3dis/helper_tool.py:
-46-75), and the inverse-frequency class weights (helper_tool.py:264-284).
+The fields of ssdr_al_tpu's config.py that the port reads, with its
+S3DIS, Semantic3D and SemanticKITTI values (reference
+SSDR_AL_s3dis/helper_tool.py:18-117), and the inverse-frequency class
+weights (helper_tool.py:264-284).
 Copied, never imported: the port imports nothing of ssdr_al_tpu.
 tests/test_torch_data.py holds every field to the JAX config.
 """
@@ -48,18 +49,36 @@ class Config:
     al_rounds: Tuple[int, int] = (2, 33)
 
 
+# reference helper_tool.py:46-75
 ConfigS3DIS = Config()
 
-_CONFIGS = {"S3DIS": ConfigS3DIS}
+# reference helper_tool.py:77-117
+ConfigSemantic3D = Config(
+    name="Semantic3D", num_points=65536, num_classes=8, sub_grid_size=0.06,
+    ignored_label_inds=(0,), batch_size=4, val_batch_size=16, max_epoch=50,
+    lr_decay=0.9, eval_start_frac=0.6, sp_batch_size=3000)
+
+# reference helper_tool.py:18-44
+ConfigSemanticKITTI = Config(
+    name="SemanticKITTI", num_layers=4, num_points=4096 * 11, num_classes=19,
+    sub_grid_size=0.06, sub_sampling_ratio=(4, 4, 4, 4),
+    d_out=(16, 64, 128, 256), ignored_label_inds=(0,), max_epoch=100,
+    lr_decay=0.95)
+
+_CONFIGS = {
+    "S3DIS": ConfigS3DIS,
+    "Semantic3D": ConfigSemantic3D,
+    "semantic3d": ConfigSemantic3D,
+    "SemanticKITTI": ConfigSemanticKITTI,
+}
 
 
 def get_config(name: str) -> Config:
-    """The dataset's configuration; only S3DIS is ported (ROADMAP.md)."""
-    if name not in _CONFIGS:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP.md); "
-            f"options: {sorted(_CONFIGS)}")
-    return _CONFIGS[name]
+    try:
+        return _CONFIGS[name]
+    except KeyError:
+        raise KeyError(f"unknown dataset {name!r}; options: "
+                       f"{sorted(_CONFIGS)}") from None
 
 
 # per-class point counts of the inverse-frequency CE weights
@@ -67,6 +86,14 @@ CLASS_COUNTS = {
     "S3DIS": (
         3370714, 2856755, 4919229, 318158, 375640, 478001, 974733,
         650464, 791496, 88727, 1284130, 229758, 2272837,
+    ),
+    "Semantic3D": (
+        5181602, 5012952, 6830086, 1311528, 10476365, 946982, 334860, 269353,
+    ),
+    "SemanticKITTI": (
+        55437630, 320797, 541736, 2578735, 3274484, 552662, 184064, 78858,
+        240942562, 17294618, 170599734, 6369672, 230413074, 101130274,
+        476491114, 9833174, 129609852, 4506626, 1168181,
     ),
 }
 

@@ -384,7 +384,16 @@ extern "C" int scatter_window_launch(const void* g, const void* idx,
   if (e != cudaSuccess) return (int)e;
   const size_t fill_smem =
       hist ? (2 * (size_t)window + 2 * (size_t)tq * k) * sizeof(int) : 0;
-  if (fill_smem > 48 * 1024) {
+  // the opt-in is needed where dynamic plus static shared memory (wsum)
+  // passes the 48 KiB default: Semantic3D's [4, 1024, 16, 256] pool call
+  // asks exactly 48 KiB dynamic
+  static const size_t fill_static = [] {
+    cudaFuncAttributes a{};
+    return cudaFuncGetAttributes(&a, scatter_fill_kernel) == cudaSuccess
+               ? a.sharedSizeBytes
+               : (size_t)48 * 1024;
+  }();
+  if (fill_smem > 0 && fill_smem + fill_static > 48 * 1024) {
     e = cudaFuncSetAttribute(scatter_fill_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)fill_smem);

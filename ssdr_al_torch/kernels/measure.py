@@ -1,15 +1,20 @@
 """Check and time K1-K4 at every call the main path makes.
 
     python3 ssdr_al_torch/kernels/measure.py [--tree DIR] [--out PATH]
+        [--dataset S3DIS|Semantic3D|SemanticKITTI]
 
 One eval-mode forward of RandLA-Net at ConfigS3DIS width (B=8 × 40960,
-`window` engine, weights and cloud drawn from a seed) on the card records
+`window` engine, weights and cloud drawn from a seed; with `--dataset
+Semantic3D` at ConfigSemantic3D width, B=4 × 65536, and with `--dataset
+SemanticKITTI` at ConfigSemanticKITTI width, 4 layers, B=6 × 45056) on
+the card records
 the arguments of every K1 call (`window_topk`: the self-searches of L0-L2
 and the two k=1 upsamples) and every K2 call (`gather_window`: two LFA
 gathers per sorted layer, and the pool gathers through
 `gather_window_auto`). One train-mode forward and backward (B=6 × 40960,
-dropout off) records every K4 call (`scatter_window`, the backward of each
-K2 call). K3 (`chamfer_sums`) runs at one [8, 256, 512] dispatch (60 %
+4 × 65536 or 6 × 45056, dropout off) records every K4 call (`scatter_window`, the
+backward of each K2 call), with the count of dv rows whose entries
+overflow K4's bins. K3 (`chamfer_sums`) runs at one [8, 256, 512] dispatch (60 %
 valid) and at the selection round's call: the superpoint slab of the
 smoke's four synthetic rooms (`grid_superpoints`, 2048 a room, capped at
 512 points) gathered by `SuperpointBlockCache.chamfer` for 310 superpoints
@@ -19,9 +24,9 @@ equal index for index, K2 and K4 bitwise, K4's against the CPU's
 (K3, K4), then timed beside the plain version, its bound and, for K2
 `torch.gather` and for K4 `index_add_`, on the same indices. K2 also runs
 with its other source (shared-memory slab or L1/L2) wherever the slab fits
-in shared memory. Tie-heavy inputs follow: duplicated points, points on a
-coarse grid, SENTINEL pad rows and window starts clamped at the cloud's
-end, for K1, K5 and K2.
+in shared memory. Tie-heavy inputs follow at S3DIS width: duplicated
+points, points on a coarse grid, SENTINEL pad rows and window starts
+clamped at the cloud's end, for K1, K5 and K2.
 
 `--tree DIR` measures the `ssdr_al_torch` package under DIR (for example
 a `git archive` of another commit) with this file's inputs and timing, so
@@ -193,6 +198,7 @@ def check_k4(call, reps=20, plain_reps=5):
     rows = (i.long() + (torch.arange(b, device=i.device) * n)[:, None, None]
             ).reshape(-1)
     g2 = g.reshape(-1, c)
+    per_row = row_entries(i, st, n, w, tq)
     bd = bound(nbytes(g, i, st, got), g.numel())
     out = dict(shape=name, bitwise=bitwise,
                run_to_run=torch.equal(got, again),
@@ -203,10 +209,24 @@ def check_k4(call, reps=20, plain_reps=5):
                    g, i, st, n, w, tq), plain_reps),
                bound_ms=bd[0], bound_by=bd[1],
                library_ms=device_ms(lambda: torch.zeros(
-                   b * n, c, device=g.device).index_add_(0, rows, g2), reps))
+                   b * n, c, device=g.device).index_add_(0, rows, g2), reps),
+               max_row_entries=int(per_row.max()))
+    if hasattr(ga, "SCATTER_BIN"):
+        out["overflow_rows"] = int((per_row > ga.SCATTER_BIN).sum())
     if hasattr(ga, "scatter_plan"):
         out["plan"] = list(ga.scatter_plan(b, n, nq, k, c, w, tq))
     return out
+
+
+def row_entries(idx, starts, n, window, tq):
+    """[B·n] count of in-window entries per dv row of a K4 call: the rows
+    past K4's SCATTER_BIN slots take its overflow list."""
+    from ssdr_al_torch.ops import gather as ga
+
+    i, inside = ga._window_mask(idx, starts, n, window, tq)
+    rows = i + (torch.arange(idx.shape[0], device=idx.device) * n)[:, None,
+                                                                   None]
+    return torch.bincount(rows[inside], minlength=idx.shape[0] * n)
 
 
 def chamfer_bounds(points, mask, out):
@@ -447,17 +467,19 @@ def check_ties(dev):
     return done
 
 
-def check_main_path(cfg, dev, log=print):
-    """Record one forward's K1 and K2 calls and one train-mode backward's
-    K4 calls, check and time each, then the tie-heavy inputs and K3 at its
-    two shapes. Where the tree's K4 has a launch plan (the fixed-order
-    design), every K4 call must equal the plain version and itself bit for
-    bit. Returns {"window_topk": [...], "gather_window": [...],
-    "scatter_window": [...], "chamfer_sums": [...], "ties": [...],
-    "calls": (k1 calls, k2 calls)}."""
+def check_main_path(cfg, dev, log=print, b_eval=8, b_train=6,
+                    shape_free=True):
+    """Record one forward's K1 and K2 calls [b_eval × cfg.num_points] and
+    one train-mode backward's K4 calls [b_train × cfg.num_points], check
+    and time each, then (shape_free) the tie-heavy inputs and K3 at its
+    two shapes, neither of which depends on cfg. Where the tree's K4 has a
+    launch plan (the fixed-order design), every K4 call must equal the
+    plain version and itself bit for bit. Returns {"window_topk": [...],
+    "gather_window": [...], "scatter_window": [...], "chamfer_sums":
+    [...], "ties": [...], "calls": (k1 calls, k2 calls)}."""
     from ssdr_al_torch.ops import gather as ga
 
-    k1_calls, k2_calls = record_main_path(cfg, dev)
+    k1_calls, k2_calls = record_main_path(cfg, dev, b=b_eval)
     k1 = []
     for call in k1_calls:
         r = check_k1(call)
@@ -475,18 +497,22 @@ def check_main_path(cfg, dev, log=print):
             f"{r['plain_ms']:.3f} ms, torch.gather {r['library_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plan "
             f"{r.get('plan')}{alt})")
-    ties = check_ties(dev)
-    log(f"tie-heavy inputs, equal to the plain versions: {ties}")
+    ties = []
+    if shape_free:
+        ties = check_ties(dev)
+        log(f"tie-heavy inputs, equal to the plain versions: {ties}")
     k4 = []
     strict = hasattr(ga, "scatter_plan")
-    for call in record_train_backward(cfg, dev):
+    for call in record_train_backward(cfg, dev, b=b_train):
         r = check_k4(call)
         k4.append(r)
         log(f"K4 {r['shape']}: bitwise equal to the CPU plain version "
             f"{r['bitwise']}, run to run {r['run_to_run']}, {r['ms']:.4f} ms "
             f"(plain {r['plain_ms']:.3f} ms, index_add_ "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}, plan {r.get('plan')})")
+            f"{r['bound_by']}, plan {r.get('plan')}; rows past the bins "
+            f"{r.get('overflow_rows')}, most entries a row "
+            f"{r['max_row_entries']})")
         if strict and not (r["bitwise"] and r["run_to_run"]):
             raise AssertionError(f"K4 {r['shape']}: not bitwise equal to "
                                  "the plain version and to itself")
@@ -495,8 +521,9 @@ def check_main_path(cfg, dev, log=print):
         f"{sum(r['library_ms'] for r in k4):.4f} ms, bound "
         f"{sum(r['bound_ms'] for r in k4):.4f} ms)")
     k3 = []
-    for name, call in (("fixed", fixed_chamfer_call(dev)),
-                       ("selection", selection_chamfer_call(dev))):
+    for name, call in ((("fixed", fixed_chamfer_call(dev)),
+                        ("selection", selection_chamfer_call(dev)))
+                       if shape_free else ()):
         r = check_k3(*call, name)
         k3.append(r)
         log(f"K3 {r['shape']}: max rel err {r['max_rel_err']:.2e}, run to "
@@ -515,6 +542,13 @@ def main() -> int:
     ap.add_argument("--tree", help="root of the ssdr_al_torch tree to "
                     "measure (default: the one holding this file)")
     ap.add_argument("--out", help="also write the JSON results here")
+    ap.add_argument("--dataset", default="S3DIS",
+                    choices=["S3DIS", "Semantic3D", "SemanticKITTI"],
+                    help="the width of the recorded calls: S3DIS (B=8 and "
+                         "6 × 40960, with the tie inputs and K3), "
+                         "Semantic3D (B=4 × 65536) or SemanticKITTI (B=6 "
+                         "× 45056, 4 layers), these two K1, K2 and K4 "
+                         "only")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -527,12 +561,17 @@ def main() -> int:
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
-    from ssdr_al_torch.config import ConfigS3DIS
+    from ssdr_al_torch import config
     from ssdr_al_torch.kernels import build
 
     build.library()
     dev = torch.device("cuda", 0)
-    res = check_main_path(ConfigS3DIS, dev)
+    if args.dataset == "S3DIS":
+        res = check_main_path(config.ConfigS3DIS, dev)
+    else:
+        cfg = config.get_config(args.dataset)
+        res = check_main_path(cfg, dev, b_eval=cfg.batch_size,
+                              b_train=cfg.batch_size, shape_free=False)
     res.pop("calls")
     res.update(tree=tree, card=card)
     if args.out:

@@ -1,2 +1,2 @@
 """Training: the train step, Adam and its schedule, the round loop, the
-evaluator, metrics and checkpoints."""
+device training pools, the evaluator, metrics and checkpoints."""

@@ -1,7 +1,12 @@
 """Training and the eval step (counterpart of ssdr_al_tpu/train/trainer.py).
 
 One train step is pyramid → forward (train mode) → activation-masked
-weighted CE → backward → Adam step; the round loop evaluates from
+weighted CE → backward → Adam step. Its blocks come from the host
+pipeline (make_train_step), from a DeviceTrainPool on the card
+(make_pooled_train_step: the step uploads [B] cloud ids and [B, 3] picks
+and extracts and shuffles the blocks there), or from a PossibilityDevicePool
+(make_possibility_pooled_train_step: the Semantic3D schedule runs on the
+card and the field threads through the steps). The round loop evaluates from
 `eval_start_frac` of its epochs on and keeps the best-mIoU `snap-<round>`
 (reference RandLANet.py:217-282). Adam runs at lr0 · decay^epoch with a
 fresh optimizer and step count each round (reset_lr, RandLANet.py:
@@ -36,8 +41,14 @@ from ssdr_al_torch.models.randlanet import (
     label_reduce_table,
     masked_weighted_ce,
 )
+from ssdr_al_torch.train.device_pool import shuffle_blocks
+from ssdr_al_torch.train.possibility_pool import (
+    PossibilityDevicePool,
+    possibility_extract,
+)
 
 __all__ = ["init_params", "make_eval_step", "make_train_step",
+           "make_pooled_train_step", "make_possibility_pooled_train_step",
            "make_lr_schedule", "TrainState", "create_train_state",
            "reset_optimizer", "apply_gradients", "save_checkpoint",
            "restore_checkpoint", "Trainer"]
@@ -94,31 +105,19 @@ def _tensor(x, dtype, device):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def make_train_step(model: RandLANet, cfg: Config, weights: np.ndarray,
-                    knn_engine: str = "window", *,
-                    device: torch.device | str = DEFAULT_DEVICE):
-    """Return train_step(state, batch, generator) → (state, metrics).
-
-    batch: {"xyz", "features", "labels", "activation", "pseudo"} numpy
-    [B, N, ...] arrays; generator draws the dropout mask (on `device`).
-    On a sorted pyramid the loss is taken in morton-sorted row order, with
-    pseudo, labels and activation permuted by pyramid.order instead of
-    unsorting the logits (the loss averages over points). The state is
-    updated in place: parameters, Adam moments, BatchNorm statistics and
-    the step count."""
-    device = resolve_device(device)
+def _make_step_body(model: RandLANet, cfg: Config, weights: np.ndarray,
+                    knn_engine: str, device: torch.device):
+    """body(state, xyz, features, labels, activation, pseudo, generator)
+    → (state, metrics) on [B, N, ...] tensors on `device`: the part of a
+    train step after its blocks are on the card."""
     table = (torch.as_tensor(label_reduce_table(
         cfg.num_classes, cfg.ignored_label_inds), dtype=torch.long,
         device=device) if cfg.ignored_label_inds else None)
     weights = torch.as_tensor(np.asarray(weights), dtype=torch.float32,
                               device=device)
 
-    def train_step(state: TrainState, batch, generator: torch.Generator):
-        xyz = _tensor(batch["xyz"], torch.float32, device)
-        feats = _tensor(batch["features"], torch.float32, device)
-        labels = _tensor(batch["labels"], torch.int64, device)
-        pseudo = _tensor(batch["pseudo"], torch.int64, device)
-        act = _tensor(batch["activation"], torch.float32, device)
+    def body(state: TrainState, xyz, feats, labels, act, pseudo,
+             generator: torch.Generator):
         with torch.no_grad():
             pyramid = build_pyramid(xyz, cfg, engine=knn_engine)
         sorted_mode = isinstance(pyramid, SortedPyramid)
@@ -139,7 +138,80 @@ def make_train_step(model: RandLANet, cfg: Config, weights: np.ndarray,
                    "activation_sum": act.sum()}
         return state, metrics
 
+    return body
+
+
+def make_train_step(model: RandLANet, cfg: Config, weights: np.ndarray,
+                    knn_engine: str = "window", *,
+                    device: torch.device | str = DEFAULT_DEVICE):
+    """Return train_step(state, batch, generator) → (state, metrics).
+
+    batch: {"xyz", "features", "labels", "activation", "pseudo"} numpy
+    [B, N, ...] arrays; generator draws the dropout mask (on `device`).
+    On a sorted pyramid the loss is taken in morton-sorted row order, with
+    pseudo, labels and activation permuted by pyramid.order instead of
+    unsorting the logits (the loss averages over points). The state is
+    updated in place: parameters, Adam moments, BatchNorm statistics and
+    the step count."""
+    device = resolve_device(device)
+    body = _make_step_body(model, cfg, weights, knn_engine, device)
+
+    def train_step(state: TrainState, batch, generator: torch.Generator):
+        return body(state, _tensor(batch["xyz"], torch.float32, device),
+                    _tensor(batch["features"], torch.float32, device),
+                    _tensor(batch["labels"], torch.int64, device),
+                    _tensor(batch["activation"], torch.float32, device),
+                    _tensor(batch["pseudo"], torch.int64, device), generator)
+
     return train_step
+
+
+def make_pooled_train_step(model: RandLANet, cfg: Config,
+                           weights: np.ndarray, knn_engine: str = "window",
+                           *, device: torch.device | str = DEFAULT_DEVICE):
+    """Return pooled_step(state, pool, cloud_ids, picks, generator) →
+    (state, metrics): a train step over a DeviceTrainPool on `device`.
+    cloud_ids [B] and picks [B, 3] are the pool's host draws
+    (pool.sample_indices), the only upload of the step; the blocks are
+    extracted on the card (extract_blocks) and shuffled (shuffle_blocks),
+    both drawing from the pool's generator; generator draws the dropout
+    mask."""
+    device = resolve_device(device)
+    body = _make_step_body(model, cfg, weights, knn_engine, device)
+
+    def pooled_step(state: TrainState, pool, cloud_ids, picks,
+                    generator: torch.Generator):
+        blocks = shuffle_blocks(pool.extract(cloud_ids, picks),
+                                pool.generator)
+        return body(state, *blocks, generator)
+
+    return pooled_step
+
+
+def make_possibility_pooled_train_step(
+        model: RandLANet, cfg: Config, weights: np.ndarray,
+        knn_engine: str = "window", *,
+        device: torch.device | str = DEFAULT_DEVICE):
+    """Return step(state, pool, poss, generator) → (state, new_poss,
+    metrics): a train step over a PossibilityDevicePool on `device` (the
+    Semantic3D training path). The B-block possibility schedule
+    (possibility_extract, augmented when pool.augment), the blocks'
+    shuffle (shuffle_blocks) and the step run on the card with nothing
+    uploaded; poss is the field, threaded through the steps by the
+    caller; generator draws the dropout mask."""
+    device = resolve_device(device)
+    body = _make_step_body(model, cfg, weights, knn_engine, device)
+
+    def step(state: TrainState, pool, poss, generator: torch.Generator):
+        new_poss, *blocks = possibility_extract(
+            *pool.device_args(), pool.class_weight, poss, pool.generator,
+            cfg.batch_size, cfg.num_points, cfg.noise_init / 10, pool.window,
+            pool.augment)
+        state, metrics = body(state, *shuffle_blocks(blocks, pool.generator),
+                              generator)
+        return state, new_poss, metrics
+
+    return step
 
 
 def make_eval_step(model: RandLANet, cfg: Config, knn_engine: str = "window",
@@ -193,10 +265,10 @@ def restore_checkpoint(path: str, device: torch.device | str) -> dict:
 
 
 class Trainer:
-    """Round-based trainer (ssdr_al_tpu/train/trainer.py::Trainer, the host
-    pipeline path; the device pool and the data-parallel mesh are not
-    ported, ROADMAP.md). `state` is the model's state_dict, which the eval
-    step and the samplers take."""
+    """Round-based trainer (ssdr_al_tpu/train/trainer.py::Trainer, on the
+    host pipeline or a device pool; the data-parallel mesh is not ported,
+    ROADMAP.md). `state` is the model's state_dict, which the eval step
+    and the samplers take."""
 
     def __init__(self, cfg: Config, dataset_name: str, *, save_dir: str,
                  seed_save_dir: Optional[str] = None,
@@ -220,6 +292,10 @@ class Trainer:
         self.steps_per_epoch = cfg.train_steps
         self.train_step = make_train_step(self.model, cfg, self.weights,
                                           knn_engine, device=self.device)
+        self.pooled_step = make_pooled_train_step(
+            self.model, cfg, self.weights, knn_engine, device=self.device)
+        self.possibility_step = make_possibility_pooled_train_step(
+            self.model, cfg, self.weights, knn_engine, device=self.device)
         self.eval_step = make_eval_step(self.model, cfg, knn_engine, True,
                                         device=self.device)
         self.train_state = create_train_state(self.model, cfg,
@@ -252,19 +328,32 @@ class Trainer:
         self.log(f"Model restored from {path}")
 
     # ------------------------------------------------------------ train ---
-    def train_round(self, round_num: int, batch_iter_fn, evaluate_fn=None):
+    def train_round(self, round_num: int, batch_iter_fn, evaluate_fn=None,
+                    *, device_pool=None, batch_size: Optional[int] = None):
         """One AL round of training.
 
         batch_iter_fn(epoch) → iterable of batch dicts (host pipeline).
         evaluate_fn(eval_step, state) → (miou, oa), called from
         cfg.eval_start_frac of the epochs on; the best-mIoU weights are
         saved as snap-<round_num>, or the final ones when evaluate_fn is
-        None."""
+        None.
+
+        device_pool: an available DeviceTrainPool on the trainer's device.
+        Each epoch then takes steps_per_epoch steps of blocks extracted on
+        the card (`batch_size` blocks each, default cfg.batch_size), and
+        batch_iter_fn is not called; a PossibilityDevicePool runs its
+        schedule (cfg.batch_size blocks a step), its field kept on the pool
+        between epochs. Callers update_pseudo_gt() the pool for the round."""
         cfg = self.cfg
         state = reset_optimizer(self.train_state, cfg, self.steps_per_epoch)
         self.train_state = state
         best_miou, best_oa = 0.0, 0.0
         snap = self.snapshot_path(round_num)
+        bsz = batch_size or cfg.batch_size
+        if device_pool is not None and device_pool.device != self.device:
+            raise ValueError(f"device pool on {device_pool.device}, trainer "
+                             f"on {self.device}")
+        poss_pool = isinstance(device_pool, PossibilityDevicePool)
 
         def mean(xs):
             return float(torch.stack(xs).float().mean()) if xs else 0.0
@@ -272,11 +361,31 @@ class Trainer:
         for epoch in range(cfg.max_epoch):
             t0 = time.time()
             losses, accs, act_sum = [], [], 0.0
-            for batch in batch_iter_fn(epoch):
-                state, metrics = self.train_step(state, batch,
-                                                 self.dropout_gen)
-                losses.append(metrics["loss"])
-                accs.append(metrics["accuracy"])
+            metrics = None
+            if poss_pool:
+                poss = device_pool.poss_state
+                if poss is None:
+                    poss = device_pool.init_possibility
+                for _ in range(self.steps_per_epoch):
+                    state, poss, metrics = self.possibility_step(
+                        state, device_pool, poss, self.dropout_gen)
+                    losses.append(metrics["loss"])
+                    accs.append(metrics["accuracy"])
+                device_pool.poss_state = poss
+            elif device_pool is not None:
+                for _ in range(self.steps_per_epoch):
+                    ids, picks = device_pool.sample_indices(bsz)
+                    state, metrics = self.pooled_step(
+                        state, device_pool, ids, picks, self.dropout_gen)
+                    losses.append(metrics["loss"])
+                    accs.append(metrics["accuracy"])
+            else:
+                for batch in batch_iter_fn(epoch):
+                    state, metrics = self.train_step(state, batch,
+                                                     self.dropout_gen)
+                    losses.append(metrics["loss"])
+                    accs.append(metrics["accuracy"])
+            if metrics is not None:
                 act_sum = metrics["activation_sum"]
             self.log(
                 f"Round {round_num} | epoch={epoch} "

@@ -80,8 +80,7 @@ def test_full_al_loop(workdir):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("pool", 1), ("num_devices", 2), ("compute_dtype", "bfloat16"),
-    ("dataset", "semantic3d"), ("sampler", "random"),
+    ("num_devices", 2), ("compute_dtype", "bfloat16"), ("sampler", "random"),
 ])
 def test_unported_flags_raise(workdir, flag, value):
     args = make_args(workdir, **{flag: value})

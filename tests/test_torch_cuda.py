@@ -275,6 +275,38 @@ def test_scatter_window_matches_plain(dev, b, n, nq, c, window, tq):
     assert torch.equal(v_dev.grad.cpu(), want)
 
 
+_FIRST_K4 = """
+import numpy as np, torch
+from ssdr_al_torch.ops import gather as ga
+rng = np.random.RandomState(0)
+b, n, nq, k, c, window, tq = 1, 4096, 1024, 16, 256, 4096, 128
+idx = torch.from_numpy(rng.randint(0, n, (b, nq, k)).astype(np.int32))
+starts = torch.zeros((b, nq // tq), dtype=torch.int32)
+g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))
+got = ga.scatter_window(g.cuda(), idx.cuda(), starts.cuda(), n, window, tq)
+assert torch.equal(got.cpu(), ga.scatter_window(g, idx, starts, n, window,
+                                                tq))
+print("ok")
+"""
+
+
+def test_scatter_window_first_launch_at_48_kib(dev):
+    """Semantic3D's first K4 call of a backward, [1, 1024, 16, 256] into
+    4096 rows with a 4096-row window (tq=128), asks the fill kernel for
+    exactly 48 KiB of dynamic shared memory, which with its static scan
+    buffer needs the opt-in attribute. As the first K4 launch of a fresh
+    process (the attribute persists once set) it launches and equals the
+    plain version."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FIRST_K4], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 @pytest.mark.parametrize("tq", [512, 128])
 @pytest.mark.parametrize("c", [8, 11, 32, 35, 64, 67, 128, 256])
 def test_scatter_window_every_channel_count(dev, c, tq):

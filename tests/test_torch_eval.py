@@ -114,16 +114,18 @@ def test_ply_and_clouds_round_trip(tmp_path):
 
 
 def test_class_weights_and_get_config_match_jax():
-    np.testing.assert_array_equal(t_config.class_weights("S3DIS"),
-                                  j_config.class_weights("S3DIS"))
-    assert t_config.class_weights("S3DIS").dtype == np.float32
-    assert t_config.CLASS_COUNTS["S3DIS"] == tuple(
-        j_config.CLASS_COUNTS["S3DIS"])
-    got, want = t_config.get_config("S3DIS"), j_config.get_config("S3DIS")
-    for f in got.__dataclass_fields__:
-        assert getattr(got, f) == getattr(want, f), f
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_config.get_config("Semantic3D")
+    for name in ("S3DIS", "Semantic3D", "SemanticKITTI"):
+        np.testing.assert_array_equal(t_config.class_weights(name),
+                                      j_config.class_weights(name))
+        assert t_config.class_weights(name).dtype == np.float32
+        assert t_config.CLASS_COUNTS[name] == tuple(
+            j_config.CLASS_COUNTS[name])
+    for name in ("S3DIS", "Semantic3D", "semantic3d", "SemanticKITTI"):
+        got, want = t_config.get_config(name), j_config.get_config(name)
+        for f in got.__dataclass_fields__:
+            assert getattr(got, f) == getattr(want, f), (name, f)
+    with pytest.raises(KeyError, match="unknown dataset"):
+        t_config.get_config("ScanNet")
 
 
 def test_metrics_match_jax():
