@@ -1,13 +1,16 @@
 """Smoke run of ssdr_al_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version at the main path's shapes
-(K1 and K2 at every call of one forward, both K2 sources, tie-heavy
-inputs, K4 at every call of one train step, bitwise, each at S3DIS,
-Semantic3D [4 × 65536] and SemanticKITTI [6 × 45056] width, and K3 at a
-fixed dispatch and the selection round's shape: ssdr_al_torch/kernels/
+(K1, its centred-product form K5 and K2 at every call of one forward,
+both K2 sources, K6 at every call of one exact pyramid, tie-heavy inputs,
+K4 at every call of one train step, bitwise, each at S3DIS, Semantic3D
+[4 × 65536] and SemanticKITTI [6 × 45056] width, and K3 at a fixed
+dispatch and the selection round's shape: ssdr_al_torch/kernels/
 measure.py), then drive the closed active-learning loop at RandLA-Net
 S3DIS width through the kernels: seed labels, round-1 training with
 evaluation to snap-1, the card's train-mode gradient against float32 and
-float64 CPU gradients at a seeded state, a full-SSDR selection round from
+float64 CPU gradients at a seeded state, and at eight seeded states with
+the float64 run's leaky-ReLU slopes and max-pool picks pinned in both f32
+runs, a full-SSDR selection round from
 the trained snap-1 (its K3 call checked again and its GCN-FPS picks
 compared on K3's and the plain version's chamfer matrices), and round-2
 training on the device training pool (DeviceTrainPool, al_loop's
@@ -73,6 +76,7 @@ KERNELS = {
 ROOMS, ROOM_POINTS, TARGET_SP, BUDGET = 4, 150_000, 2048, 400
 TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 8, 2
 GRAD_SEED = 5                 # the gradient check's seeded state
+PINNED_SEEDS = range(8)       # the pinned gradient check's seeded states
 EXACT_EPOCHS, EXACT_STEPS = 1, 4      # the --knn_engine pallas round
 # the Semantic3D loop: synthetic clouds, grid superpoints a cloud, clicks
 S3D_CLOUDS, S3D_CLOUD_POINTS, S3D_TARGET_SP, S3D_BUDGET = 3, 300_000, 4096, 300
@@ -138,21 +142,21 @@ def sorted_batch(rng, b, n, dev):
 def check_kernels(cfg, dev):
     """Each kernel vs its plain version on the card, at the main path's
     shapes: its time, the plain version's, the bound and, where one PyTorch
-    call computes the same function, that call's time. K1 and K2 at every
-    call of one forward and on tie-heavy inputs, K4 at every call of one
-    train step, K3 at two shapes (kernels/measure.py)."""
+    call computes the same function, that call's time. K1, K5 and K2 at
+    every call of one forward, K6 at every call of one exact pyramid,
+    K1, K5, K2 and K6 on tie-heavy inputs, K4 at every call of one train
+    step, K3 at two shapes (kernels/measure.py)."""
     from ssdr_al_torch.kernels import measure
-    from ssdr_al_torch.kernels.measure import bound, nbytes
     from ssdr_al_torch.ops import knn as kn
 
-    rng = np.random.RandomState(0)
     b, n = 8, cfg.num_points
     out = {}
 
-    # every K1, K2 and K4 call of one Semantic3D forward and train step
-    # [4 x 65536], first: a launch setting needed only at these shapes
-    # must not be left to an earlier call; then of one SemanticKITTI
-    # forward and train step [6 x 45056] (4 layers)
+    # every K1, K5, K2 and K4 call of one Semantic3D forward and train step
+    # and K6 call of its exact pyramid [4 x 65536], first: a launch setting
+    # needed only at these shapes must not be left to an earlier call; then
+    # of one SemanticKITTI forward, exact pyramid and train step [6 x
+    # 45056] (4 layers)
     from ssdr_al_torch.config import ConfigSemantic3D, ConfigSemanticKITTI
 
     wide = {}
@@ -162,8 +166,9 @@ def check_kernels(cfg, dev):
             c, dev, b_eval=c.batch_size, b_train=c.batch_size,
             shape_free=False)
         k4r = r["scatter_window"]
-        print(f"{name}: {len(r['window_topk'])} K1, "
-              f"{len(r['gather_window'])} K2, {len(k4r)} K4 calls equal to "
+        print(f"{name}: {len(r['window_topk'])} K1 and K5, "
+              f"{len(r['gather_window'])} K2, {len(k4r)} K4, "
+              f"{len(r['knn_tiled'])} K6 calls equal to "
               f"their plain versions; K4 rows past the bins per call "
               f"{[x.get('overflow_rows') for x in k4r]}")
     s3d, kitti = wide["Semantic3D"], wide["SemanticKITTI"]
@@ -174,8 +179,8 @@ def check_kernels(cfg, dev):
               if c["self"] and c["queries"].shape[1] == n)
     iu = next(i for i, c in enumerate(k1_calls)
               if not c["self"] and c["queries"].shape[1] == n)
-    l0, up = k1_calls[i0], k1_calls[iu]
-    xs, st, w = l0["support"], l0["starts"], l0["window"]
+    xs, st, w = (k1_calls[i0][key] for key in ("support", "starts",
+                                               "window"))
     r1 = main["window_topk"][i0]
     out["window_topk"] = dict(r1, ms_k1=main["window_topk"][iu]["ms"],
                               shapes=main["window_topk"], ties=main["ties"],
@@ -199,61 +204,36 @@ def check_kernels(cfg, dev):
               f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
     out["window_topk"]["window_og"] = og
 
-    # K5: K1 with the centred-product distance, at the same two shapes
-    r5 = measure.check_k1(l0, mxu=True)
-    r51 = measure.check_k1(up, mxu=True)
+    # K5: K1 with the centred-product distance and its own block skip, at
+    # every K1 call of the three forwards (measure.check_main_path); the
+    # row is the L0 self-search's
+    k5 = main["window_topk_mxu"]
     agree5 = (kn.window_topk(xs, xs, st, cfg.k_n, w, mxu=True)
               == kn.window_topk(xs, xs, st, cfg.k_n, w)).float().mean().item()
-    print(f"K5 window_topk mxu {r5['shape']}: equal, {r5['ms']:.3f} ms (K1 "
-          f"{r1['ms']:.3f} ms, plain {r5['plain_ms']:.3f} ms, bound "
-          f"{r5['bound_ms']:.4f} ms by {r5['bound_by']}); {r51['shape']}: "
-          f"equal, {r51['ms']:.3f} ms (K1 {out['window_topk']['ms_k1']:.3f} "
-          f"ms); indices equal to K1's on {agree5:.5f}")
-    out["window_topk_mxu"] = dict(r5, ms_k1=r51["ms"],
-                                  agreement_with_k1=agree5)
+    print(f"K5 window_topk mxu at {len(k5)} + {len(s3d['window_topk_mxu'])} "
+          f"+ {len(kitti['window_topk_mxu'])} calls: equal; ms / K1's ms "
+          f"{[round(r['ms'] / r['ms_k1'], 3) for r in k5]}; L0 indices "
+          f"equal to K1's on {agree5:.5f}")
+    out["window_topk_mxu"] = dict(k5[i0], agreement_with_k1=agree5,
+                                  shapes=k5,
+                                  shapes_semantic3d=s3d["window_topk_mxu"],
+                                  shapes_semantickitti=kitti[
+                                      "window_topk_mxu"])
 
-    # K6 at L0 of the exact pyramid: the [6, 40960] self-search (k=16) and
-    # the 1-NN upsample of 40960 queries against the 10240-point subset;
-    # per (query, candidate) 8 operations of d² and 1 compare
-    bt = cfg.batch_size
-    pts = torch.from_numpy((rng.rand(bt, n, 3) * 6).astype(np.float32)
-                           ).to(dev)
-    sub6 = pts[:, : n // 4].contiguous()
-    got6 = kn.knn_tiled(pts, pts, cfg.k_n)
-    want6 = kn._knn_tiled_plain(pts, pts, cfg.k_n)
-    got6u = kn.knn_tiled(sub6, pts, 1)
-    want6u = kn._knn_tiled_plain(sub6, pts, 1)
-    if not (torch.equal(got6, want6) and torch.equal(got6u, want6u)):
-        raise AssertionError(f"K6: {(got6 != want6).sum().item()} + "
-                             f"{(got6u != want6u).sum().item()} indices "
-                             "differ from the plain version")
-    err6 = (got6.long() - want6.long()).abs().max().item()
-    ms6 = cuda_ms(lambda: kn.knn_tiled(pts, pts, cfg.k_n), 5)
-    plain6 = cuda_ms(lambda: kn._knn_tiled_plain(pts, pts, cfg.k_n), 1)
-    lib6 = cuda_ms(lambda: cdist_topk(pts, pts, cfg.k_n), 2)
-    ms6u = cuda_ms(lambda: kn.knn_tiled(sub6, pts, 1), 5)
-    plain6u = cuda_ms(lambda: kn._knn_tiled_plain(sub6, pts, 1), 1)
-    lib6u = cuda_ms(lambda: cdist_topk(sub6, pts, 1), 2)
-    recall = (cdist_topk(pts, pts, cfg.k_n).sort(-1).values
-              == got6.long().sort(-1).values).float().mean().item()
-    b6 = bound(2 * nbytes(pts) + nbytes(got6), 9 * bt * n * n)
-    b6u = bound(nbytes(sub6, pts, got6u), 9 * bt * n * (n // 4))
-    print(f"K6 knn_tiled [6x40960] k=16: equal, {ms6:.3f} ms (plain "
-          f"{plain6:.3f} ms, cdist+topk {lib6:.3f} ms as two calls, bound "
-          f"{b6[0]:.4f} ms by {b6[1]}); upsample 40960 -> 10240 k=1: equal, "
-          f"{ms6u:.3f} ms (plain {plain6u:.3f} ms, cdist+topk {lib6u:.3f} "
-          f"ms, bound {b6u[0]:.4f} ms by {b6u[1]}); cdist+topk index sets "
-          f"equal on {recall:.5f}")
-    out["knn_tiled"] = dict(max_abs_err=err6, ms=ms6, plain_ms=plain6,
-                            bound_ms=b6[0], bound_by=b6[1], library_ms=lib6,
+    # K6: every call of one exact (`pallas`) pyramid at the three widths
+    # (measure.check_k6, each equal to the plain version); the row is the
+    # S3DIS L0 self-search [8 x 40960] k=16
+    k6 = main["knn_tiled"]
+    print(f"K6 knn_tiled at {len(k6)} + {len(s3d['knn_tiled'])} + "
+          f"{len(kitti['knn_tiled'])} calls of exact pyramids: equal; "
+          f"S3DIS sum {sum(r['ms'] for r in k6):.3f} ms (cdist+topk "
+          f"{sum(r['library_ms'] for r in k6):.3f} ms), pairs evaluated "
+          f"{[round(100 * r['pair_share'], 3) for r in k6]} %")
+    out["knn_tiled"] = dict(k6[0], shapes=k6,
+                            shapes_semantic3d=s3d["knn_tiled"],
+                            shapes_semantickitti=kitti["knn_tiled"],
                             library_call="torch.topk(torch.cdist(q, s)) in "
-                                         "4096-query chunks (two calls)",
-                            ms_k1=ms6u, plain_ms_k1=plain6u,
-                            bound_ms_k1=b6u[0], library_ms_k1=lib6u)
-    # hand the plain version's and cdist's multi-GB blocks back, so the
-    # paths below start from an allocator state like the earlier checks'
-    del pts, sub6, got6, want6, got6u, want6u
-    torch.cuda.empty_cache()
+                                         "4096-query chunks (two calls)")
 
     # K2 at the L0 LFA gather of [xyz | 8 features] (the first K2 call)
     out["gather_window"] = dict(main["gather_window"][0],
@@ -276,15 +256,6 @@ def check_kernels(cfg, dev):
     out["chamfer_sums"] = dict(main["chamfer_sums"][0],
                                shapes=main["chamfer_sums"])
     return out
-
-
-def cdist_topk(support, query, k, chunk=4096):
-    """The library reference for K6: torch.cdist then torch.topk, chunked
-    over queries so the [B, chunk, Ns] distance block fits."""
-    return torch.cat([torch.topk(torch.cdist(query[:, q0:q0 + chunk],
-                                             support), k, dim=-1,
-                                 largest=False).indices
-                      for q0 in range(0, query.shape[1], chunk)], 1)
 
 
 def check_forward_reference(cfg, state, dev):
@@ -327,6 +298,27 @@ def check_gradient_reference(cfg, dev):
     if not res["passed"]:
         raise AssertionError("card gradient disagrees with the CPU reference")
     return res
+
+
+def check_pinned_gradients(cfg, dev):
+    """The same check at the seeded states PINNED_SEEDS with every leaky
+    ReLU's slope and every max-pool's pick taken from the float64 run
+    (train/grad_check.py: gradient_errors(pinned=True)), so that it measures the
+    arithmetic rather than which side of a kink an input within f32
+    rounding of it lands on: at each seed the card's error within
+    GRAD_ERR_MULTIPLE times the CPU f32 error plus GRAD_ERR_FLOOR."""
+    from ssdr_al_torch.train.grad_check import gradient_errors
+
+    ratios = {}
+    for seed in PINNED_SEEDS:
+        res = gradient_errors(cfg, dev, seed, pinned=True)
+        ratios[seed] = res["card"] / res["cpu_f32"]
+        if not res["passed"]:
+            raise AssertionError(f"pinned gradient at seed {seed}: card "
+                                 f"{res['card']:.3e} over {res['limit']:.3e}")
+    print("pinned gradient check, card/CPU f32 error ratios by seed: "
+          + json.dumps({k: round(v, 4) for k, v in ratios.items()}))
+    return ratios
 
 
 
@@ -484,6 +476,7 @@ def al_loop(cfg, dev, work, profile_out=None):
 
     check_forward_reference(cfg, trainer.state, dev)
     report["gradient_check"] = check_gradient_reference(cfg, dev)
+    report["gradient_check_pinned"] = check_pinned_gradients(cfg, dev)
 
     # --- round 2: restore snap-1, select, label, retrain to snap-2 ---------
     state = ALState(work, SSDR_ARGS)

@@ -18,31 +18,29 @@
 // card at L1 and L2.
 // Design (0.41 ms at L0 on the H100, kernels/measure.py; the walk and the
 // insertions of the candidates that enter take about equal time):
-//  - Every candidate is keyed by (d2, window rank) as one 64-bit integer:
-//    the bits of d2 (>= +0, so they order as the floats do) above the rank.
-//    A top-k of keys equals the plain version's stable sort whatever order
-//    the candidates arrive in, which frees the order of the walk.
+//  - Candidates are keyed by (d2, window rank) and kept in a buffered
+//    register top-k (key_topk.cuh), which frees the order of the walk.
 //  - The window is staged by groups of four candidates (x[4], y[4], z[4],
-//    K5's |s'|^2[4]), three 16-byte broadcast loads per group, and K1 keeps
-//    the bounding box of each block of 8 groups (32 ranks times `split`).
-//    Pad candidates past the window never enter the top-k.
+//    K5's |s'|^2[4]), three 16-byte broadcast loads per group, with the
+//    bounding box of each block of 8 groups (32 ranks times `split`; K5's
+//    also holds the block's largest |s'|^2). Pad candidates past the
+//    window never enter the top-k.
 //  - The walk is a spiral over blocks: it starts at the block of the warp's
 //    middle query (its own rank on a self-search, else the nearest of 32
 //    samples of the window) and steps out one block on each side in turn,
 //    so the nearest ranks come first and the k-th best tightens early. Its
 //    first k candidates fill the list at once, sorted by a bitonic network.
-//  - K1 skips a whole block when the least d2 from the query to its box,
-//    in the same rounded form as d2 (so never above a candidate's), exceeds
-//    the k-th best of every lane of the warp: most blocks at L0. In a
-//    block it filters a group on the least of its four d2 in FMA
-//    form (6 operations a candidate; at most `filter_bound` above the exact
-//    form), and computes the exact d2 and key only for a group that may
-//    hold a candidate of the top-k.
-//  - A candidate below the k-th best known at the last flush is appended to
-//    the thread's buffer in shared memory; when any lane's buffer nears
-//    full, the whole warp inserts its buffers into the register top-k
-//    together, so the 16-deep insertion runs per buffered candidate of the
-//    busiest lane, not on every step where any lane improves.
+//  - The walk skips a whole block when a lower bound of the d2 of every
+//    candidate in it is strictly above the k-th best of every lane of the
+//    warp (a candidate at equal d2 may still enter on a lower rank): most
+//    blocks at L0. K1's bound is the least d2 to the box in the same
+//    rounded form as d2 (key_topk.cuh::box_lb). K5's is the real least d2
+//    to the box in centred coordinates, rounded down, less the rounding
+//    error of the expanded form (k5_box_lb). In a block each filters a
+//    group on the least of its four d2 in FMA form (K1: at most
+//    `filter_bound` above the exact form; K5: k5_filter_err); only a group
+//    that may hold a candidate of the top-k has its exact d2 and keys
+//    built.
 //  - `split` threads may share one query (ops/knn.py::window_topk_plan picks
 //    1, 2, 4 or 8 so that a small grid has warps enough): thread s walks
 //    the groups g = s (mod split), the lanes of a query filter against the
@@ -54,73 +52,58 @@
 // m = sum_i (-2 q'_i) s'_i (s' = s - c, q' = q - c), every sum taken left
 // to right without FMA; the centred |s'|^2 is computed once per window point
 // into shared memory. The TPU kernel forms m as one HIGHEST-precision MXU
-// product; the tensor-core form (tf32x3 mma.sync) is later tuning. The plain
-// PyTorch version (ops/knn.py::_window_topk_plain) computes the same values
-// and order for both, so each kernel agrees with it index for index. The
-// TPU kernels instead zero the low 12 mantissa bits of d2 to pack the index
-// there; they can reorder pairs whose distances agree to within 2^-11
-// relative.
+// product; on the card the cross term is a 3-deep dot product, which would
+// leave a tensor-core tile idle over most of its depth, and a tf32x3 form
+// would not give the plain version's bits. The plain PyTorch version
+// (ops/knn.py::_window_topk_plain) computes the same values and order for
+// both, so each kernel agrees with it index for index. The TPU kernels
+// instead zero the low 12 mantissa bits of d2 to pack the index there;
+// they can reorder pairs whose distances agree to within 2^-11 relative.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "topk.cuh"
+#include "key_topk.cuh"
 
 namespace {
 
-typedef unsigned long long u64;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBuf = 24;                  // buffered candidates per thread
 constexpr int kMaxThreads = 256;
-constexpr u64 kEmpty = 0x7f800000ull << 32;  // (+inf, rank 0)
 
-__device__ __forceinline__ u64 make_key(float d, int w) {
-  // the sign bit is cleared so that -0 orders as +0
-  return ((u64)(__float_as_uint(d) & 0x7fffffffu) << 32) | (unsigned)w;
+// K5's block bound. For stored centred floats q', s' with the real
+// D = |q' - s'|^2, the computed d2 (each product and sum rounded to
+// nearest, u = 2^-24) satisfies d2 >= D (1 - u) - gamma_4 S with
+// S = sum_i |2 q'_i s'_i| + |s'|^2 + |q'|^2 <= 2 (|q'|^2 + |s'|^2):
+// the cross term and each squared norm are 3-term dot products (error
+// gamma_3 of their absolute sums), their sum adds one rounding, and the
+// final sum one more, relative to its result. |q'|^2 and |s'|^2 are at
+// most q2 and the block's largest w2 times 1 / (1 - gamma_3), so
+// 2^-20 (q2 + w2max) covers the error term twice over (8u (1 + 4u) is
+// needed); 2^-126 covers the absolute error of subnormal products. L is
+// the real least D over the box, computed with every step rounded down.
+// A NaN bound (overflowed coordinates) never skips.
+__device__ __forceinline__ float k5_box_lb(float4 lo, float4 hi, float qx,
+                                           float qy, float qz, float q2) {
+  auto gap = [](float l, float x, float h) {
+    return fmaxf(fmaxf(__fsub_rd(l, x), __fsub_rd(x, h)), 0.f);
+  };
+  const float ex = gap(lo.x, qx, hi.x), ey = gap(lo.y, qy, hi.y);
+  const float ez = gap(lo.z, qz, hi.z);
+  const float l = __fadd_rd(__fadd_rd(__fmul_rd(ex, ex), __fmul_rd(ey, ey)),
+                            __fmul_rd(ez, ez));
+  const float err = __fmaf_ru(__fadd_ru(q2, lo.w), 0x1p-20f, 0x1p-126f);
+  return __fsub_rd(__fmul_rd(l, 1.0f - 0x1p-23f), err);
 }
 
-// a, b = min, max
-__device__ __forceinline__ void cswap(u64& a, u64& b) {
-  const bool swap = b < a;
-  const u64 lo = swap ? b : a;
-  b = swap ? a : b;
-  a = lo;
-}
-
-// Insert key into the ascending register list bk (K static: fully unrolled).
-template <int K>
-__device__ __forceinline__ void key_insert(u64 key, u64 (&bk)[K]) {
-  if (key < bk[K - 1]) {
-    bk[K - 1] = key;
-#pragma unroll
-    for (int j = K - 1; j > 0; --j) cswap(bk[j - 1], bk[j]);
-  }
-}
-
-// Sort K (a power of two) keys ascending: a bitonic network, static indices.
-template <int K>
-__device__ __forceinline__ void key_sort(u64 (&bk)[K]) {
-#pragma unroll
-  for (int k = 2; k <= K; k <<= 1)
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1)
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        const int l = i ^ j;
-        if (l > i) {
-          if (i & k)
-            cswap(bk[l], bk[i]);
-          else
-            cswap(bk[i], bk[l]);
-        }
-      }
-}
-
-// K1's filter bound: the FMA form dx*dx + (dy*dy + dz*dz) of d2 is within
-// 6.1 * 2^-24 relative (plus subnormal steps) of the exact form, both sums
-// of non-negative terms; so a candidate whose exact d2 is <= t has its FMA
-// form <= bound(t).
-__device__ __forceinline__ float filter_bound(float t) {
-  return __fmaf_rn(t, 1.0f + 0x1p-20f, 0x1p-126f);
+// K5's group filter bound. The FMA form f = fma(m_x, s_x, fma(m_y, s_y,
+// fma(m_z, s_z, t))) with t = fl(w2 + q2), 4 operations a candidate, and
+// the exact form's d2 = max(fl(m + t), 0) both approximate m + t with
+// errors of at most gamma_3 (sum_i |m_i s_i| + t), and sum_i |m_i s_i| <=
+// |q'|^2 + |s'|^2 <= t (1 + gamma_4); so f <= d2 (1 + u) + 11 u t. A
+// candidate of the block with d2 <= thr therefore has f <= thr (1 + 2^-22)
+// + err with err = 2^-19 (q2 + w2max) + 2^-126 (the subnormal floor as
+// in filter_bound), each step rounded up: k5_filter_err, once a block.
+__device__ __forceinline__ float k5_filter_err(float q2, float w2max) {
+  return __fmaf_ru(__fadd_ru(q2, w2max), 0x1p-19f, 0x1p-126f);
 }
 
 template <int K, bool CENTERED>
@@ -131,14 +114,14 @@ __global__ void __launch_bounds__(kMaxThreads)
                        int ns, int nq, int window, int tq, int split,
                        int qpc, int wpad, int self_search) {
   // the window by groups of four candidates: x[4], y[4], z[4] (K5: centred,
-  // then |s'|^2[4]); then K1's block boxes [nblk][lo xyz_, hi xyz_]; then
-  // for K > 1 each thread's candidate buffer [kBuf][blockDim.x]
+  // then |s'|^2[4]); then the block boxes [nblk][lo xyz w2max, hi xyz _];
+  // then for K > 1 each thread's candidate buffer [kBuf][blockDim.x]
   constexpr int kG = CENTERED ? 16 : 12;  // floats per group
   const int sgroups = wpad / (4 * split);  // super-groups of split groups
   const int nblk = (sgroups + 7) >> 3;     // blocks of 8 super-groups
   extern __shared__ __align__(16) float win[];
   float* box = win + wpad / 4 * kG;
-  u64* buf = reinterpret_cast<u64*>(box + (CENTERED ? 0 : nblk * 8));
+  u64* buf = reinterpret_cast<u64*>(box + nblk * 8);
   const int nthr = blockDim.x;
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -175,30 +158,30 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (CENTERED) g[12] = w2;
   }
   __syncthreads();
-  if constexpr (!CENTERED) {
-    for (int blk = tid; blk < nblk; blk += nthr) {
-      float4 lo = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
-      float4 hi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.f);
-      const int g1 = min(blk + 1, nblk) * 8 * split;
-      for (int g = blk * 8 * split; g < min(g1, wpad / 4); ++g) {
-        const float4* p = reinterpret_cast<const float4*>(win + g * kG);
-        const float4 v[3] = {p[0], p[1], p[2]};  // fminf skips NaN pads
-        float l[3], h[3];
+  // each block's box over its candidates inside the window (pads are
+  // never keys of the top-k), and K5's largest |s'|^2 in lo.w
+  for (int blk = tid; blk < nblk; blk += nthr) {
+    float4 lo = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
+    float4 hi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.f);
+    const int g1 = min((blk + 1) * 8 * split, wpad / 4);
+    for (int g = blk * 8 * split; g < g1; ++g) {
+      const float* p = win + g * kG;
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          l[a] = fminf(fminf(v[a].x, v[a].y), fminf(v[a].z, v[a].w));
-          h[a] = fmaxf(fmaxf(v[a].x, v[a].y), fmaxf(v[a].z, v[a].w));
-        }
-        lo = make_float4(fminf(lo.x, l[0]), fminf(lo.y, l[1]),
-                         fminf(lo.z, l[2]), 0.f);
-        hi = make_float4(fmaxf(hi.x, h[0]), fmaxf(hi.y, h[1]),
-                         fmaxf(hi.z, h[2]), 0.f);
+      for (int c = 0; c < 4; ++c) {
+        if (4 * g + c >= window) break;
+        lo.x = fminf(lo.x, p[c]);
+        lo.y = fminf(lo.y, p[4 + c]);
+        lo.z = fminf(lo.z, p[8 + c]);
+        hi.x = fmaxf(hi.x, p[c]);
+        hi.y = fmaxf(hi.y, p[4 + c]);
+        hi.z = fmaxf(hi.z, p[8 + c]);
+        if (CENTERED) lo.w = fmaxf(lo.w, p[12 + c]);
       }
-      reinterpret_cast<float4*>(box)[2 * blk] = lo;
-      reinterpret_cast<float4*>(box)[2 * blk + 1] = hi;
     }
-    __syncthreads();
+    reinterpret_cast<float4*>(box)[2 * blk] = lo;
+    reinterpret_cast<float4*>(box)[2 * blk + 1] = hi;
   }
+  __syncthreads();
 
   const int s = tid & (split - 1);
   const int qi = tid / split;
@@ -242,112 +225,55 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   const int jb0 = min(((p0 >> 2) / split) >> 3, nblk - 1);
 
-  u64 bk[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) bk[j] = kEmpty;
-  u64 thr = kEmpty;  // the k-th best of the query's lanes at the last flush
-  float thr_d = INFINITY;  // its d2, and K1's filter bound of it
-  float thr_f = INFINITY;
-  int cnt = 0;
-  auto set_thr = [&](u64 key) {
-    thr = key;
-    thr_d = __uint_as_float((unsigned)(key >> 32));
-    thr_f = CENTERED ? thr_d : filter_bound(thr_d);
-  };
-  auto flush = [&]() {
-    const int most = (int)__reduce_max_sync(kFull, (unsigned)cnt);
-#pragma unroll 1
-    for (int i = 0; i < most; ++i)
-      if (i < cnt) key_insert<K>(buf[i * nthr + tid], bk);
-    cnt = 0;
-    // any of the query's lanes holds K keys below its k-th best, so a key
-    // at or above the least of them is out
-    u64 m = bk[K - 1];
-    for (int off = 1; off < split; off <<= 1) {
-      const u64 o = __shfl_xor_sync(kFull, m, off);
-      m = o < m ? o : m;
-    }
-    set_thr(m);
-  };
-  auto consider = [&](float d, int w) {
-    const u64 key = make_key(d, w);
-    if (key < thr) {
-      if constexpr (K == 1) {
-        bk[0] = key;
-        set_thr(key);
-      } else {
-        buf[cnt * nthr + tid] = key;
-        ++cnt;
-      }
-    }
-  };
-  // one group of four candidates: a filter on its least d2 (K1: the FMA
-  // form), then the exact d2 and key of each candidate that may enter
-  auto visit = [&](int j) {
+  KeyTopK<K, kBuf, !CENTERED> top;
+  top.init(buf + tid, nthr);
+  // one group of four candidates: a filter on its least d2 in FMA form
+  // (K1: under filter_bound of the k-th best; K5: under the bound that
+  // the block's k5_filter_err `e5` gives), then the exact d2 and key of each candidate
+  // that may enter
+  auto visit = [&](int j, float e5) {
     const int g = j * split + s;
-    const float4* p = reinterpret_cast<const float4*>(win + g * kG);
-    const float4 X = p[0], Y = p[1], Z = p[2];
     const int w0 = 4 * g;
     if constexpr (CENTERED) {
-      const float4 W = p[3];
-      auto dist = [&](float x, float y, float z, float w2) {
-        const float m = __fadd_rn(
-            __fadd_rn(__fmul_rn(mx, x), __fmul_rn(my, y)), __fmul_rn(mz, z));
-        return fmaxf(__fadd_rn(m, __fadd_rn(w2, q2)), 0.f);
-      };
-      const float d0 = dist(X.x, Y.x, Z.x, W.x);
-      const float d1 = dist(X.y, Y.y, Z.y, W.y);
-      const float d2 = dist(X.z, Y.z, Z.z, W.z);
-      const float d3 = dist(X.w, Y.w, Z.w, W.w);
-      if (fminf(fminf(d0, d1), fminf(d2, d3)) <= thr_f) {  // rarely taken
-        consider(d0, w0);
-        consider(d1, w0 + 1);
-        consider(d2, w0 + 2);
-        consider(d3, w0 + 3);
-      }
-    } else {
-      float dx[4], dy[4], dz[4], fa[4];
+      const float4* p = reinterpret_cast<const float4*>(win + g * kG);
+      const float4 X = p[0], Y = p[1], Z = p[2], W = p[3];
       const float sx[4] = {X.x, X.y, X.z, X.w};
       const float sy[4] = {Y.x, Y.y, Y.z, Y.w};
       const float sz[4] = {Z.x, Z.y, Z.z, Z.w};
+      const float sw[4] = {W.x, W.y, W.z, W.w};
+      float tw[4], f[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        dx[c] = __fsub_rn(qx, sx[c]);
-        dy[c] = __fsub_rn(qy, sy[c]);
-        dz[c] = __fsub_rn(qz, sz[c]);
-        fa[c] = __fmaf_rn(dx[c], dx[c],
-                          __fmaf_rn(dy[c], dy[c], __fmul_rn(dz[c], dz[c])));
+        tw[c] = __fadd_rn(sw[c], q2);
+        f[c] = __fmaf_rn(mx, sx[c],
+                         __fmaf_rn(my, sy[c], __fmaf_rn(mz, sz[c], tw[c])));
       }
-      if (fminf(fminf(fa[0], fa[1]), fminf(fa[2], fa[3])) <= thr_f) {
+      if (fminf(fminf(f[0], f[1]), fminf(f[2], f[3])) <=
+          __fmaf_ru(top.thr_d, 1.0f + 0x1p-22f, e5)) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          consider(__fadd_rn(__fadd_rn(__fmul_rn(dx[c], dx[c]),
-                                       __fmul_rn(dy[c], dy[c])),
-                             __fmul_rn(dz[c], dz[c])),
-                   w0 + c);
+        for (int c = 0; c < 4; ++c) {
+          const float m = __fadd_rn(
+              __fadd_rn(__fmul_rn(mx, sx[c]), __fmul_rn(my, sy[c])),
+              __fmul_rn(mz, sz[c]));
+          top.consider(fmaxf(__fadd_rn(m, tw[c]), 0.f), w0 + c);
+        }
       }
+    } else {
+      visit_group(top, qx, qy, qz, win + g * kG,
+                  [&](int c) { return (unsigned)(w0 + c); });
     }
   };
-  // K1: the least exact-form d2 from the query to block `blk`'s box. Every
-  // rounding step is monotone, so it is at most the d2 of any candidate in
-  // the box: a block where it exceeds the k-th best of every lane of the
-  // warp holds no candidate of any of their top-k.
   auto block_lb = [&](int blk) {
     const float4 lo = reinterpret_cast<const float4*>(box)[2 * blk];
     const float4 hi = reinterpret_cast<const float4*>(box)[2 * blk + 1];
-    auto gap = [](float l, float x, float h) {
-      return fmaxf(fmaxf(__fsub_rn(l, x), __fsub_rn(x, h)), 0.f);
-    };
-    const float ex = gap(lo.x, qx, hi.x), ey = gap(lo.y, qy, hi.y);
-    const float ez = gap(lo.z, qz, hi.z);
-    return __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)),
-                     __fmul_rn(ez, ez));
+    return CENTERED ? k5_box_lb(lo, hi, qx, qy, qz, q2)
+                    : box_lb(lo, hi, qx, qy, qz);
   };
 
   // The walk: blocks of 8 super-groups (of `split` groups) in a spiral from
   // p0's block, one block out on each side in turn (mod their count), each
-  // block's super-groups in order; K1 skips a block when its box is beyond
-  // every lane's k-th best.
+  // block's super-groups in order; a block is skipped when its bound is
+  // beyond every lane's k-th best.
   int first = 0;  // super-groups of the first block the fill took
   if constexpr (K % 8 == 0) {
     if (jb0 * 8 + K / 4 <= sgroups) {
@@ -368,11 +294,11 @@ __global__ void __launch_bounds__(kMaxThreads)
           } else {
             d = sq_dist(qx, qy, qz, c4[c], c4[4 + c], c4[8 + c]);
           }
-          bk[4 * m + c] = make_key(d, 4 * g + c);
+          top.bk[4 * m + c] = make_key(d, 4 * g + c);
         }
       }
-      key_sort<K>(bk);
-      flush();  // nothing buffered: shares the threshold
+      key_sort<K>(top.bk);
+      top.flush(split);  // nothing buffered: shares the threshold
       first = K / 4;
     }
   }
@@ -386,19 +312,22 @@ __global__ void __launch_bounds__(kMaxThreads)
       blk = bf;
       bf = bf + 1 == nblk ? 0 : bf + 1;
     }
-    if constexpr (!CENTERED) {
-      if (!__any_sync(kFull, block_lb(blk) <= thr_d)) continue;
-    }
+    if (!__any_sync(kFull, !(block_lb(blk) > top.thr_d))) continue;
+    const float e5 =
+        CENTERED ? k5_filter_err(q2, reinterpret_cast<const float4*>(box)[
+                                         2 * blk].w)
+                 : 0.f;
     const int j_end = min(blk * 8 + 8, sgroups);
     for (int j = blk * 8 + (it == 0 ? first : 0); j < j_end; j += 2) {
-      visit(j);
-      if (j + 1 < j_end) visit(j + 1);
-      if (K > 1 && __any_sync(kFull, cnt > kBuf - 9)) flush();
+      visit(j, e5);
+      if (j + 1 < j_end) visit(j + 1, e5);
+      if (top.nearly_full()) top.flush(split);
     }
   }
-  if (K > 1) flush();
+  if (K > 1) top.flush(split);
 
   // merge the partial lists of a query's split lanes, pairwise
+  u64(&bk)[K] = top.bk;
   for (int off = 1; off < split; off <<= 1) {
     if constexpr (K == 1) {
       const u64 o = __shfl_xor_sync(kFull, bk[0], off);
@@ -430,17 +359,27 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// Dynamic shared memory of a launch: the staged window, the block boxes
+// and, for K > 1, the candidate buffers (ops/knn.py::window_topk_smem
+// computes the same; the launcher refuses a launch where the two differ).
+size_t window_topk_smem(int window, int k, bool centered, int split,
+                        int threads) {
+  const int wpad = (window + 4 * split - 1) / (4 * split) * (4 * split);
+  const int nblk = (wpad / (4 * split) + 7) / 8;
+  return (size_t)wpad * (centered ? 4 : 3) * sizeof(float) +
+         (size_t)nblk * 8 * sizeof(float) +
+         (k > 1 ? (size_t)threads * kBuf * sizeof(u64) : 0);
+}
+
 template <int K, bool CENTERED>
 cudaError_t launch_k(const float* support, const float* queries,
                      const int* starts, int* out, int B, int ns, int nq,
                      int window, int tq, int split, int qpc, int threads,
-                     int self_search, cudaStream_t stream) {
+                     int self_search, size_t smem, cudaStream_t stream) {
   const int wpad = (window + 4 * split - 1) / (4 * split) * (4 * split);
   static_assert(K == 1 || K <= kBuf, "the merge stages a list in the buffer");
-  const int nblk = (wpad / (4 * split) + 7) / 8;
-  const size_t smem = (size_t)wpad * (CENTERED ? 4 : 3) * sizeof(float) +
-                      (CENTERED ? 0 : (size_t)nblk * 8 * sizeof(float)) +
-                      (K > 1 ? (size_t)threads * kBuf * sizeof(u64) : 0);
+  // the kernel has no static shared memory, so only a dynamic size above
+  // 48 KiB needs the opt-in
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         window_topk_kernel<K, CENTERED>,
@@ -463,17 +402,19 @@ cudaError_t launch_k(const float* support, const float* queries,
 // the model uses; another width needs its own instantiation. centered = 0
 // launches K1, 1 launches K5. Plan (ops/knn.py::window_topk_plan): split
 // threads per query (1, 2, 4 or 8), qpc queries per CTA, threads per CTA
-// = qpc * split rounded up to a warp, at most 256.
+// = qpc * split rounded up to a warp, at most 256; smem the dynamic
+// shared memory the wrapper computed (ops/knn.py::window_topk_smem).
 extern "C" int window_topk_launch(const void* support, const void* queries,
                                   const void* starts, void* out, int B,
                                   int ns, int nq, int window, int k, int tq,
                                   int centered, int split, int qpc,
-                                  int threads, int self_search,
+                                  int threads, int self_search, int smem,
                                   void* stream) {
   if (B < 1 || B > 65535 || tq < 1 || nq % tq || window < k || window > ns ||
       (split != 1 && split != 2 && split != 4 && split != 8) || qpc < 1 ||
       qpc > tq || threads != (qpc * split + 31) / 32 * 32 ||
-      threads > kMaxThreads)
+      threads > kMaxThreads ||
+      (size_t)smem != window_topk_smem(window, k, centered, split, threads))
     return (int)cudaErrorInvalidValue;
   if (nq == 0) return (int)cudaSuccess;
   const float* s = (const float*)support;
@@ -483,15 +424,17 @@ extern "C" int window_topk_launch(const void* support, const void* queries,
   cudaStream_t cs = (cudaStream_t)stream;
   if (k == 1 && !centered)
     return (int)launch_k<1, false>(s, q, st, o, B, ns, nq, window, tq, split,
-                                   qpc, threads, self_search, cs);
+                                   qpc, threads, self_search, smem, cs);
   if (k == 16 && !centered)
     return (int)launch_k<16, false>(s, q, st, o, B, ns, nq, window, tq,
-                                    split, qpc, threads, self_search, cs);
+                                    split, qpc, threads, self_search, smem,
+                                    cs);
   if (k == 1 && centered)
     return (int)launch_k<1, true>(s, q, st, o, B, ns, nq, window, tq, split,
-                                  qpc, threads, self_search, cs);
+                                  qpc, threads, self_search, smem, cs);
   if (k == 16 && centered)
     return (int)launch_k<16, true>(s, q, st, o, B, ns, nq, window, tq,
-                                   split, qpc, threads, self_search, cs);
+                                   split, qpc, threads, self_search, smem,
+                                   cs);
   return (int)cudaErrorInvalidValue;
 }

@@ -43,11 +43,19 @@ _I = ctypes.c_int
 # C signature of every launcher (all return cudaError_t as int)
 SIGNATURES = {
     # support, queries, starts, out, B, ns, nq, window, k, tq, centered,
-    # split, queries per CTA, threads, self-search, stream
+    # split, queries per CTA, threads, self-search, shared bytes, stream
     "window_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _P],
-    # support, query, out, B, ns, nq, k, stream
-    "knn_tiled_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _P],
+    # support, query, bounds, support codes, query codes, B, ns, nq,
+    # self-search, stream
+    "knn_codes_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # support, query, support order, query order, support codes, query
+    # codes, groups, order, boxes, out, stats, B, ns, nq, k, threads, boxes
+    # in shared memory, self-search, shared bytes, stream
+    "knn_tiled_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P],
+    # support, query, out, B, ns, nq, k, stream (K6's brute-force route)
+    "knn_brute_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # values, idx, starts, out, B, N, nq, k, C, window, tq, slab, rows,
     # threads, stream
     "gather_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

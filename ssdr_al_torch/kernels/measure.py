@@ -1,7 +1,8 @@
-"""Check and time K1-K4 at every call the main path makes.
+"""Check and time K1-K6 at every call the main path and the exact engine
+make.
 
     python3 ssdr_al_torch/kernels/measure.py [--tree DIR] [--out PATH]
-        [--dataset S3DIS|Semantic3D|SemanticKITTI]
+        [--dataset S3DIS|Semantic3D|SemanticKITTI] [--k6-only]
 
 One eval-mode forward of RandLA-Net at ConfigS3DIS width (B=8 × 40960,
 `window` engine, weights and cloud drawn from a seed; with `--dataset
@@ -9,9 +10,15 @@ Semantic3D` at ConfigSemantic3D width, B=4 × 65536, and with `--dataset
 SemanticKITTI` at ConfigSemanticKITTI width, 4 layers, B=6 × 45056) on
 the card records
 the arguments of every K1 call (`window_topk`: the self-searches of L0-L2
-and the two k=1 upsamples) and every K2 call (`gather_window`: two LFA
+and the two k=1 upsamples; K5, its centred-product form, is checked at
+each of them beside it) and every K2 call (`gather_window`: two LFA
 gathers per sorted layer, and the pool gathers through
-`gather_window_auto`). One train-mode forward and backward (B=6 × 40960,
+`gather_window_auto`). One `pallas`-engine pyramid at the same width
+records every K6 call (`knn_tiled`: each layer's k=16 self-search and its
+1-NN upsample), each timed beside cdist + topk and its bound (both
+clouds read and the indices written once), with the operations of the
+pairs it evaluated and of every pair beside it. One
+train-mode forward and backward (B=6 × 40960,
 4 × 65536 or 6 × 45056, dropout off) records every K4 call (`scatter_window`, the
 backward of each K2 call), with the count of dv rows whose entries
 overflow K4's bins. K3 (`chamfer_sums`) runs at one [8, 256, 512] dispatch (60 %
@@ -26,7 +33,13 @@ equal index for index, K2 and K4 bitwise, K4's against the CPU's
 with its other source (shared-memory slab or L1/L2) wherever the slab fits
 in shared memory. Tie-heavy inputs follow at S3DIS width: duplicated
 points, points on a coarse grid, SENTINEL pad rows and window starts
-clamped at the cloud's end, for K1, K5 and K2.
+clamped at the cloud's end, for K1, K5, K2 and K6.
+
+`--k6-only` runs only the K6 calls, each also on every route of the
+wrapper (the brute-force loop, the walk over the clouds in their own
+order, the walk over the curve-sorted clouds; ops/knn.py::
+knn_tiled_route picks one by the support's size) and split by kernel
+under torch.profiler.
 
 `--tree DIR` measures the `ssdr_al_torch` package under DIR (for example
 a `git archive` of another commit) with this file's inputs and timing, so
@@ -82,6 +95,27 @@ def device_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_breakdown(fn, reps=5):
+    """({kernel: device ms per call}, kernel launches per call) of fn()
+    under torch.profiler: every CUDA kernel it launched, by name, over
+    `reps` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out, n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            out[e.name] = out.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])), n / reps
+
+
 def record_main_path(cfg, dev, b=8, seed=0):
     """(K1 calls, K2 calls) of one eval-mode forward [b × cfg.num_points]:
     each a dict of the wrapper's arguments and the path it serves."""
@@ -129,6 +163,115 @@ def record_main_path(cfg, dev, b=8, seed=0):
         (kn.window_topk, rl.window_topk, rl.gather_window,
          ga.gather_window) = saved
     return k1, k2
+
+
+def record_exact_path(cfg, dev, b=8, seed=0):
+    """K6 calls of one `pallas`-engine pyramid [b × cfg.num_points] (the
+    exact engine's forward builds it before the layers run): each layer's
+    k=16 self-search and its 1-NN upsample against the layer's prefix, as
+    dicts of the wrapper's arguments in launch order."""
+    from ssdr_al_torch.models import randlanet as rl
+    from ssdr_al_torch.ops import knn as kn
+
+    calls, k6 = [], kn.knn_tiled
+
+    def rec(support, query, k):
+        calls.append(dict(support=support, query=query, k=k))
+        return k6(support, query, k)
+
+    # the wrapper counts its launches on the module's name for it
+    rec.launches = 0
+    rng = np.random.RandomState(seed)
+    xyz = (rng.rand(b, cfg.num_points, 3) * 6).astype(np.float32)
+    kn.knn_tiled = rec
+    try:
+        with torch.no_grad():
+            rl.build_pyramid(torch.from_numpy(xyz).to(dev), cfg,
+                             engine="pallas")
+    finally:
+        kn.knn_tiled = k6
+    return calls
+
+
+def cdist_topk(support, query, k, chunk=4096):
+    """The library call for K6: torch.cdist then torch.topk, chunked over
+    queries so the [B, chunk, Ns] distance block fits."""
+    return torch.cat([torch.topk(torch.cdist(query[:, q0:q0 + chunk],
+                                             support), k, dim=-1,
+                                 largest=False).indices
+                      for q0 in range(0, query.shape[1], chunk)], 1)
+
+
+def check_k6(call, reps=10, plain_reps=1, lib_reps=2):
+    """K6 at one recorded call: equal to its plain version index for index;
+    the pairs it evaluated (every pair for a tree without the count); its
+    time, the plain version's, cdist + topk's and its bound: the bytes of
+    both clouds read once and the indices written once, or the operations
+    of the k pairs each query must at least evaluate (9 each: d² and a
+    compare), whichever takes longer. Beside it, the operations of the
+    pairs this run evaluated (`ops_ms_evaluated`) and of every pair
+    (`bound_ms_all_pairs`: the TPU kernel's and the brute-force route's
+    work)."""
+    from ssdr_al_torch.ops import knn as kn
+
+    s, q, k = call["support"], call["query"], call["k"]
+    b, ns, _ = s.shape
+    nq = q.shape[1]
+    self_search = s.data_ptr() == q.data_ptr() and s.shape == q.shape
+    name = (f"[{b}x{nq}] k={k} " + ("self" if self_search
+                                     else f"upsample from {ns}"))
+    before = kn.knn_tiled.launches
+    got = kn.knn_tiled(s, q, k)
+    if kn.knn_tiled.launches != before + 1:
+        raise AssertionError(f"K6 {name}: the kernel did not launch")
+    want = kn._knn_tiled_plain(s, q, k)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6 {name}: {(got != want).sum().item()} "
+                             "indices differ from the plain version")
+    pairs, walk = b * ns * nq, {}
+    if hasattr(kn, "knn_tiled_stats"):
+        walk = kn.knn_tiled_stats(s, q, k)[1]
+        pairs = walk.pop("pairs")
+    nb = nbytes(s, got) + (0 if self_search else nbytes(q))
+    bd = bound(nb, 9 * b * nq * min(k, ns))
+    return dict(shape=name, route=kn.knn_tiled_route(ns, k)
+                if hasattr(kn, "knn_tiled_route") else None,
+                max_abs_err=(got.long() - want.long()).abs().max().item(),
+                ms=device_ms(lambda: kn.knn_tiled(s, q, k), reps),
+                plain_ms=device_ms(lambda: kn._knn_tiled_plain(s, q, k),
+                                   plain_reps),
+                bound_ms=bd[0], bound_by=bd[1],
+                ops_ms_evaluated=bound(0, 9 * pairs)[0],
+                bound_ms_all_pairs=bound(0, 9 * b * ns * nq)[0],
+                library_ms=device_ms(lambda: cdist_topk(s, q, k), lib_reps),
+                pairs=pairs, pair_share=pairs / (b * ns * nq),
+                walk={key: v / -(-nq // 32) / b for key, v in walk.items()})
+
+
+def k6_routes(call, reps=10):
+    """K6 at one recorded call on each of its routes (ops/knn.py::
+    knn_tiled_route picks one by the support's size): each equal to the
+    plain version, its time, the pairs it evaluated, and the device time
+    of the route the wrapper picks split by kernel under torch.profiler
+    (the walk apart from its codes, sorts and layout)."""
+    from ssdr_al_torch.ops import knn as kn
+
+    s, q, k = call["support"], call["query"], call["k"]
+    want = kn._knn_tiled_plain(s, q, k)
+    out = {}
+    for route in kn.KNN_ROUTES:
+        got, st = kn.knn_tiled_stats(s, q, k, route=route)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 on the {route} route differs")
+        out[route] = dict(ms=device_ms(lambda: kn._knn_tiled(
+            s, q, k, route=route), reps), pairs=st["pairs"])
+    parts, launches = device_breakdown(lambda: kn.knn_tiled(s, q, k))
+    ours = sum(v for n, v in parts.items() if "knn_" in n)
+    return dict(routes=out, kernel_ms=ours,
+                other_ms=sum(parts.values()) - ours,
+                device_launches=launches,
+                top_kernels_ms={n[:60]: round(v, 4)
+                                for n, v in list(parts.items())[:6]})
 
 
 def record_train_backward(cfg, dev, b=6, seed=0):
@@ -418,7 +561,8 @@ def check_ties(dev):
     clouds, self-searches at W=1792 and W=2560 and a 1-NN search of the
     cloud in its every-4th-point subset, with starts spread over the
     cloud and the last ones past its end (clamped by kernel and plain
-    version alike); K2 bitwise equal on the same starts, indices outside
+    version alike); K6's k=16 self-search and k=1 search in the same
+    subset, on each of its routes; K2 bitwise equal on the same starts, indices outside
     their windows included, with both sources. Returns the names checked."""
     from ssdr_al_torch.ops import gather as ga
     from ssdr_al_torch.ops import knn as kn
@@ -443,6 +587,17 @@ def check_ties(dev):
                         f"K{5 if mxu else 1} ties '{name}' k={k} W={w}: "
                         f"{(got != want).sum().item()} indices differ")
             done.append(f"{name} k={k} W={w}")
+        for sup, k, what in ((x, 16, "self"), (sub, 1, "upsample")):
+            want = kn._knn_tiled_plain(sup, x, k)
+            # on every route of a tree whose wrapper has several
+            for route in getattr(kn, "KNN_ROUTES", (None,)):
+                got = kn.knn_tiled(sup, x, k) if route is None else \
+                    kn.knn_tiled_stats(sup, x, k, route=route)[0]
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K6 ties '{name}' k={k} {what} on route {route}: "
+                        f"{(got != want).sum().item()} indices differ")
+            done.append(f"{name} K6 k={k} {what}")
         w, tq = 2048, 512
         st = torch.clamp(kn.self_query_starts(n, n, w, tq, dev), max=n - w)
         st = st.expand(b, -1).contiguous()
@@ -469,24 +624,46 @@ def check_ties(dev):
 
 def check_main_path(cfg, dev, log=print, b_eval=8, b_train=6,
                     shape_free=True):
-    """Record one forward's K1 and K2 calls [b_eval × cfg.num_points] and
-    one train-mode backward's K4 calls [b_train × cfg.num_points], check
-    and time each, then (shape_free) the tie-heavy inputs and K3 at its
-    two shapes, neither of which depends on cfg. Where the tree's K4 has a
-    launch plan (the fixed-order design), every K4 call must equal the
-    plain version and itself bit for bit. Returns {"window_topk": [...],
-    "gather_window": [...], "scatter_window": [...], "chamfer_sums":
-    [...], "ties": [...], "calls": (k1 calls, k2 calls)}."""
+    """Record one forward's K1 and K2 calls [b_eval × cfg.num_points] (K5
+    checked at every K1 call too), one `pallas` pyramid's K6 calls
+    [b_eval × cfg.num_points] and one train-mode backward's K4 calls
+    [b_train × cfg.num_points], check and time each, then (shape_free)
+    the tie-heavy inputs and K3 at its two shapes, neither of which
+    depends on cfg. Where the tree's K4 has a launch plan (the fixed-order
+    design), every K4 call must equal the plain version and itself bit for
+    bit. Returns {"window_topk": [...], "window_topk_mxu": [...],
+    "knn_tiled": [...], "gather_window": [...], "scatter_window": [...],
+    "chamfer_sums": [...], "ties": [...], "calls": (k1 calls, k2
+    calls)}."""
     from ssdr_al_torch.ops import gather as ga
 
     k1_calls, k2_calls = record_main_path(cfg, dev, b=b_eval)
-    k1 = []
+    k1, k5 = [], []
     for call in k1_calls:
         r = check_k1(call)
         k1.append(r)
         log(f"K1 {r['shape']}: equal, {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}, plan {r.get('plan')})")
+        r5 = dict(check_k1(call, mxu=True), ms_k1=r["ms"])
+        k5.append(r5)
+        log(f"K5 {r5['shape']}: equal, {r5['ms']:.4f} ms (K1 "
+            f"{r['ms']:.4f} ms, {r5['ms'] / r['ms']:.2f}x; plain "
+            f"{r5['plain_ms']:.3f} ms)")
+    k6 = []
+    for call in record_exact_path(cfg, dev, b=b_eval):
+        r = check_k6(call)
+        k6.append(r)
+        log(f"K6 {r['shape']}: equal, {r['ms']:.4f} ms on route "
+            f"{r['route']} (plain {r['plain_ms']:.3f} ms, cdist+topk "
+            f"{r['library_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; operations of the pairs evaluated "
+            f"{r['ops_ms_evaluated']:.4f} ms, of every pair "
+            f"{r['bound_ms_all_pairs']:.4f} ms; pairs evaluated "
+            f"{r['pairs']} = {100 * r['pair_share']:.3f} %)")
+    log(f"K6 sum over the {len(k6)} calls of one exact pyramid: "
+        f"{sum(r['ms'] for r in k6):.4f} ms (cdist+topk "
+        f"{sum(r['library_ms'] for r in k6):.3f} ms)")
     k2 = []
     for call in k2_calls:
         r = check_k2(call)
@@ -533,8 +710,9 @@ def check_main_path(cfg, dev, log=print, b_eval=8, b_train=6,
             f"{r['bound_ms_ordered']:.4f} ms)")
         if not r["run_to_run"]:
             raise AssertionError(f"K3 {r['shape']}: two launches differ")
-    return {"window_topk": k1, "gather_window": k2, "scatter_window": k4,
-            "chamfer_sums": k3, "ties": ties, "calls": (k1_calls, k2_calls)}
+    return {"window_topk": k1, "window_topk_mxu": k5, "knn_tiled": k6,
+            "gather_window": k2, "scatter_window": k4, "chamfer_sums": k3,
+            "ties": ties, "calls": (k1_calls, k2_calls)}
 
 
 def main() -> int:
@@ -549,6 +727,9 @@ def main() -> int:
                          "Semantic3D (B=4 × 65536) or SemanticKITTI (B=6 "
                          "× 45056, 4 layers), these two K1, K2 and K4 "
                          "only")
+    ap.add_argument("--k6-only", action="store_true",
+                    help="only K6 at every call of one exact pyramid, on "
+                         "each of its routes")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -566,7 +747,25 @@ def main() -> int:
 
     build.library()
     dev = torch.device("cuda", 0)
-    if args.dataset == "S3DIS":
+    if args.k6_only:
+        cfg = config.get_config(args.dataset)
+        res = {"knn_tiled": []}
+        for call in record_exact_path(cfg, dev, b=8 if args.dataset ==
+                                      "S3DIS" else cfg.batch_size):
+            r = check_k6(call)
+            r.update(k6_routes(call))
+            res["knn_tiled"].append(r)
+            print(f"K6 {r['shape']}: equal, {r['ms']:.4f} ms on route "
+                  f"{r['route']} (kernels {r['kernel_ms']:.4f}, the rest "
+                  f"{r['other_ms']:.4f} ms; pairs "
+                  f"{100 * r['pair_share']:.3f} %); every route "
+                  + json.dumps({n: round(v["ms"], 4)
+                                for n, v in r["routes"].items()})
+                  + "; a warp " + json.dumps(
+                      {n: round(v, 1) for n, v in r["walk"].items()})
+                  + " " + json.dumps(r["top_kernels_ms"]))
+        res["calls"] = None
+    elif args.dataset == "S3DIS":
         res = check_main_path(config.ConfigS3DIS, dev)
     else:
         cfg = config.get_config(args.dataset)

@@ -65,6 +65,11 @@ def leaky_relu(x):
     return F.leaky_relu(x, 0.2)
 
 
+def max_pool(pooled):
+    """The max over the neighbour axis of [B, N', k, C] (random_sample)."""
+    return pooled.amax(2)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis in flax 0.12's arithmetic:
     (x − mean) · (scale · rsqrt(var + eps)) + bias.
@@ -164,7 +169,7 @@ def random_sample(feature, pool_idx, window: int = 0):
                                     min(window + 2048, n))
     else:
         pooled = gather_neighbour(feature, pool_idx)
-    return pooled.amax(2)
+    return max_pool(pooled)
 
 
 def nearest_interpolation(feature, interp_idx):

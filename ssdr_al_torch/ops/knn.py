@@ -8,9 +8,10 @@ distance:
                `sort_cloud`: each 256-query tile searches one window of the
                sorted support through the window kernel (K1, or K5 with the
                centred-product distance).
-  knn_tiled  — exact brute force, the counterpart of knn_pallas: kernel K6
-               streams the support through shared memory and keeps a
-               register top-k per query.
+  knn_tiled  — exact, the counterpart of knn_pallas: kernel K6 sorts both
+               clouds along the morton curve and walks blocks of the
+               sorted support, skipping every block whose bounding box
+               lies beyond the k-th best of each of a warp's queries.
   knn_xla    — exact, in the matmul form of the JAX engine (dense products
                and torch.topk), for the small pyramid layers.
   knn_approx — the TPU's approx_min_k path; served with exact knn_xla here.
@@ -202,6 +203,118 @@ def _knn_tiled_plain(support, query, k, query_chunk=1024):
     return out
 
 
+# K6's walk (csrc/knn_tiled.cu): blocks of KNN_BLOCK sorted support
+# points, super-blocks of KNN_SUPER blocks, each with a 32-byte box;
+# KNN_THREADS threads a CTA, a warp per 32 sorted queries, each warp
+# staging a kept block in KNN_STAGE floats and each thread buffering
+# KNN_BUF candidate keys of 8 bytes (k > 1). The kernel's registers allow
+# KNN_CTAS CTAs an SM; the box tables take shared memory only where as
+# many still fit beside the stages and buffers.
+KNN_BLOCK, KNN_SUPER, KNN_THREADS, KNN_STAGE, KNN_BUF = 32, 32, 256, 128, 24
+KNN_CTAS = 3
+# K6's route by the support's size (knn_tiled_route): a thread per query
+# over every support point at most KNN_BRUTE_MAX[k] points, the walk over
+# the clouds in their own order at most KNN_SORT_MIN, the walk over the
+# curve-sorted clouds beyond. Set from kernels/measure.py --k6-only, which
+# times every route at every call of the three exact pyramids (H100): for
+# k=1 the brute force is fastest up to 4096 points (0.135 against the
+# sorted walk's 0.194 ms) and the sorted walk from 10240 (0.497 against
+# 1.490); for k=16 the walk in the clouds' own order up to 704 points
+# (0.093 against 0.107), the sorted walk from 1024 (0.115 against 0.116)
+KNN_BRUTE_MAX = {1: 4096, 16: 0}
+KNN_SORT_MIN = 896
+KNN_ROUTES = ("brute", "walk", "sorted")
+SMEM_DEFAULT = 48 * 1024   # dynamic shared memory a launch has without
+                           # the opt-in attribute
+SMEM_LIMIT = 227 * 1024    # the most one CTA can opt in to on an H100
+SMEM_SM = 228 * 1024       # an SM's shared memory, 1 KiB of it reserved
+                           # for each resident CTA
+
+
+def knn_tiled_plan(ns: int, k: int):
+    """(nblk, nsup, boxes_in_smem, smem bytes) of K6's walk over ns support
+    points: both box tables go to shared memory where KNN_CTAS CTAs an SM
+    still fit with them, else only the super-blocks' do and the walk reads
+    the block boxes through L1. A launch above SMEM_DEFAULT sets the opt-in
+    attribute (the kernel has no static shared memory)."""
+    nblk = -(-ns // KNN_BLOCK)
+    nsup = -(-nblk // KNN_SUPER)
+    fixed = KNN_THREADS // 32 * KNN_STAGE * 4 \
+        + (KNN_THREADS * KNN_BUF * 8 if k > 1 else 0)
+    both = fixed + (nsup + nblk) * 32
+    in_smem = both <= SMEM_SM // KNN_CTAS - 1024
+    return nblk, nsup, in_smem, both if in_smem else fixed + nsup * 32
+
+
+def knn_tiled_route(ns: int, k: int) -> str:
+    """K6's route at ns support points: "brute" (csrc/knn_tiled.cu::
+    knn_brute_kernel, a thread per query over every support point, where
+    a warp's walk costs more than it prunes), "walk" (the walk over the
+    clouds in their own order, where the codes and sorts cost more than
+    the boxes save) or "sorted" (the walk over the curve-sorted clouds)."""
+    if ns <= KNN_BRUTE_MAX[k]:
+        return "brute"
+    return "walk" if ns <= KNN_SORT_MIN else "sorted"
+
+
+def knn_sorted_inputs(support: torch.Tensor, query: torch.Tensor,
+                      self_search: bool = False, sort: bool = True):
+    """The plain version of K6's preparation (csrc/knn_tiled.cu's codes and
+    layout kernels and the stable sort between them): both clouds of a
+    batch row sorted along the morton curve over one box that holds them
+    both.
+
+    Returns groups [B, nblk·8, 3, 4] (the sorted support by groups of four
+    points, x[4] y[4] z[4], NaN pads up to nblk·KNN_BLOCK rows), order [B,
+    nblk·KNN_BLOCK] int32 (the original index of each sorted support row,
+    0 on pads), the sorted queries [B, nq, 3], qorder [B, nq] int32 (the
+    original row of each sorted query) and qpos [B, nq] int32 (each sorted
+    query's rank in the sorted support: its own on a self-search, else its
+    searchsorted position). The rows keep their values: every d² is the
+    plain version's. sort=False keeps both clouds in their own order (the
+    kernel's path for at most KNN_SORT_MIN support points): identity
+    orders, qpos its own rank on a self-search, else 0."""
+    b, ns, _ = support.shape
+    if not sort:
+        nq, dev = query.shape[1], support.device
+        ar = torch.arange(max(ns, nq), dtype=torch.int32, device=dev)
+        s_order, q_order = ar[:ns].expand(b, ns), ar[:nq].expand(b, nq)
+        q_pos = q_order if self_search else torch.zeros_like(q_order)
+        return _knn_layout(support, s_order) + (
+            query.contiguous(), q_order.contiguous(), q_pos.contiguous())
+    lo, hi = support.amin(1, keepdim=True), support.amax(1, keepdim=True)
+    if not self_search:
+        lo = torch.minimum(lo, query.amin(1, keepdim=True))
+        hi = torch.maximum(hi, query.amax(1, keepdim=True))
+    s_codes, s_order, s_xyz = sort_by_codes(morton_codes(support, lo, hi),
+                                            support)
+    groups, order = _knn_layout(support, s_order)
+    if self_search:
+        q_xyz, q_order = s_xyz, s_order
+        q_pos = torch.arange(ns, dtype=torch.int32,
+                             device=support.device).expand(b, ns)
+    else:
+        q_codes, q_order, q_xyz = sort_by_codes(
+            morton_codes(query, lo, hi), query)
+        q_pos = torch.searchsorted(s_codes.contiguous(),
+                                   q_codes.contiguous()).to(torch.int32)
+    return (groups, order, q_xyz.contiguous(), q_order.contiguous(),
+            q_pos.contiguous())
+
+
+def _knn_layout(support, s_order):
+    """(groups [B, nblk·8, 3, 4], order [B, nblk·KNN_BLOCK] int32): the
+    support rows in the order s_order [B, Ns] by groups of four points,
+    NaN pads, and their original indices (0 on pads)."""
+    b, ns, _ = support.shape
+    nblk = -(-ns // KNN_BLOCK)
+    pad = nblk * KNN_BLOCK - ns
+    groups = torch.nn.functional.pad(gather_rows(support, s_order),
+                                     (0, 0, 0, pad), value=float("nan"))
+    groups = groups.reshape(b, nblk * 8, 4, 3).transpose(2, 3).contiguous()
+    return groups, torch.nn.functional.pad(s_order, (0, pad)).contiguous()
+
+
 def knn_tiled(support: torch.Tensor, query: torch.Tensor,
               k: int) -> torch.Tensor:
     """K6: exact KNN, the counterpart of ssdr_al_tpu's knn_pallas.
@@ -211,31 +324,109 @@ def knn_tiled(support: torch.Tensor, query: torch.Tensor,
     f32 without FMA (the broadcast-subtraction form of the TPU kernel).
     Ties go to the lower support index; with Ns < k the slots past Ns hold
     index 0. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (csrc/knn_tiled.cu), for k in KERNEL_K."""
+    kernel (csrc/knn_tiled.cu) on the curve-sorted clouds (as
+    knn_sorted_inputs sorts them), on small clouds in their own order or a
+    thread per query over every support point (knn_tiled_route), for k in
+    KERNEL_K."""
+    return _knn_tiled(support, query, k)[0]
+
+
+def knn_tiled_stats(support: torch.Tensor, query: torch.Tensor, k: int,
+                    route: str | None = None):
+    """knn_tiled on CUDA tensors, on its own route (knn_tiled_route) or
+    the one given, and what it did: {"pairs" (query, support) evaluated
+    (of Nq·Ns a batch row; all of them on the brute-force route), and on
+    a walk "blocks_kept" and "block_tests" by the warps, "keys_buffered"
+    by the lanes, "insert_rounds" of the warps}."""
+    return _knn_tiled(support, query, k, with_stats=True, route=route)
+
+
+def _knn_tiled(support, query, k, with_stats=False, route=None):
     if support.dim() != 3 or query.dim() != 3 or support.shape[-1] != 3 \
             or query.shape[-1] != 3 or support.shape[0] != query.shape[0]:
         raise ValueError(f"knn_tiled: bad shapes {tuple(support.shape)} "
                          f"{tuple(query.shape)}")
-    if support.device.type == "cpu":
-        return _knn_tiled_plain(support.float(), query.float(), k)
+    if support.device.type == "cpu" and not with_stats:
+        return _knn_tiled_plain(support.float(), query.float(), k), None
     if support.dtype != torch.float32 or query.dtype != torch.float32:
         raise TypeError("knn_tiled: float32 points")
-    support, query = support.contiguous(), query.contiguous()
+    self_search = support.data_ptr() == query.data_ptr() and \
+        support.shape == query.shape and support.stride() == query.stride()
+    support = support.contiguous()
+    query = support if self_search else query.contiguous()
     _kb.require_cuda("knn_tiled", support, query)
     if k not in KERNEL_K:
         raise ValueError(f"knn_tiled: the kernel is built for k in "
                          f"{KERNEL_K}, not {k}")
     b, ns, _ = support.shape
     nq = query.shape[1]
-    out = torch.empty((b, nq, k), dtype=torch.int32, device=support.device)
-    if nq == 0:
-        return out
+    dev = support.device
+    if nq == 0 or ns == 0:
+        return torch.zeros((b, nq, k), dtype=torch.int32, device=dev), None
+    stream = ctypes.c_void_p(_kb.stream_ptr(dev))
+    route = route or knn_tiled_route(ns, k)
+    if route not in KNN_ROUTES:
+        raise ValueError(f"knn_tiled: no route {route!r}")
+    if route == "brute":
+        out = torch.empty((b, nq, k), dtype=torch.int32, device=dev)
+        _kb.check(_kb.library().knn_brute_launch(
+            support.data_ptr(), query.data_ptr(), out.data_ptr(), b, ns, nq,
+            k, stream), "knn_tiled brute")
+        knn_tiled.launches += 1
+        return out, dict(pairs=b * ns * nq) if with_stats else None
+    # the sort orders and sorted codes; none where the walk takes the
+    # clouds in their own order
+    sorts = [None] * 4
+    if route == "sorted":
+        # the curve codes (csrc/knn_tiled.cu::knn_codes_kernel: morton_codes
+        # over one box holding both clouds), then their stable sort
+        s_codes, q_codes = _knn_codes(support, query, self_search, stream)
+        s_codes, s_order = torch.sort(s_codes, dim=-1, stable=True)
+        q_codes, q_order = (s_codes, s_order) if self_search else \
+            torch.sort(q_codes, dim=-1, stable=True)
+        sorts = [t.data_ptr() for t in (s_order, q_order, s_codes, q_codes)]
+    nblk, nsup, in_smem, smem = knn_tiled_plan(ns, k)
+    groups = torch.empty((b, nblk * 8, 3, 4), dtype=torch.float32,
+                         device=dev)
+    order = torch.empty((b, nblk * KNN_BLOCK), dtype=torch.int32, device=dev)
+    boxes = torch.empty((b, nsup + nblk, 8), dtype=torch.float32, device=dev)
+    out = torch.empty((b, nq, k), dtype=torch.int32, device=dev)
+    stats = torch.zeros(5, dtype=torch.int64, device=dev) \
+        if with_stats else None
     err = _kb.library().knn_tiled_launch(
-        support.data_ptr(), query.data_ptr(), out.data_ptr(), b, ns, nq, k,
-        ctypes.c_void_p(_kb.stream_ptr(support.device)))
+        support.data_ptr(), query.data_ptr(), *sorts,
+        groups.data_ptr(), order.data_ptr(), boxes.data_ptr(),
+        out.data_ptr(), None if stats is None else stats.data_ptr(), b, ns,
+        nq, k, KNN_THREADS, int(in_smem), int(self_search), smem, stream)
     _kb.check(err, "knn_tiled")
     knn_tiled.launches += 1
-    return out
+    if stats is None:
+        return out, None
+    return out, dict(zip(("pairs", "blocks_kept", "block_tests",
+                          "keys_buffered", "insert_rounds"),
+                         stats.tolist()))
+
+
+def _knn_codes(support, query, self_search, stream=None):
+    """(support codes [B, Ns], query codes [B, Nq] or None on a
+    self-search) int32 on the card: morton_codes of both clouds over one
+    box per batch row that holds them both (knn_sorted_inputs computes
+    the same on any device)."""
+    b, ns, _ = support.shape
+    nq = query.shape[1]
+    dev = support.device
+    if stream is None:
+        stream = ctypes.c_void_p(_kb.stream_ptr(dev))
+    lohi = torch.empty((b, 6), dtype=torch.float32, device=dev)
+    s_codes = torch.empty((b, ns), dtype=torch.int32, device=dev)
+    q_codes = None if self_search else \
+        torch.empty((b, nq), dtype=torch.int32, device=dev)
+    err = _kb.library().knn_codes_launch(
+        support.data_ptr(), query.data_ptr(), lohi.data_ptr(),
+        s_codes.data_ptr(), None if q_codes is None else q_codes.data_ptr(),
+        b, ns, nq, int(self_search), stream)
+    _kb.check(err, "knn_tiled codes")
+    return s_codes, q_codes
 
 
 knn_tiled.launches = 0
@@ -307,6 +498,22 @@ def window_topk_plan(b: int, nq: int, window: int, tq: int):
     return split, qpc, _round_up(qpc * split, 32)
 
 
+TOPK_BUF = 24     # K1/K5's buffered candidate keys a thread (k > 1)
+
+
+def window_topk_smem(window: int, k: int, split: int, threads: int,
+                     mxu: bool) -> int:
+    """Dynamic shared memory of a K1/K5 launch, in bytes: the window padded
+    to groups of 4·split candidates, 3 floats each (K5: 4, with |s'|²), the
+    32-byte box of each block of 8 such groups, and for k > 1 TOPK_BUF
+    keys of 8 bytes a thread. Above SMEM_DEFAULT the launch sets the
+    opt-in attribute (the kernel has no static shared memory)."""
+    wpad = _round_up(window, 4 * split)
+    nblk = -(-(wpad // (4 * split)) // 8)
+    return wpad * (4 if mxu else 3) * 4 + nblk * 32 \
+        + (threads * TOPK_BUF * 8 if k > 1 else 0)
+
+
 def window_topk(support: torch.Tensor, queries: torch.Tensor,
                 starts: torch.Tensor, k: int, window: int,
                 tq: int = QUERY_TILE, mxu: Optional[bool] = None
@@ -345,6 +552,7 @@ def window_topk(support: torch.Tensor, queries: torch.Tensor,
         support.data_ptr(), queries.data_ptr(), starts.data_ptr(),
         out.data_ptr(), b, ns, nq, window, k, tq, int(mxu), split, qpc,
         threads, int(support.data_ptr() == queries.data_ptr() and ns == nq),
+        window_topk_smem(window, k, split, threads, mxu),
         ctypes.c_void_p(_kb.stream_ptr(support.device)))
     _kb.check(err, "window_topk")
     if mxu:

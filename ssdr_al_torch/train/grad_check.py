@@ -3,6 +3,7 @@ gradients, at seeded states, with the diagnostics that locate the card's
 error.
 
     python3 ssdr_al_torch/train/grad_check.py [--seeds 0,1,...] [--out PATH]
+        [--no-trace]
 
 At each seeded state (`spread_weights` of the flax initialisers' weights)
 one 40960-point block at ConfigS3DIS width runs in train mode, dropout
@@ -10,11 +11,13 @@ off, on the card (K1, K2, K4) and on the CPU in float32 and float64
 (`gradient_errors`): it prints each card/CPU error ratio with the layers
 that hold the card's error and, per BatchNorm, where the error grows and
 which outputs lie on the other side of 0 from f64's (`bn_trace`); then
-the f32 error of three backward ops over a layer's edge rows and of the
-backward matmuls (`backward_op_probe`), on the card and on the CPU.
+the same with every leaky ReLU's slope and every max-pool's pick taken
+from the f64 run (`pinned`: `slope_pins`, `pool_pins`); then the f32 error of three backward ops over a layer's
+edge rows and of the backward matmuls (`backward_op_probe`), on the card
+and on the CPU. `--no-trace` skips the traces and the probes.
 Prints the card's name and power limit and, as its last line, the results
 as JSON (also written to PATH). chip_smoke.py runs `gradient_errors` at
-one seed.
+one seed, and pinned at eight.
 """
 
 from __future__ import annotations
@@ -54,7 +57,57 @@ def spread_weights(state, seed):
     return {k: v.to(state[k].device) for k, v in out.items()}
 
 
-def gradient_errors(cfg, dev, seed, trace=False):
+def slope_pins(masks=None):
+    """A stand-in for models.randlanet.leaky_relu. With masks=None it
+    records each call's slope mask (input > 0, where F.leaky_relu takes
+    slope 1) in call order; given a list of such masks it applies the
+    leaky ReLU with the i-th call's slopes taken from masks[i], so a
+    float32 run takes the float64 run's slopes where its own rounding
+    puts an input on the other side of 0."""
+    def record(x):
+        return (x > 0), torch.nn.functional.leaky_relu(x, 0.2)
+
+    def replay(x, m):
+        return torch.where(m, x, x * 0.2)
+
+    return _pins(masks, record, replay)
+
+
+def pool_pins(masks=None):
+    """A stand-in for models.randlanet.max_pool: records each call's
+    argmax over the neighbour axis, or takes the recorded neighbour of
+    each (point, channel), so a float32 run routes the max-pool's
+    gradient where the float64 run does when two neighbours' values lie
+    within f32 rounding of each other."""
+    def record(p):
+        v, i = p.max(2, keepdim=True)
+        return i, v[:, :, 0]
+
+    def replay(p, i):
+        return torch.gather(p, 2, i)[:, :, 0]
+
+    return _pins(masks, record, replay)
+
+
+def _pins(masks, record, replay):
+    rec = [] if masks is None else None
+    calls = [0]
+
+    def fn(x):
+        if rec is not None:
+            m, y = record(x)
+            rec.append(m.cpu())
+            return y
+        m = masks[calls[0]].to(x.device)
+        calls[0] += 1
+        return replay(x, m)
+
+    fn.masks = rec if masks is None else masks
+    fn.calls = calls
+    return fn
+
+
+def gradient_errors(cfg, dev, seed, trace=False, pinned=False):
     """One 40960-point block in train mode, dropout off, at a state drawn
     from a seed (the flax initialisers' weights, spread at O(1) scale):
     the loss and the gradient of every parameter on the card (K1, K2, K4)
@@ -66,7 +119,12 @@ def gradient_errors(cfg, dev, seed, trace=False):
     state. Prints the three errors, the layers holding most of the card's
     error with the CPU's there, and the shapes of the step's K4 calls;
     returns them with `passed`. `trace` also compares every train-mode
-    BatchNorm's output and gradients with the f64 run's (bn_trace)."""
+    BatchNorm's output and gradients with the f64 run's (bn_trace).
+    `pinned` runs the f64 forward first and gives both f32 runs its
+    leaky-ReLU slopes (slope_pins) and max-pool picks (pool_pins), so
+    that the check measures the arithmetic and not which side of a kink
+    an input within f32 rounding of it lands on."""
+    from ssdr_al_torch.models import randlanet as rl
     from ssdr_al_torch.models.randlanet import (
         RandLANet,
         SortedPyramid,
@@ -112,9 +170,19 @@ def gradient_errors(cfg, dev, seed, trace=False):
     recording.launches = 0
 
     cpu = torch.device("cpu")
-    bn_out, bn_grad = [], []
-    for d, p, dt in ((dev, pyr, torch.float32), (cpu, cpu_pyr, torch.float32),
-                     (cpu, f64_pyr, torch.float64)):
+    runs = [(dev, pyr, torch.float32), (cpu, cpu_pyr, torch.float32),
+            (cpu, f64_pyr, torch.float64)]
+    pins_made = (("leaky_relu", slope_pins), ("max_pool", pool_pins)) \
+        if pinned else ()
+    if pinned:
+        runs = runs[2:] + runs[:2]
+    bn_out, bn_grad, pins = [], [], {}
+    for d, p, dt in runs:
+        saved = {name: getattr(rl, name) for name, _ in pins_made}
+        for name, make in pins_made:
+            pins[name] = make() if dt == torch.float64 else \
+                make(pins[name].masks)
+            setattr(rl, name, pins[name])
         model = RandLANet(cfg).to(d, dt)
         model.load_state_dict({k: v.to(d) for k, v in state.items()})
         model.train()
@@ -145,9 +213,21 @@ def gradient_errors(cfg, dev, seed, trace=False):
             loss.backward()
         finally:
             ga.scatter_window = kernel
+            for name, fn in saved.items():
+                setattr(rl, name, fn)
+        for name, fn in pins.items():
+            if dt != torch.float64 and fn.calls[0] != len(fn.masks):
+                raise AssertionError(f"{fn.calls[0]} {name} calls against "
+                                     f"{len(fn.masks)} recorded")
         losses.append(loss.item())
         grads.append({k: q.grad.cpu().double()
                       for k, q in model.named_parameters()})
+    if pinned:
+        # back to the order (card, CPU f32, CPU f64)
+        losses = losses[1:] + losses[:1]
+        grads = grads[1:] + grads[:1]
+        bn_out = bn_out[1:] + bn_out[:1]
+        bn_grad = bn_grad[1:] + bn_grad[:1]
     print("K4 calls of one train step, (g shape, n, window, tq): "
           + json.dumps(k4_shapes))
     lrel = abs(losses[0] - losses[1]) / abs(losses[1])
@@ -156,7 +236,9 @@ def gradient_errors(cfg, dev, seed, trace=False):
     card, host = [float((g - flat[2]).norm() / ref) for g in flat[:2]]
     between = float((flat[0] - flat[1]).norm() / flat[1].norm())
     limit = GRAD_ERR_MULTIPLE * host + GRAD_ERR_FLOOR
-    print(f"train-mode gradient [1x{n}] at seeded state {seed}: loss card "
+    pins_txt = ", f64 slopes and pool picks pinned" if pinned else ""
+    print(f"train-mode gradient [1x{n}] at seeded state {seed}{pins_txt}: "
+          f"loss card "
           f"{losses[0]:.6f}, CPU f32 {losses[1]:.6f} (rel {lrel:.2e}), CPU "
           f"f64 {losses[2]:.6f}; gradient rel L2 to f64: card {card:.3e}, "
           f"CPU f32 {host:.3e} (limit {limit:.3e}); card vs CPU f32 "
@@ -182,7 +264,7 @@ def gradient_errors(cfg, dev, seed, trace=False):
               for k, v in by_layer.items()))
     ok = bool(np.isfinite(losses[0]) and lrel <= 1e-4 and card <= limit)
     out = dict(card=card, cpu_f32=host, card_vs_cpu=between, limit=limit,
-               passed=ok, by_layer=by_layer)
+               passed=ok, by_layer=by_layer, pinned=pinned)
     if trace:
         out["bn_trace"] = bn_trace(bn_out, bn_grad)
     return out
@@ -352,6 +434,8 @@ def main() -> int:
     ap.add_argument("--seeds", default="0,1,2,3,4,5",
                     help="the seeded states, comma-separated")
     ap.add_argument("--out", help="also write the JSON results here")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="skip the BatchNorm traces and the op probes")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", "..")))
@@ -370,9 +454,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     res = {}
     for seed in map(int, args.seeds.split(",")):
-        r = gradient_errors(ConfigS3DIS, dev, seed, trace=True)
-        res[seed] = dict(r, ratio=r["card"] / r["cpu_f32"])
-    res["op_probe"] = backward_op_probe(dev)
+        r = gradient_errors(ConfigS3DIS, dev, seed, trace=not args.no_trace)
+        p = gradient_errors(ConfigS3DIS, dev, seed, pinned=True)
+        res[seed] = dict(r, ratio=r["card"] / r["cpu_f32"],
+                         pinned_run=dict(p, ratio=p["card"] / p["cpu_f32"]))
+    print("card/CPU f32 error ratios by seed (free; slopes and pool picks "
+          "pinned): " + json.dumps(
+              {s: [round(r["ratio"], 4), round(r["pinned_run"]["ratio"], 4)]
+               for s, r in res.items()}))
+    if not args.no_trace:
+        res["op_probe"] = backward_op_probe(dev)
     res["card"] = card
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

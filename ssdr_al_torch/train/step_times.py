@@ -1,7 +1,7 @@
 """Median wall time of warm train steps on the card, per training path.
 
     python3 ssdr_al_torch/train/step_times.py [--tree DIR] [--out PATH]
-        [--extract-sweep]
+        [--extract-sweep | --eval-steps]
 
 Paths, each on a fresh Trainer (`window` engine, random weights) over
 synthetic rooms (seed 0):
@@ -28,7 +28,13 @@ cloud of each size in EXTRACT_SWEEP_POINTS (uniform in 200 × 200 × 20 m,
 made on the card): extract_blocks and possibility_extract by CUDA events,
 the torch.sort inside each, and the peak device memory each takes beyond
 its inputs, per block row (the pool's memory gate counts
-EXTRACT_BYTES_PER_ROW). Prints one line per path and, as its last line, the
+EXTRACT_BYTES_PER_ROW). `--eval-steps` measures only eval steps
+(`make_eval_step`) at ConfigS3DIS width [8 × 40960] on the exact engine
+(`pallas`, K6), on `window` (K1) and on `window` with K5
+(`MXU_DISTANCE_DEFAULT`), random weights (`init_params`, seed 0) on one
+random batch: each step by the host clock from its call to a
+synchronize, its numpy batch's upload included, the median and the
+range of 20 steps after 3 warm-up steps. Prints one line per path and, as its last line, the
 results as JSON (also written to PATH). chip_smoke.py runs `measure`.
 """
 
@@ -177,6 +183,40 @@ def measure(dev, steps=20, warmup=3, work="build/step_times", log=print):
     return out
 
 
+def eval_steps(dev, steps=20, warmup=3, log=print):
+    """The eval-step medians of the `--eval-steps` mode (module
+    docstring); returns {engine: {...}}."""
+    import numpy as np
+
+    from ssdr_al_torch import config
+    from ssdr_al_torch.models.randlanet import RandLANet, init_params
+    from ssdr_al_torch.ops import knn as kn
+    from ssdr_al_torch.train.trainer import make_eval_step
+
+    cfg = config.ConfigS3DIS
+    rng = np.random.RandomState(0)
+    xyz = (rng.rand(8, cfg.num_points, 3) * 6).astype(np.float32)
+    batch = {"xyz": xyz, "features": np.concatenate(
+        [xyz, rng.rand(8, cfg.num_points, 3).astype(np.float32)], -1)}
+    state = {k: v.to(dev) for k, v in init_params(
+        cfg, torch.Generator().manual_seed(0)).items()}
+    model = RandLANet(cfg).to(dev)
+    out = {}
+    for name, engine, mxu in (("pallas", "pallas", False),
+                              ("window", "window", False),
+                              ("window_k5", "window", True)):
+        step = make_eval_step(model, cfg, engine, False, device=dev)
+        kn.MXU_DISTANCE_DEFAULT = mxu
+        try:
+            out[name] = timed_steps(lambda i: step(state, batch), steps,
+                                    warmup)
+        finally:
+            kn.MXU_DISTANCE_DEFAULT = False
+        log(f"eval step {name} [8x{cfg.num_points}]: "
+            + json.dumps(out[name]))
+    return out
+
+
 def peak_bytes(fn, dev):
     """Peak device memory fn() allocates beyond what was allocated
     before it."""
@@ -251,6 +291,9 @@ def main() -> int:
     ap.add_argument("--extract-sweep", action="store_true",
                     help="measure only the extraction at cloud sizes "
                          "EXTRACT_SWEEP_POINTS")
+    ap.add_argument("--eval-steps", action="store_true",
+                    help="measure only the eval steps [8 x 40960] on the "
+                         "pallas, window and window + K5 engines")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -269,6 +312,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if args.extract_sweep:
         res = {"extraction": extraction_sweep(dev)}
+    elif args.eval_steps:
+        res = {"eval_steps": eval_steps(dev)}
     else:
         res = measure(dev, work=os.path.join(tree, "build", "step_times"))
     res.update(tree=tree, card=card)

@@ -70,12 +70,14 @@ def test_window_topk_upsample_matches_plain(dev, n):
 def test_window_topk_ties_match_plain(dev):
     """K1 (k=16 and 1) and K5 on clouds full of exact ties (every point four
     times, a coarse grid, SENTINEL pad rows) with starts clamped at the
-    cloud's end, and K2 on the same starts with both sources: equal to
-    their plain versions (kernels/measure.py::check_ties raises if not)."""
+    cloud's end, K2 on the same starts with both sources, and K6's
+    self-search and 1-NN upsample on the same clouds on each of its routes:
+    equal to their plain versions (kernels/measure.py::check_ties raises if
+    not)."""
     from ssdr_al_torch.kernels import measure
 
     done = measure.check_ties(dev)
-    assert len(done) == 12
+    assert len(done) == 18
 
 
 def test_window_topk_refuses_unbuilt_k(dev):
@@ -121,6 +123,158 @@ def test_knn_tiled_matches_plain(dev, b, ns, nq, k):
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="built for k"):
         kn.knn_tiled(s, q, 4)
+
+
+def _far_sorted_cloud(rng, b, n, offset):
+    """A sorted cloud 6 m wide whose coordinates sit `offset` m from the
+    origin, where K5's expanded d² rounds most."""
+    xyz = torch.from_numpy((rng.rand(b, n, 3) * 6 + offset).astype(
+        np.float32))
+    lo, hi = xyz.amin(1, keepdim=True), xyz.amax(1, keepdim=True)
+    return kn.sort_by_codes(kn.morton_codes(xyz, lo, hi), xyz)[2] \
+        .contiguous()
+
+
+@pytest.mark.parametrize("offset", [100.0, 1000.0])
+@pytest.mark.parametrize("n,window,k,up", [
+    (40960, 1792, 16, False),     # the L0 self-search
+    (40960, 1024, 1, True),       # the L0 and L1 1-NN upsamples
+    (10240, 1024, 1, True)])
+def test_window_topk_mxu_far_from_centre(dev, offset, n, window, k, up):
+    """K5 with its block skip on clouds 1e2-1e3 m from the origin, at the
+    self-search and both upsample shapes: equal to its plain version index
+    for index (the skip's bound subtracts the expanded form's rounding
+    error), counted apart from K1."""
+    rng = np.random.RandomState(int(offset) + n)
+    xs = _far_sorted_cloud(rng, 2, n, offset)
+    tq = kn.QUERY_TILE
+    if up:
+        sub = xs[:, ::4].contiguous()
+        st = torch.clamp(torch.arange(n // tq) * (tq // 4) + tq // 8
+                         - window // 2, 0, n // 4 - window)
+        st = ((st // 128) * 128).int().expand(2, -1).contiguous()
+    else:
+        sub = xs
+        st = kn.self_query_starts(n, n, window).expand(2, -1).contiguous()
+    want = kn.window_topk(sub, xs, st, k, window, mxu=True)
+    before = (kn.window_topk.launches, kn.window_topk.launches_mxu)
+    got = kn.window_topk(sub.to(dev), xs.to(dev), st.to(dev), k, window,
+                         mxu=True)
+    torch.cuda.synchronize()
+    assert (kn.window_topk.launches, kn.window_topk.launches_mxu) == \
+        (before[0], before[1] + 1)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("up", [False, True])
+@pytest.mark.parametrize("n", [40960, 10240, 2560, 640, 160])
+def test_knn_tiled_exact_pyramid_calls(dev, n, up):
+    """K6 at each call of an exact pyramid [2 x 40960] (models/randlanet.py::
+    _pyramid_exact): the k=16 self-search of each layer, and the 1-NN
+    upsample of the layer's points against its prefix quarter (a strided
+    view, as the pyramid passes it); equal to the plain version on the
+    card index for index, one launch each."""
+    rng = np.random.RandomState(n)
+    cur = torch.from_numpy((rng.rand(2, n, 3) * 6).astype(np.float32)).to(dev)
+    sup, k = (cur[:, :n // 4], 1) if up else (cur, 16)
+    want = kn._knn_tiled_plain(sup, cur, k)
+    before = kn.knn_tiled.launches
+    got = kn.knn_tiled(sup, cur, k)
+    torch.cuda.synchronize()
+    assert kn.knn_tiled.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["brute", "walk", "sorted"])
+@pytest.mark.parametrize("ns,nq,k", [(2560, 10240, 1), (640, 640, 16),
+                                     (4096, 4096, 16), (300, 130, 16),
+                                     (5, 40, 16), (80, 160, 1)])
+def test_knn_tiled_every_route_matches_plain(dev, route, ns, nq, k):
+    """Each of K6's routes (the thread-per-query loop, the walk over the
+    clouds in their own order, the walk over the sorted clouds) equals the
+    plain version index for index at sizes around the route plan's
+    thresholds, ragged tiles and Ns < k included, one launch each; the
+    brute-force route evaluates every pair."""
+    rng = np.random.RandomState(ns + nq)
+    s = torch.from_numpy((rng.rand(2, ns, 3) * 6).astype(np.float32)).to(dev)
+    q = s if ns == nq else torch.from_numpy(
+        (rng.rand(2, nq, 3) * 6).astype(np.float32)).to(dev)
+    want = kn._knn_tiled_plain(s, q, k)
+    before = kn.knn_tiled.launches
+    got, stats = kn.knn_tiled_stats(s, q, k, route=route)
+    torch.cuda.synchronize()
+    assert kn.knn_tiled.launches == before + 1
+    assert torch.equal(got, want)
+    assert 0 < stats["pairs"] <= 2 * ns * nq
+    if route == "brute":
+        assert stats["pairs"] == 2 * ns * nq
+
+
+@pytest.mark.parametrize("self_search", [True, False])
+def test_knn_tiled_codes_are_morton_codes(dev, self_search):
+    """K6's codes kernel gives ops/knn.py::morton_codes bit for bit over
+    the box that knn_sorted_inputs takes (both clouds' on an upsample)."""
+    rng = np.random.RandomState(2)
+    s = torch.from_numpy((rng.rand(3, 5000, 3) * 6 - 2).astype(np.float32))
+    q = s if self_search else torch.from_numpy(
+        (rng.rand(3, 1700, 3) * 7).astype(np.float32))
+    lo, hi = s.amin(1, keepdim=True), s.amax(1, keepdim=True)
+    if not self_search:
+        lo = torch.minimum(lo, q.amin(1, keepdim=True))
+        hi = torch.maximum(hi, q.amax(1, keepdim=True))
+    sd = s.to(dev)
+    got_s, got_q = kn._knn_codes(sd, sd if self_search else q.to(dev),
+                                 self_search)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s.cpu(), kn.morton_codes(s, lo, hi))
+    if self_search:
+        assert got_q is None
+    else:
+        assert torch.equal(got_q.cpu(), kn.morton_codes(q, lo, hi))
+
+
+def test_knn_tiled_pairs_pruned(dev):
+    """The walk's pair count: a small share of Nq·Ns on a random cloud at
+    S3DIS's L0 width, and every pair on a cloud of one repeated point
+    (no box excludes anything), with the same indices either way."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy((rng.rand(1, 40960, 3) * 6).astype(np.float32)
+                         ).to(dev)
+    got, stats = kn.knn_tiled_stats(x, x, 16)
+    assert torch.equal(got, kn._knn_tiled_plain(x, x, 16))
+    assert 0 < stats["pairs"] < 0.1 * 40960 ** 2
+    same = torch.ones((1, 3000, 3), device=dev)
+    got, stats = kn.knn_tiled_stats(same, same, 16)
+    assert torch.equal(got, kn._knn_tiled_plain(same, same, 16))
+    assert stats["pairs"] == 3000 ** 2
+
+
+_FIRST_K6 = """
+import numpy as np, torch
+from ssdr_al_torch.ops import knn as kn
+rng = np.random.RandomState(0)
+for n, k in ((65536, 1), (40960, 16)):
+    assert kn.knn_tiled_plan(n, k)[3] > kn.SMEM_DEFAULT
+    x = torch.from_numpy((rng.rand(1, n, 3) * 6).astype(np.float32)).cuda()
+    assert torch.equal(kn.knn_tiled(x, x, k), kn._knn_tiled_plain(x, x, k))
+print("ok")
+"""
+
+
+def test_knn_tiled_first_launch_above_48_kib(dev):
+    """K6's first launch in a fresh process (the opt-in attribute persists
+    once set) with box tables above 48 KiB of shared memory: the k=1 walk
+    at 65536 points (tables of 67 584 bytes, 71 680 in all), then the k=16
+    walk at 40960 (its block boxes read through L1, 54 528 bytes); each
+    equals the plain version."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FIRST_K6], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 @pytest.mark.parametrize("c,window,tq", [(11, 2048, 512), (32, 4096, 128),
