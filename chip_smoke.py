@@ -26,7 +26,16 @@ full-SSDR selection round (K3) and round-2 training on the pool; one
 SemanticKITTI train step and eval step at its width ([6 × 45056], 4
 layers); and the median of 20 warm steps of the host-pipeline and pooled
 S3DIS steps and the possibility-pooled Semantic3D step
-(ssdr_al_torch/train/step_times.py).
+(ssdr_al_torch/train/step_times.py). Then --compute_dtype bfloat16:
+K2's bf16-output and K4's bf16-cotangent instantiations at every K2 call
+of a bf16 forward [8 × 40960] and every K4 call of a bf16 train step
+[6 × 40960], bitwise against their plain versions; from round 1's f32
+snap-1, a bf16 training round on the device pool, bf16 and f32 eval steps
+[8 × 40960] timed in turns and their class agreement on the validation
+room. Then the paper's comparison branches from the same snap-1: one
+selection round each with --sampler random, --edcd 1 (K3 per candidate
+cloud) and --gcn 1 (K3, the 20 000-step coreGCN fit and k-center), and
+one round each of cli.baseline and cli.max_dominant at the smoke's depth.
 
     python3 chip_smoke.py [--profile [PATH]]
 
@@ -72,6 +81,10 @@ KERNELS = {
                         "ssdr_al_tpu/ops/knn.py:326"),
     "knn_tiled": ("ssdr_al_torch/csrc/knn_tiled.cu",
                   "ssdr_al_tpu/ops/knn.py:760"),
+    "gather_window_bf16": ("ssdr_al_torch/csrc/gather_window.cu",
+                           "ssdr_al_tpu/ops/gather.py:62"),
+    "scatter_window_bf16": ("ssdr_al_torch/csrc/scatter_window.cu",
+                            "ssdr_al_tpu/ops/gather.py:184"),
 }
 ROOMS, ROOM_POINTS, TARGET_SP, BUDGET = 4, 150_000, 2048, 400
 TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 8, 2
@@ -83,6 +96,17 @@ S3D_CLOUDS, S3D_CLOUD_POINTS, S3D_TARGET_SP, S3D_BUDGET = 3, 300_000, 4096, 300
 S3D_EPOCHS, S3D_STEPS = 2, 6
 SSDR_ARGS = ["t0", "sb", "clsbal", "gcn_fps", "WetSU", "NAIL", "0.9", "1",
              "1", "0"]
+BF16_EPOCHS, BF16_STEPS = 1, 4        # the bf16 training round
+# the comparison branches' selection rounds from snap-1
+BRANCH_ARGS = {
+    "random": ["t0", "random", "dominant", "0.9", "1", "1", "0"],
+    "edcd": ["t0", "sb", "clsbal", "edcd", "WetSU", "NAIL", "0.9", "1", "1",
+             "0"],
+    "gcn": ["t0", "sb", "clsbal", "gcn", "WetSU", "NAIL", "0.9", "1", "1",
+            "0"],
+}
+# cli.baseline and cli.max_dominant: synthetic rooms, one round
+DRIVER_ROOMS, DRIVER_EPOCHS, DRIVER_STEPS = 2, 1, 4
 
 
 def cuda_ms(fn, reps):
@@ -110,7 +134,9 @@ def kernel_counters():
             "chamfer_sums": (chamfer_sums, "launches"),
             "scatter_window": (scatter_window, "launches"),
             "window_topk_mxu": (window_topk, "launches_mxu"),
-            "knn_tiled": (knn_tiled, "launches")}
+            "knn_tiled": (knn_tiled, "launches"),
+            "gather_window_bf16": (gather_window, "launches_bf16"),
+            "scatter_window_bf16": (scatter_window, "launches_bf16")}
 
 
 def reset_counts():
@@ -255,6 +281,26 @@ def check_kernels(cfg, dev):
     # round's call shape (measure.check_k3)
     out["chamfer_sums"] = dict(main["chamfer_sums"][0],
                                shapes=main["chamfer_sums"])
+    # K2-bf16 at every K2 call of one bf16 forward [8 x 40960] (the row is
+    # the L0 LFA gather's) and K4-bf16 at every K4 call of one bf16 train
+    # step [6 x 40960] (the row sums them), each bitwise equal to its
+    # plain version (measure.check_bf16_path)
+    bf = measure.check_bf16_path(cfg, dev)
+    k2b, k4b = bf["gather_window_bf16"], bf["scatter_window_bf16"]
+    out["gather_window_bf16"] = dict(k2b[0], shapes=k2b,
+                                     library_call="torch.gather of the "
+                                     "values cast to bf16")
+    out["scatter_window_bf16"] = dict(
+        {key: sum(r[key] for r in k4b) for key in ("ms", "plain_ms",
+                                                   "bound_ms", "library_ms")},
+        max_abs_err=max(r["max_abs_err"] for r in k4b), bound_by="bytes",
+        calls=len(k4b), shapes=k4b,
+        library_call="index_add_ of the cotangent widened to f32")
+    print(f"bf16: {len(k2b)} K2 calls and {len(k4b)} K4 calls bitwise equal "
+          f"to their plain versions; K2 sum {sum(r['ms'] for r in k2b):.4f} "
+          f"ms (bound {sum(r['bound_ms'] for r in k2b):.4f}), K4 sum "
+          f"{out['scatter_window_bf16']['ms']:.4f} ms (bound "
+          f"{out['scatter_window_bf16']['bound_ms']:.4f})")
     return out
 
 
@@ -556,6 +602,9 @@ def al_loop(cfg, dev, work, profile_out=None):
 
     paths.update(exact_engine_paths(cfg, dev, work, train, val, pseudo1))
     paths.update(semantickitti_steps(dev, work, train))
+    paths.update(bf16_paths(cfg, dev, work, train, val, pseudo))
+    paths.update(selection_branches(cfg, dev, work, train, total))
+    paths.update(driver_paths(cfg, dev, work))
 
     if profile_out:
         prof = profile_rounds(cfg, dev, sampler, trainer.eval_step,
@@ -670,6 +719,194 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
               f"(host upload included), {len(classes[name].unique())} "
               f"classes predicted, class agreement {json.dumps(agree)}; "
               f"launches " + json.dumps(paths[name]))
+    return paths
+
+
+def bf16_paths(cfg, dev, work, train, val, pseudo):
+    """--compute_dtype bfloat16 from round 1's f32 snap-1, each path's
+    launches counted from 0: a bf16 training round (BF16_EPOCHS x
+    BF16_STEPS at B=6, with an evaluation) on the device pool from the
+    round-2 pseudo labels; bf16 and f32 `window` eval steps [8 x 40960] on
+    a validation batch in turns (step_times.in_turns, 20 steps each); the
+    two dtypes' class agreement on that batch, from snap-1 and from
+    weights spread at O(1) scale (a few steps leave the model predicting
+    almost one class)."""
+    from ssdr_al_torch.active.state import sampler_args_str
+    from ssdr_al_torch.data.dataset import PossibilityEvalPipeline
+    from ssdr_al_torch.models.randlanet import RandLANet
+    from ssdr_al_torch.train import step_times
+    from ssdr_al_torch.train.device_pool import DeviceTrainPool
+    from ssdr_al_torch.train.grad_check import spread_weights
+    from ssdr_al_torch.train.trainer import Trainer, make_eval_step
+
+    paths = {}
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16",
+                                max_epoch=BF16_EPOCHS,
+                                train_steps=BF16_STEPS)
+    saver = lambda sargs: os.path.join(  # noqa: E731
+        work, "saver", sampler_args_str(sargs), "snapshots")
+    trainer = Trainer(cfg16, "S3DIS", save_dir=saver(["bf16"]),
+                      seed_save_dir=saver(["seed"]), device=dev)
+    trainer.restore_model(1)
+    snap1 = {k: v.clone() for k, v in trainer.state.items()}
+    pool = DeviceTrainPool(train, cfg16, seed=5, device=dev)
+    reset_counts()
+    train_round(trainer, 2, train, val, pseudo, seed=2, pool=pool)
+    paths["bf16_train_round"] = read_counts()
+    del pool
+    print("launches bf16_train_round "
+          + json.dumps(paths["bf16_train_round"]))
+    require_launched("bf16_train_round", paths["bf16_train_round"],
+                     ("window_topk", "gather_window_bf16",
+                      "scatter_window_bf16"))
+    if paths["bf16_train_round"]["gather_window"] or \
+            paths["bf16_train_round"]["scatter_window"]:
+        raise AssertionError("the bf16 round launched f32 K2 or K4")
+
+    batch = PossibilityEvalPipeline(val, cfg, seed=1).get_batch(8)
+    steps = {dt: make_eval_step(RandLANet(c).to(dev), c, "window", False,
+                                device=dev)
+             for dt, c in (("float32", cfg), ("bfloat16", cfg16))}
+    reset_counts()
+    probs = {dt: step(snap1, batch)[0] for dt, step in steps.items()}
+    torch.cuda.synchronize()
+    paths["bf16_eval_step"] = read_counts()   # f32 and bf16, one each
+    require_launched("bf16_eval_step", paths["bf16_eval_step"],
+                     ("window_topk", "gather_window", "gather_window_bf16"))
+    spread = spread_weights(snap1, seed=0)
+    agree = {}
+    for name, state in (("snap-1", snap1), ("spread weights", spread)):
+        p = {dt: step(state, batch)[0] for dt, step in steps.items()}
+        for q in p.values():
+            if not torch.isfinite(q).all() or q.shape != (
+                    8, cfg.num_points, cfg.num_classes):
+                raise AssertionError(f"bf16 eval step: probs {q.shape}")
+        agree[name] = (p["float32"].argmax(-1) == p["bfloat16"].argmax(-1)
+                       ).float().mean().item()
+    del probs
+    times = step_times.in_turns(
+        {dt: (lambda i, step=step: step(snap1, batch))
+         for dt, step in steps.items()}, steps=20, warmup=3)
+    print(f"bf16 vs f32 class agreement on the validation room [8x"
+          f"{cfg.num_points}]: " + json.dumps(agree))
+    print(f"eval step [8x{cfg.num_points}] in turns (host clock to a "
+          f"synchronize, upload included): " + json.dumps(times))
+    if agree["spread weights"] < 0.9:
+        raise AssertionError(f"bf16 and f32 classes disagree: {agree}")
+    return paths
+
+
+def selection_branches(cfg, dev, work, train, total):
+    """One selection round from snap-1 with each comparison branch
+    (BRANCH_ARGS), each path's launches counted from 0: --sampler random
+    (the dominant oracle, no forward), --edcd 1 and --gcn 1 (the 20 000-
+    step fit). Each labels exactly BUDGET superpoints, all unlabeled
+    before the round; K3 launches on edcd and gcn."""
+    from ssdr_al_torch.active.samplers import (
+        RandomSampler,
+        TSampler,
+        TSamplerArgs,
+    )
+    from ssdr_al_torch.active.state import ALState, RoundStats, sampler_args_str
+    from ssdr_al_torch.train.trainer import Trainer
+
+    paths = {}
+    seed_saver = os.path.join(work, "saver", "seed", "snapshots")
+    for branch, sargs in BRANCH_ARGS.items():
+        state = ALState(work, sargs)
+        before = state.load_registry(os.path.join(work, "sampling", "seed",
+                                                  "round_1"))["unlabeled"]
+        stats = RoundStats()
+        reset_counts()
+        t0 = time.perf_counter()
+        if branch == "random":
+            sampler = RandomSampler(state, train, total["sp_num"], 1,
+                                    oracle_mode="dominant", seed=0)
+            sampler.sampling(BUDGET, 1, stats)
+            phase_times = {}
+        else:
+            trainer = Trainer(cfg, "S3DIS", save_dir=os.path.join(
+                work, "saver", sampler_args_str(sargs), "snapshots"),
+                seed_save_dir=seed_saver, device=dev)
+            trainer.restore_model(1)
+            sampler = TSampler(state, train, cfg,
+                               TSamplerArgs(diversity=branch),
+                               total["sp_num"], device=dev)
+            sampler.sampling(trainer.eval_step, trainer.state, BUDGET, 1,
+                             stats)
+            phase_times = sampler.phase_times
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        name = f"{branch}_selection"
+        paths[name] = read_counts()
+        after = state.load_registry(state.round_dir(2))["unlabeled"]
+        picked = {(n, int(s)) for n, v in before.items()
+                  for s in set(v) - set(after.get(n, []))}
+        print(f"{branch} selection round from snap-1: {wall:.3f} s wall, "
+              f"{len(picked)} superpoints labelled, stats: {stats}")
+        print(f"phase_times {branch} " + json.dumps(phase_times))
+        print(f"launches {name} " + json.dumps(paths[name]))
+        if branch == "random":
+            ok = len(picked) == BUDGET
+        else:
+            require_launched(name, paths[name],
+                             ("window_topk", "gather_window",
+                              "chamfer_sums"))
+            ok = (stats.extra["gcn_sp_num"] == BUDGET
+                  and stats.extra["gcn_unlabel_num"] == BUDGET
+                  and 0 < len(picked) <= BUDGET)
+        if not ok:
+            raise AssertionError(f"{branch} round: {len(picked)} labelled, "
+                                 f"stats {stats}")
+    return paths
+
+
+def driver_paths(cfg, dev, work):
+    """cli.baseline and cli.max_dominant, each one round at S3DIS width
+    (B=6 x 40960, DRIVER_EPOCHS x DRIVER_STEPS with an evaluation) on
+    DRIVER_ROOMS synthetic rooms of ROOM_POINTS points with grid
+    superpoints, their launches counted from 0."""
+    from ssdr_al_torch.cli import baseline, max_dominant
+    from ssdr_al_torch.cli.common import (
+        add_common_args,
+        setup_experiment,
+        write_grid_superpoints,
+    )
+
+    paths = {}
+    ap = argparse.ArgumentParser()
+    add_common_args(ap)
+    args = ap.parse_args([
+        "--device", str(dev), "--synthetic", "--data_root",
+        os.path.join(work, "drivers"), "--synthetic_rooms",
+        str(DRIVER_ROOMS), "--synthetic_points", str(ROOM_POINTS),
+        "--num_points", str(cfg.num_points), "--batch_size",
+        str(cfg.batch_size), "--max_epoch", str(DRIVER_EPOCHS),
+        "--train_steps", str(DRIVER_STEPS), "--val_steps",
+        str(cfg.val_steps)])
+    exp = setup_experiment(args)
+    total = write_grid_superpoints(exp.make_state([]), exp.train_clouds,
+                                   TARGET_SP)
+    cwd = os.getcwd()
+    os.chdir(work)                      # record_round/ lands in the cwd
+    try:
+        for name, run in (("cli_baseline", baseline.run_baseline),
+                          ("cli_max_dominant", max_dominant.run_max_dominant)):
+            reset_counts()
+            t0 = time.perf_counter()
+            miou, oa = run(args)
+            torch.cuda.synchronize()
+            paths[name] = read_counts()
+            print(f"{name}: {time.perf_counter() - t0:.3f} s wall, "
+                  f"{total['sp_num']} superpoints labelled, mIoU {miou:.4f} "
+                  f"OA {oa:.4f}; launches " + json.dumps(paths[name]))
+            require_launched(name, paths[name], ("window_topk",
+                                                 "gather_window",
+                                                 "scatter_window"))
+            if not (0 <= miou <= 1 and 0 <= oa <= 1):
+                raise AssertionError(f"{name}: mIoU {miou} OA {oa}")
+    finally:
+        os.chdir(cwd)
     return paths
 
 

@@ -9,6 +9,10 @@ kernel K3 on the device), padded into [C, S, S].
 The TPU's shape ladders (_S_LADDER, _P_LADDER, _G_CHUNK) only bounded its
 compiled-shape set; the port pads S to the round's largest cloud and P to
 the slab width, and sends every cloud in one dispatch.
+
+SuperpointBlockCache's `mxu` (--chamfer_mxu) is accepted as JAX's is, and
+every setting runs the exact f32 K3: on the TPU it picks the bf16x3 chamfer kernel
+(region_graph.py:43-62), which the port does not have.
 """
 
 from __future__ import annotations
@@ -129,8 +133,10 @@ class SuperpointBlockCache:
     only uploads slab row indices."""
 
     def __init__(self, max_points_per_sp: Optional[int] = 512, *,
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE,
+                 mxu: Optional[bool] = None):
         self.cap = max_points_per_sp
+        self.mxu = mxu        # every setting runs K3 (module docstring)
         self.device = resolve_device(device)
         self._host: List[tuple] = []            # (pts, msk) per staged cloud
         self._info: Dict[str, tuple] = {}       # name -> (base row, S)

@@ -1,24 +1,27 @@
-"""AL samplers, slice part: SeedSampler and TSampler with the gcn_fps
-diversity branch (counterpart of ssdr_al_tpu/active/samplers.py).
+"""AL samplers (counterpart of ssdr_al_tpu/active/samplers.py):
+SeedSampler, AllSampler, RandomSampler and TSampler with every diversity
+branch ("", edcd, gcn, gcn_fps).
 
 One chunked forward over every training cloud gives per-point classes,
 uncertainties and penultimate features on the device; superpoint scores
-are segment reductions on the device; the region graph's chamfer runs in
-kernel K3 and GCN-FPS on the device; the click-budget bookkeeping and the
-oracle stay on the host. The random draws use numpy RandomStates in the
-same order as the JAX sampler, so both pick from the same seeds.
+are segment reductions on the device; the chamfer of the edcd branch and
+of the region graph runs in kernel K3, and FPS, the GCN fits and k-center
+on the device; the click-budget bookkeeping and the oracle stay on the
+host. The random draws use numpy RandomStates in the same order as the
+JAX sampler, so both pick from the same seeds.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ssdr_al_torch.active.fps_gcn import gcn_fps_sampling
+from ssdr_al_torch.active.gcn import gcn_sampling
 from ssdr_al_torch.active.oracle import (
     dominant_point_ids_flat,
     gt_dominant_all,
@@ -29,6 +32,7 @@ from ssdr_al_torch.active.region_graph import (
     RegionTable,
     SuperpointBlockCache,
     build_region_graph,
+    pad_regions_vectorized,
 )
 from ssdr_al_torch.active.state import ALState, RoundStats
 from ssdr_al_torch.active.uncertainty import (
@@ -42,6 +46,8 @@ from ssdr_al_torch.config import Config
 from ssdr_al_torch.data.cloud import Cloud
 from ssdr_al_torch.data.dataset import SamplingPipeline
 from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
+from ssdr_al_torch.ops.chamfer import chamfer_pairwise
+from ssdr_al_torch.ops.fps import farthest_superpoint_sample
 from ssdr_al_torch.ops.segment import segment_majority
 
 F16_MAX = 6.5e4   # penult is clipped to ±F16_MAX before its f16 cast
@@ -243,13 +249,88 @@ class SeedSampler:
             self._iteration(round_dir, total_obj, remain, stats)
 
 
+class AllSampler:
+    """Label every superpoint with the oracle (baseline / max-dominant,
+    sampler2.py:410-453)."""
+
+    def __init__(self, state: ALState, clouds: List[Cloud], total_num: int,
+                 oracle_mode: str = "dominant"):
+        self.state = state
+        self.clouds = {c.name: c for c in clouds}
+        self.total_num = total_num
+        self.oracle_mode = oracle_mode
+
+    def sampling(self, batch_size: int, last_round: int, stats: RoundStats,
+                 threshold: float = 0.9):
+        budget = {"click": batch_size}
+        round_dir = self.state.begin_round(
+            last_round, seed_from_superpoint=(last_round == 1))
+        total_obj = self.state.load_registry(round_dir)
+        for name in list(total_obj["unlabeled"]):
+            sp = self.state.load_superpoints(name)
+            pseudo_gt = self.state.load_pseudo_gt(round_dir, name)
+            pseudo_gt, used = oracle_labeling(
+                list(total_obj["unlabeled"][name]), sp.components,
+                self.clouds[name].labels, pseudo_gt, stats, self.oracle_mode,
+                None, threshold, budget, 1,
+                total_obj["selected_class_list"])
+            self.state.write_pseudo_gt(round_dir, name, pseudo_gt)
+            self.state.mark_labeled(total_obj, name, used)
+        self.state.write_registry(total_obj, round_dir)
+
+
+class RandomSampler:
+    """Random superpoints labelled by the oracle (sampler2.py:455-520)."""
+
+    def __init__(self, state: ALState, clouds: List[Cloud], total_num: int,
+                 min_size: int, oracle_mode: str = "dominant", seed: int = 0):
+        self.state = state
+        self.clouds = {c.name: c for c in clouds}
+        self.total_num = total_num
+        self.min_size = min_size
+        self.oracle_mode = oracle_mode
+        self.rng = np.random.RandomState(seed)
+
+    def sampling(self, batch_size: int, last_round: int, stats: RoundStats,
+                 threshold: float = 0.9):
+        budget = {"click": batch_size}
+        round_dir = self.state.begin_round(last_round, from_seed_round=True)
+        total_obj = self.state.load_registry(round_dir)
+        self._iteration(round_dir, total_obj, stats, threshold, budget)
+
+    def _iteration(self, round_dir, total_obj, stats, threshold, budget):
+        cloud_names = list(total_obj["unlabeled"])
+        each = spread_budget_over_clouds(self.rng, self.total_num,
+                                         budget["click"], cloud_names)
+        for i, name in enumerate(cloud_names):
+            if each[i] == 0:
+                continue
+            unl = list(total_obj["unlabeled"][name])
+            if len(unl) >= each[i]:
+                sp_inds = self.rng.choice(unl, int(each[i]), replace=False)
+            else:
+                sp_inds = unl
+            sp = self.state.load_superpoints(name)
+            pseudo_gt = self.state.load_pseudo_gt(round_dir, name)
+            pseudo_gt, used = oracle_labeling(
+                sp_inds, sp.components, self.clouds[name].labels, pseudo_gt,
+                stats, self.oracle_mode, None, threshold, budget,
+                self.min_size, total_obj["selected_class_list"])
+            self.state.write_pseudo_gt(round_dir, name, pseudo_gt)
+            self.state.mark_labeled(total_obj, name, used)
+        if budget["click"] == 0 or not total_obj["unlabeled"]:
+            self.state.write_registry(total_obj, round_dir)
+        else:
+            self._iteration(round_dir, total_obj, stats, threshold, budget)
+
+
 @dataclasses.dataclass
 class TSamplerArgs:
     point_uncertainty_mode: str = "sb"       # lc | entropy | sb
     uncertainty_mode: str = "WetSU"          # mean | sum_weight | WetSU
     oracle_mode: str = "NAIL"                # dominant | NAIL
     class_balance: str = "clsbal"            # "" | classbal | clsbal
-    diversity: str = "gcn_fps"               # "" | gcn_fps (edcd, gcn: later)
+    diversity: str = "gcn_fps"               # "" | edcd | gcn | gcn_fps
     threshold: float = 0.9
     min_size: int = 1
     gcn_number: int = 1
@@ -257,6 +338,9 @@ class TSamplerArgs:
     # cap on the points per superpoint in the chamfer (linspace subsample);
     # 0 = no cap
     chamfer_cap: int = 512
+    # JAX's bf16x3 chamfer switch; every setting runs the exact K3 here
+    # (region_graph.py)
+    chamfer_mxu: Optional[bool] = None
 
 
 class TSampler:
@@ -265,9 +349,8 @@ class TSampler:
     def __init__(self, state: ALState, clouds: List[Cloud], cfg: Config,
                  args: TSamplerArgs, total_num: int, seed: int = 0, *,
                  device: torch.device | str = DEFAULT_DEVICE):
-        if args.diversity not in ("", "gcn_fps"):
-            raise ValueError(f"diversity {args.diversity!r} is not ported "
-                             "yet (ROADMAP.md)")
+        if args.diversity not in ("", "edcd", "gcn", "gcn_fps"):
+            raise ValueError(f"unknown diversity {args.diversity!r}")
         self.state = state
         self.clouds = clouds
         self.cloud_by_name = {c.name: c for c in clouds}
@@ -290,7 +373,7 @@ class TSampler:
         runner = InferenceRunner(
             self.cfg, self.clouds, eval_step, model_state,
             a.point_uncertainty_mode, seed=self.rng.randint(1 << 31),
-            keep_penult_on_device=(a.diversity == "gcn_fps"),
+            keep_penult_on_device=(a.diversity in ("gcn", "gcn_fps")),
             device=self.device,
         )
         self._runner = runner
@@ -462,7 +545,10 @@ class TSampler:
         batch_size = min(batch_size, len(table))
 
         t0 = time.perf_counter()
-        if a.diversity == "gcn_fps":
+        if a.diversity == "edcd":
+            file_list = self._edcd_selection(table, sorted_inds, batch_size,
+                                             stats)
+        elif a.diversity in ("gcn", "gcn_fps"):
             file_list = self._graph_selection(
                 table, sorted_inds, labeled_by_cloud, batch_size, round_num,
                 stats)
@@ -513,9 +599,32 @@ class TSampler:
             candidates[name] = grouped[starts[ci]: starts[ci] + lim]
         return top_counts, candidates
 
+    def _edcd_selection(self, table, sorted_inds, batch_size, stats):
+        """Per-cloud FPS over ED² + chamfer (sampler2.py:670-685, 554-578):
+        each candidate cloud's 2·B pool padded on the host, its chamfer in
+        K3 and its FPS on the device."""
+        top_counts, candidates = self._top_candidates(table, sorted_inds,
+                                                      batch_size)
+        stats.extra["before_gcn_file_num"] = len(top_counts)
+        file_list: Dict[str, List[int]] = {}
+        for name, rows in candidates.items():
+            sp_ids = table.sp_idx[rows]
+            sp = self.state.load_superpoints(name)
+            cents, pts, msk = pad_regions_vectorized(
+                self.cloud_by_name[name].xyz,
+                [sp.components[s] for s in sp_ids],
+                self.args.chamfer_cap or None)
+            cd = chamfer_pairwise(torch.from_numpy(pts).to(self.device),
+                                  torch.from_numpy(msk).to(self.device))
+            sel = farthest_superpoint_sample(
+                torch.from_numpy(cents).to(self.device), cd, 0,
+                top_counts[name]).cpu().numpy()
+            file_list[name] = [int(sp_ids[i]) for i in sel]
+        return file_list
+
     def _graph_selection(self, table, sorted_inds, labeled_by_cloud,
                          batch_size, round_num, stats):
-        """gcn_fps branch (sampler2.py:687-781)."""
+        """gcn / gcn_fps branches (sampler2.py:687-781)."""
         a = self.args
         t0 = time.perf_counter()
         top_counts, candidates = self._top_candidates(table, sorted_inds,
@@ -539,7 +648,8 @@ class TSampler:
             # stage EVERY training cloud once: superpoints are fixed for
             # the run, later rounds only gather slab rows
             self._block_cache = SuperpointBlockCache(
-                a.chamfer_cap or None, device=self.device)
+                a.chamfer_cap or None, device=self.device,
+                mxu=a.chamfer_mxu)
             for c in self.clouds:
                 self._block_cache.ensure(
                     c.name, c.xyz,
@@ -573,10 +683,15 @@ class TSampler:
         self.phase_times["div_feats_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         try:
-            return gcn_fps_sampling(
-                graph, feats, unlabeled_flags, sampling_batch,
-                gcn_number=a.gcn_number, gcn_top=a.gcn_top, rng=self.rng,
-                device=self.device)
+            if a.diversity == "gcn_fps":
+                return gcn_fps_sampling(
+                    graph, feats, unlabeled_flags, sampling_batch,
+                    gcn_number=a.gcn_number, gcn_top=a.gcn_top, rng=self.rng,
+                    device=self.device)
+            return gcn_sampling(graph, feats, unlabeled_flags,
+                                sampling_batch,
+                                seed=int(self.rng.randint(1 << 31)),
+                                device=self.device)
         finally:
             self.phase_times["div_gcn_s"] = time.perf_counter() - t0
 

@@ -6,13 +6,16 @@ flags of ssdr_main_S3DIS2.py:10-157). The full SSDR method is
       --point_uncertainty_mode sb --classbal 2 --uncertainty_mode WetSU \\
       --oracle_mode NAIL --gcn_fps 1 [--device cpu]
 
+The comparison samplers of the paper run with the same driver:
+--sampler random (RandomSampler), --edcd 1 (farthest-superpoint sampling
+over ED² + chamfer), --gcn 1 (coreGCN + k-center); --chamfer_mxu is
+accepted and every setting runs the exact chamfer kernel K3.
+
 Every round trains on the device-resident pool by default (--pool 1, as
 in JAX): DeviceTrainPool for S3DIS and SemanticKITTI, the possibility-
 scheduled PossibilityDevicePool for semantic3d; past the pool's memory
 gate, and with --pool 0, on the host pipeline. Not ported yet
-(ROADMAP.md), and refused with NotImplementedError: --sampler random,
---edcd 1, --gcn 1, --chamfer_mxu 1 and the flags common.check_ported
-lists.
+(ROADMAP.md), and refused with NotImplementedError: --num_devices > 1.
 """
 
 from __future__ import annotations
@@ -20,10 +23,13 @@ from __future__ import annotations
 import argparse
 import time
 
-from ssdr_al_torch.active.samplers import TSampler, TSamplerArgs
+from ssdr_al_torch.active.samplers import (
+    RandomSampler,
+    TSampler,
+    TSamplerArgs,
+)
 from ssdr_al_torch.active.state import RoundStats
 from ssdr_al_torch.cli.common import (
-    NOT_PORTED,
     add_common_args,
     log_out,
     make_evaluator,
@@ -59,18 +65,7 @@ def build_sampler_args(args) -> list:
     return sa
 
 
-def _check_loop_ported(args):
-    for flag, value, ported in (
-            ("--sampler", args.sampler, ("T",)),
-            ("--edcd", args.edcd, (0,)),
-            ("--gcn", args.gcn, (0,)),
-            ("--chamfer_mxu", getattr(args, "chamfer_mxu", -1), (-1, 0))):
-        if value not in ported:
-            raise NotImplementedError(f"{flag} {value} {NOT_PORTED}")
-
-
 def run_al_loop(args):
-    _check_loop_ported(args)
     exp = setup_experiment(args)
     sampler_args = build_sampler_args(args)
     state = exp.make_state(sampler_args)
@@ -82,21 +77,36 @@ def run_al_loop(args):
     total_sp_num = total_obj["sp_num"]
     log_out(f"total_sp_num {total_sp_num}", record)
 
-    sampler = TSampler(
-        state, exp.train_clouds, exp.cfg,
-        TSamplerArgs(
-            point_uncertainty_mode=args.point_uncertainty_mode,
-            uncertainty_mode=args.uncertainty_mode,
-            oracle_mode=args.oracle_mode,
-            class_balance={0: "", 1: "classbal", 2: "clsbal"}[args.classbal],
-            diversity="gcn_fps" if args.gcn_fps else "",
-            threshold=args.threshold,
-            min_size=args.min_size,
-            gcn_number=args.gcn_number,
-            gcn_top=args.gcn_top,
-            chamfer_cap=getattr(args, "chamfer_cap", 512),
-        ),
-        total_sp_num, seed=args.t, device=trainer.device)
+    diversity = ""
+    if args.edcd:
+        diversity = "edcd"
+    elif args.gcn:
+        diversity = "gcn"
+    elif args.gcn_fps:
+        diversity = "gcn_fps"
+    if args.sampler == "random":
+        sampler = RandomSampler(state, exp.train_clouds, total_sp_num,
+                                args.min_size, oracle_mode=args.oracle_mode,
+                                seed=args.t)
+    else:
+        sampler = TSampler(
+            state, exp.train_clouds, exp.cfg,
+            TSamplerArgs(
+                point_uncertainty_mode=args.point_uncertainty_mode,
+                uncertainty_mode=args.uncertainty_mode,
+                oracle_mode=args.oracle_mode,
+                class_balance={0: "", 1: "classbal",
+                               2: "clsbal"}[args.classbal],
+                diversity=diversity,
+                threshold=args.threshold,
+                min_size=args.min_size,
+                gcn_number=args.gcn_number,
+                gcn_top=args.gcn_top,
+                chamfer_cap=getattr(args, "chamfer_cap", 512),
+                chamfer_mxu={-1: None, 0: False, 1: True}[
+                    getattr(args, "chamfer_mxu", -1)],
+            ),
+            total_sp_num, seed=args.t, device=trainer.device)
     pipe0 = make_training_pipeline(exp)
     trainer.init_state(pipe0.sample_batch(exp.cfg.batch_size))
     pool = make_pool(args, exp, trainer, record)
@@ -110,8 +120,12 @@ def run_al_loop(args):
         trainer.restore_model(r - 1)
         t0 = time.time()
         stats = RoundStats()
-        sampler.sampling(trainer.eval_step, trainer.state, sp_batch_size,
-                         r - 1, stats)
+        if args.sampler == "random":
+            sampler.sampling(sp_batch_size, r - 1, stats,
+                             threshold=args.threshold)
+        else:
+            sampler.sampling(trainer.eval_step, trainer.state, sp_batch_size,
+                             r - 1, stats)
         regions = max(stats.sp_num + stats.split_sp_num, 1)
         points = stats.p_num + stats.sub_p_num
         log_out(f"round= {r} | labeling mean point={points / regions:.1f}, "
@@ -186,8 +200,8 @@ def main(argv=None):
                    help="padded superpoint size cap for pairwise chamfer "
                         "(0 = exact, unbounded)")
     p.add_argument("--chamfer_mxu", type=int, default=-1, choices=[-1, 0, 1],
-                   help="-1 / 0: exact f32 chamfer (kernel K3); 1 is not "
-                        "ported yet")
+                   help="JAX's bf16x3 chamfer switch; every value runs the "
+                        "exact f32 chamfer kernel K3 here")
     p.add_argument("--min_size", type=int, default=1)
     p.add_argument("--pool", type=int, default=1, choices=[0, 1],
                    help="1: device-resident training pool (semantic3d: the "

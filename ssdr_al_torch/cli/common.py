@@ -3,9 +3,9 @@ flags and the same on-disk layout, keyed by the sampler-args string under
 data/<ds>/<reg_strength>/, plus `--device`, the port's counterpart of
 JAX_PLATFORMS (default: the card).
 
-Flag values whose path is not ported yet raise NotImplementedError naming
-ROADMAP.md: --compute_dtype bfloat16 and --num_devices > 1. Every
---dataset and every --knn_engine is ported.
+The one flag value whose path is not ported yet, --num_devices > 1,
+raises NotImplementedError naming ROADMAP.md. Every --dataset, every
+--knn_engine and both --compute_dtype values are ported.
 """
 
 from __future__ import annotations
@@ -78,8 +78,9 @@ def add_common_args(p: argparse.ArgumentParser):
                    choices=list(KNN_ENGINES))
     p.add_argument("--compute_dtype", type=str, default="",
                    choices=["", "float32", "bfloat16"],
-                   help="activation dtype ('' = float32; bfloat16 is not "
-                        "ported yet)")
+                   help="activation dtype ('' = config default float32; "
+                        "bfloat16 runs every layer's activations in bf16 "
+                        "with f32 parameters, as JAX's flag does)")
     p.add_argument("--search_window", type=int, default=0,
                    help="morton search window for big pyramid layers "
                         "(0 = config default 2048; multiple of 512 in "
@@ -92,8 +93,6 @@ def check_ported(args):
     """Raise on a flag value whose path the port does not have yet, and on
     --device cuda without a card."""
     resolve_device(getattr(args, "device", DEFAULT_DEVICE))
-    if getattr(args, "compute_dtype", "") == "bfloat16":
-        raise NotImplementedError("--compute_dtype bfloat16 " + NOT_PORTED)
     if getattr(args, "num_devices", 1) > 1:
         raise NotImplementedError(f"--num_devices {args.num_devices} "
                                   + NOT_PORTED)
@@ -146,6 +145,8 @@ def setup_experiment(args) -> Experiment:
         overrides["val_steps"] = args.val_steps
     if getattr(args, "batch_size", 0):
         overrides["batch_size"] = args.batch_size
+    if getattr(args, "compute_dtype", ""):
+        overrides["compute_dtype"] = args.compute_dtype
     if getattr(args, "search_window", 0):
         sw = args.search_window
         if sw % 512 or not (1024 <= sw <= 4096):

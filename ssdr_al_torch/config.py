@@ -38,6 +38,8 @@ class Config:
     lr_decay: float = 0.84             # per-epoch multiplicative decay
     noise_init: float = 3.5            # centre-pick noise (σ = noise_init/10)
     eval_start_frac: float = 0.4       # evaluate after this share of epochs
+    # --- numerics ---
+    compute_dtype: str = "float32"     # activations: "float32" | "bfloat16"
     # morton search window of the big (> 16384-point) pyramid layers before
     # the gather-tile derate (models/randlanet.py); a multiple of 512
     search_window: int = 2048

@@ -6,7 +6,11 @@
 // idx[b, q, j] == r, for every index inside its query tile's window
 // [starts[b, q / tq], starts[b, q / tq] + window), starts clamped to
 // [0, n - window]; an index outside the window contributes nothing, as K2
-// reads it as a zero row. Accumulation in f32.
+// reads it as a zero row. Accumulation in f32, into f32 dv. Two
+// instantiations: an f32 cotangent (the float32 model) and a bf16 one (the
+// bfloat16 model, whose K2 stores bf16): each bf16 value is widened to f32
+// in registers and added in the same order, so dv equals index_add_ of
+// g.float(). The TPU's VJP cast its bf16 cotangent to f32 before its kernel.
 //
 // Bound on the H100: device-memory bytes. One add per cotangent value; g
 // (B * nq * k rows of c values) is read once and dominates the traffic, dv
@@ -35,9 +39,11 @@
 //     one slot per entry with a global atomic instead.
 //  2. scatter_sum_kernel, G lanes per dv row: the row's m ids (about k on
 //     average; the first 16 loaded with m, as int4s) sorted in shared
-//     memory by rank counting, then each lane adds its channels (float4
-//     where c % 4 == 0) over the sorted ids, 8-16 loads in flight, and
-//     writes them once. A row with more than LIST_CAP ids (rare: about k
+//     memory by rank counting, then each lane adds its channels over the
+//     sorted ids, 8-16 loads in flight, and writes them once. A lane
+//     loads a row's channels in units: float4s where c % 4 == 0 (f32);
+//     for bf16 16-byte units of 8 where c % 8 == 0, 8-byte units of 4
+//     where c % 4 == 0; else one value. A row with more than LIST_CAP ids (rare: about k
 //     on average) takes the next id in ascending order from its bin and
 //     the overflow list by a group minimum.
 // No scan and no loop division: tile and batch come from the grid,
@@ -205,38 +211,92 @@ scatter_fill_kernel(const int* __restrict__ idx,
   }
 }
 
-__device__ __forceinline__ void add_to(float& a, float y) { a += y; }
-__device__ __forceinline__ void add_to(float4& a, float4 y) {
-  a.x += y.x;
-  a.y += y.y;
-  a.z += y.z;
-  a.w += y.w;
+// One unit of a cotangent row: loaded as one T, widened to V f32 values
+// (a bf16's f32 is its 16 bits shifted up: exact).
+template <typename T> struct Unit;
+template <> struct Unit<float> {
+  static constexpr int V = 1;
+  __device__ static void widen(float x, float* o) { o[0] = x; }
+};
+template <> struct Unit<float4> {
+  static constexpr int V = 4;
+  __device__ static void widen(float4 x, float* o) {
+    o[0] = x.x;
+    o[1] = x.y;
+    o[2] = x.z;
+    o[3] = x.w;
+  }
+};
+__device__ __forceinline__ void widen_bf16x2(unsigned u, float* o) {
+  o[0] = __uint_as_float(u << 16);  // the lower address
+  o[1] = __uint_as_float(u & 0xffff0000u);
 }
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ float4 zero<float4>() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
+template <> struct Unit<unsigned short> {  // one bf16
+  static constexpr int V = 1;
+  __device__ static void widen(unsigned short x, float* o) {
+    o[0] = __uint_as_float((unsigned)x << 16);
+  }
+};
+template <> struct Unit<uint2> {  // 4 bf16
+  static constexpr int V = 4;
+  __device__ static void widen(uint2 x, float* o) {
+    widen_bf16x2(x.x, o);
+    widen_bf16x2(x.y, o + 2);
+  }
+};
+template <> struct Unit<uint4> {  // 8 bf16
+  static constexpr int V = 8;
+  __device__ static void widen(uint4 x, float* o) {
+    widen_bf16x2(x.x, o);
+    widen_bf16x2(x.y, o + 2);
+    widen_bf16x2(x.z, o + 4);
+    widen_bf16x2(x.w, o + 6);
+  }
+};
+
+// acc[v] += the unit's values, channel by channel in f32
+template <typename T>
+__device__ __forceinline__ void add_unit(float* acc, T y) {
+  float w[Unit<T>::V];
+  Unit<T>::widen(y, w);
+#pragma unroll
+  for (int v = 0; v < Unit<T>::V; ++v) acc[v] += w[v];
+}
+
+// V sums written to dv (16-byte stores where V is a multiple of 4)
+template <int V>
+__device__ __forceinline__ void store_sums(float* o, const float* acc) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < V; v += 4)
+      reinterpret_cast<float4*>(o)[v / 4] =
+          make_float4(acc[v], acc[v + 1], acc[v + 2], acc[v + 3]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) o[v] = acc[v];
+  }
 }
 
 template <int G> __host__ __device__ constexpr int sum_threads() {
   return G < 4 ? 128 : 256;
 }
 
-// G lanes per dv row; T = float4 when c % 4 == 0. Lane lg owns the units
-// lg, lg + G, ... of the row.
+// G lanes per dv row; T the unit of a cotangent row (Unit<T>: float4 or
+// float for an f32 cotangent, uint4, uint2 or one bf16 for a bf16 one).
+// Lane lg owns the units lg, lg + G, ... of the row.
 template <typename T, int G>
 __global__ void __launch_bounds__(sum_threads<G>(), 2048 / sum_threads<G>() / 2)
-scatter_sum_kernel(const float* __restrict__ g, const int* __restrict__ cnt,
+scatter_sum_kernel(const T* __restrict__ g, const int* __restrict__ cnt,
                    const int* __restrict__ bins,
                    const int2* __restrict__ ovf,
                    const int* __restrict__ ovf_n, float* __restrict__ dv,
                    int n, int nq, int k, int c) {
-  constexpr int V = sizeof(T) / sizeof(float);
+  constexpr int V = Unit<T>::V;
   constexpr int GROUPS = sum_threads<G>() / G;
   constexpr int STRIDE = 2 * LIST_CAP + 1;  // odd: groups on other banks
   constexpr int SPEC = G < 16 ? 16 : G;      // ids loaded with the count
   constexpr int PER = SPEC / G;              // consecutive ids a lane loads
-  constexpr int UNROLL = V == 4 ? 8 : 16;    // loads a lane keeps in flight
+  constexpr int UNROLL = sizeof(T) >= 16 ? 8 : 16;  // loads in flight
   __shared__ int ids[GROUPS * STRIDE];
   const int lane = threadIdx.x & 31, lg = lane & (G - 1);
   const int grp = threadIdx.x / G;
@@ -264,9 +324,9 @@ scatter_sum_kernel(const float* __restrict__ g, const int* __restrict__ cnt,
     for (int v = 0; v < PER; ++v) pre[v] = __ldg(mine + v);
   }
   const int m = __ldg(cnt + rb);
-  const int cv = c / V;                    // units of T in a cotangent row
-  const T* gb = reinterpret_cast<const T*>(g + (size_t)b * nq * k * c);
-  T* out = reinterpret_cast<T*>(dv + rb * c);
+  const int cv = c / V;                    // units in a cotangent row
+  const T* gb = g + (size_t)b * nq * k * cv;
+  float* out = dv + rb * c;
   if (m <= LIST_CAP) {
     int* s = ids + grp * STRIDE;
     int* sorted = s + LIST_CAP;
@@ -283,7 +343,9 @@ scatter_sum_kernel(const float* __restrict__ g, const int* __restrict__ cnt,
     }
     __syncwarp(gmask);
     for (int u = lg; u < cv; u += G) {
-      T acc = zero<T>();
+      float acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0.f;
       for (int i = 0; i < m; i += UNROLL) {
         T y[UNROLL];
 #pragma unroll
@@ -291,9 +353,9 @@ scatter_sum_kernel(const float* __restrict__ g, const int* __restrict__ cnt,
           if (i + q < m) y[q] = __ldg(gb + (size_t)sorted[i + q] * cv + u);
 #pragma unroll
         for (int q = 0; q < UNROLL; ++q)  // in order
-          if (i + q < m) add_to(acc, y[q]);
+          if (i + q < m) add_unit(acc, y[q]);
       }
-      out[u] = acc;
+      store_sums<V>(out + (size_t)u * V, acc);
     }
   } else {
     // a long row: the next id in ascending order, from the bin and the
@@ -302,7 +364,9 @@ scatter_sum_kernel(const float* __restrict__ g, const int* __restrict__ cnt,
     const int2* ob = ovf + (size_t)b * nq * k;
     for (int u0 = 0; u0 < cv; u0 += G) {
       const int u = u0 + lg;
-      T acc = zero<T>();
+      float acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0.f;
       int prev = -1;
       for (int it = 0; it < m; ++it) {
         int nxt = 0x7fffffff;
@@ -317,10 +381,10 @@ scatter_sum_kernel(const float* __restrict__ g, const int* __restrict__ cnt,
 #pragma unroll
         for (int o = G / 2; o > 0; o >>= 1)
           nxt = min(nxt, __shfl_xor_sync(gmask, nxt, o));
-        if (u < cv) add_to(acc, __ldg(gb + (size_t)nxt * cv + u));
+        if (u < cv) add_unit(acc, __ldg(gb + (size_t)nxt * cv + u));
         prev = nxt;
       }
-      if (u < cv) out[u] = acc;
+      if (u < cv) store_sums<V>(out + (size_t)u * V, acc);
     }
   }
 }
@@ -332,7 +396,7 @@ cudaError_t launch_sum(const void* g, const int* cnt, const int* bins,
   constexpr int groups = sum_threads<G>() / G;
   const dim3 grid((n + groups - 1) / groups, B);
   scatter_sum_kernel<T, G><<<grid, sum_threads<G>(), 0, s>>>(
-      (const float*)g, cnt, bins, ovf, ovf_n, (float*)dv, n, nq, k, c);
+      (const T*)g, cnt, bins, ovf, ovf_n, (float*)dv, n, nq, k, c);
   return cudaGetLastError();
 }
 
@@ -355,7 +419,7 @@ cudaError_t launch_sum_g(int group, const void* g, const int* cnt,
 
 }  // namespace
 
-// g [B, nq, k, c] f32; idx [B, nq, k] i32; starts [B, nq / tq] i32;
+// g [B, nq, k, c] f32 (g_bf16 0) or bf16 (g_bf16 1); idx [B, nq, k] i32; starts [B, nq / tq] i32;
 // scratch: counts [B * n + B] i32 (per row, then the overflow counts),
 // bins [B, n, LIST_CAP] i32, ovf [B, nq * k] int2; dv [B, n, c] f32 (every
 // value written). Plan (ops/gather.py::scatter_plan): `group` lanes per
@@ -366,7 +430,7 @@ extern "C" int scatter_window_launch(const void* g, const void* idx,
                                      void* bins, void* ovf, void* dv, int B,
                                      int n, int nq, int k, int c, int window,
                                      int tq, int group, int hist,
-                                     void* stream) {
+                                     int g_bf16, void* stream) {
   if (B < 1 || B > 65535 || n < 1 || tq < 1 || nq < 0 || nq % tq || k < 1 ||
       c < 1 || window < 1 || window > n ||
       (group != 2 && group != 4 && group != 8 && group != 16 &&
@@ -406,9 +470,12 @@ extern "C" int scatter_window_launch(const void* g, const void* idx,
   if (e != cudaSuccess) return (int)e;
   const int2* o = (const int2*)ovf;
   const int* bn = (const int*)bins;
-  return (int)(c % 4 == 0
-                   ? launch_sum_g<float4>(group, g, cnt, bn, o, ovf_n, dv, B,
-                                          n, nq, k, c, s)
-                   : launch_sum_g<float>(group, g, cnt, bn, o, ovf_n, dv, B,
-                                         n, nq, k, c, s));
+#define K4_UNIT(T) \
+  launch_sum_g<T>(group, g, cnt, bn, o, ovf_n, dv, B, n, nq, k, c, s)
+  if (g_bf16)
+    return (int)(c % 8 == 0   ? K4_UNIT(uint4)
+                 : c % 4 == 0 ? K4_UNIT(uint2)
+                              : K4_UNIT(unsigned short));
+  return (int)(c % 4 == 0 ? K4_UNIT(float4) : K4_UNIT(float));
+#undef K4_UNIT
 }

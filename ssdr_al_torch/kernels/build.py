@@ -57,13 +57,13 @@ SIGNATURES = {
     # support, query, out, B, ns, nq, k, stream (K6's brute-force route)
     "knn_brute_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # values, idx, starts, out, B, N, nq, k, C, window, tq, slab, rows,
-    # threads, stream
+    # threads, bf16 output, unit, stream
     "gather_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _P],
+                             _I, _I, _I, _I, _P],
     # g, idx, starts, counts, bins, ovf, dv, B, N, nq, k, C, window, tq,
-    # group, hist, stream
+    # group, hist, bf16 g, stream
     "scatter_window_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _P],
     # points, mask, packed, counts, out, C, S, P, stream
     "chamfer_sums_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

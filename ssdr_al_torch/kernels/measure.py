@@ -35,6 +35,14 @@ in shared memory. Tie-heavy inputs follow at S3DIS width: duplicated
 points, points on a coarse grid, SENTINEL pad rows and window starts
 clamped at the cloud's end, for K1, K5, K2 and K6.
 
+`check_bf16_path` (run by `chip_smoke.py`) checks K2 and K4 at every
+call of the same forward and train-mode backward of the bf16 model
+(cfg.compute_dtype "bfloat16"): K2's bf16-output instantiation and K4's
+bf16-cotangent one, each bitwise equal to its plain version (the f32
+gather rounded to bf16; index_add_ of g.float()), beside `torch.gather`
+of the values cast to bf16 and `index_add_` of the cotangent widened to
+f32; the bound counts the bf16 output and cotangent at 2 bytes a value.
+
 `--k6-only` runs only the K6 calls, each also on every route of the
 wrapper (the brute-force loop, the walk over the clouds in their own
 order, the walk over the curve-sorted clouds; ops/knn.py::
@@ -134,10 +142,13 @@ def record_main_path(cfg, dev, b=8, seed=0):
         return k1_fn(support, queries, starts, k, window, tq, mxu)
 
     def rec_k2(path):
-        def rec(values, idx, starts, window, tq=128):
+        def rec(values, idx, starts, window, tq=128, out_dtype=None):
             k2.append(dict(values=values, idx=idx, starts=starts,
-                           window=window, tq=tq, path=path))
-            return k2_fn(values, idx, starts, window, tq)
+                           window=window, tq=tq, path=path,
+                           out_dtype=out_dtype or values.dtype))
+            # a tree without the bf16 output takes no out_dtype
+            dt = () if out_dtype is None else (out_dtype,)
+            return k2_fn(values, idx, starts, window, tq, *dt)
         return rec
 
     # a wrapper counts its launches on its module's name for it, which is
@@ -145,6 +156,7 @@ def record_main_path(cfg, dev, b=8, seed=0):
     rec_k1.launches = rec_k1.launches_mxu = 0
     rec_lfa, rec_pool = rec_k2("LFA"), rec_k2("pool")
     rec_lfa.launches = rec_pool.launches = 0
+    rec_lfa.launches_bf16 = rec_pool.launches_bf16 = 0
     rng = np.random.RandomState(seed)
     n = cfg.num_points
     xyz = (rng.rand(b, n, 3) * 6).astype(np.float32)
@@ -290,7 +302,7 @@ def record_train_backward(cfg, dev, b=6, seed=0):
         return k4(g, idx, starts, n, window, tq)
 
     # the wrapper counts its launches on the module's name for it
-    rec.launches = 0
+    rec.launches = rec.launches_bf16 = 0
     rng = np.random.RandomState(seed)
     n = cfg.num_points
     xyz = (rng.rand(b, n, 3) * 6).astype(np.float32)
@@ -312,20 +324,25 @@ def record_train_backward(cfg, dev, b=6, seed=0):
 
 def check_k4(call, reps=20, plain_reps=5):
     """K4 at one recorded call: two launches equal bit for bit; against
-    the plain version on the CPU (index_add_ in (q, j) order) bitwise, or
-    where the tree's K4 sums in no fixed order, within 1e-5 relative plus
-    2·m·ε·Σ|g| (two orders of an f32 sum of m values); its time, the plain
-    version's on the card, index_add_'s on the same rows and the bound."""
+    the plain version on the CPU (index_add_ in (q, j) order, of g.float()
+    for a bf16 g) bitwise, or where the tree's K4 sums in no fixed order,
+    within 1e-5 relative plus 2·m·ε·Σ|g| (two orders of an f32 sum of m
+    values); its time, the plain version's on the card, index_add_'s on
+    the same rows (of the cotangent widened to f32 beforehand) and the
+    bound."""
     from ssdr_al_torch.ops import gather as ga
 
     g, i, st = call["g"], call["idx"], call["starts"]
     n, w, tq = call["n"], call["window"], call["tq"]
     b, nq, k, c = g.shape
-    name = f"[{b},{nq},{k},{c}] -> [{b},{n},{c}] W={w} tq={tq}"
-    before = ga.scatter_window.launches
+    bf16 = g.dtype == torch.bfloat16
+    name = (f"[{b},{nq},{k},{c}]{' bf16' if bf16 else ''} -> [{b},{n},{c}] "
+            f"W={w} tq={tq}")
+    counter = "launches_bf16" if bf16 else "launches"
+    before = getattr(ga.scatter_window, counter)
     got = ga.scatter_window(g, i, st, n, w, tq)
     again = ga.scatter_window(g, i, st, n, w, tq)
-    if ga.scatter_window.launches != before + 2:
+    if getattr(ga.scatter_window, counter) != before + 2:
         raise AssertionError(f"K4 {name}: the kernel did not launch")
     cpu = [t.cpu() for t in (g, i, st)]
     want = ga._scatter_window_plain(*cpu, n, w, tq)
@@ -340,10 +357,11 @@ def check_k4(call, reps=20, plain_reps=5):
             raise AssertionError(f"K4 {name}: differs from the plain version")
     rows = (i.long() + (torch.arange(b, device=i.device) * n)[:, None, None]
             ).reshape(-1)
-    g2 = g.reshape(-1, c)
+    g2 = g.reshape(-1, c).float()
     per_row = row_entries(i, st, n, w, tq)
     bd = bound(nbytes(g, i, st, got), g.numel())
-    out = dict(shape=name, bitwise=bitwise,
+    out = dict(shape=name, dtype=str(g.dtype).split(".")[-1],
+               bitwise=bitwise,
                run_to_run=torch.equal(got, again),
                max_abs_err=(got_c - want).abs().max().item(),
                ms=device_ms(lambda: ga.scatter_window(g, i, st, n, w, tq),
@@ -357,7 +375,8 @@ def check_k4(call, reps=20, plain_reps=5):
     if hasattr(ga, "SCATTER_BIN"):
         out["overflow_rows"] = int((per_row > ga.SCATTER_BIN).sum())
     if hasattr(ga, "scatter_plan"):
-        out["plan"] = list(ga.scatter_plan(b, n, nq, k, c, w, tq))
+        out["plan"] = list(ga.scatter_plan(b, n, nq, k, c, w, tq,
+                                           *((g.dtype,) if bf16 else ())))
     return out
 
 
@@ -496,44 +515,64 @@ def check_k1(call, mxu=False, reps=20, plain_reps=3):
     return out
 
 
+def _same_bits(a, b):
+    """Bit for bit: bf16 tensors by their 16-bit patterns."""
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
 def check_k2(call, reps=20, plain_reps=5):
-    """K2 at one recorded call: bitwise equal to its plain version with
-    the planned source and, where the slab fits, the other one; their
-    times, the plain version's, torch.gather's and the bound."""
+    """K2 at one recorded call: bitwise equal to its plain version (for a
+    bf16 output, the f32 gather rounded to bf16) with the planned source
+    and, where the slab fits, the other one; their times, the plain
+    version's, torch.gather's (of the values cast to the output dtype
+    beforehand) and the bound (the output at its dtype's size)."""
     from ssdr_al_torch.ops import gather as ga
 
     v, i, st = call["values"], call["idx"], call["starts"]
     w, tq = call["window"], call["tq"]
     b, n, c = v.shape
     nq, k = i.shape[1:]
-    name = f"{call['path']} [{b},{nq},{k},{c}] W={w} tq={tq}"
-    want = ga._gather_window_plain(v, i, st, w, tq)
-    before = ga.gather_window.launches
-    got = ga.gather_window(v, i, st, w, tq)
-    if ga.gather_window.launches != before + 1:
+    od = call.get("out_dtype", v.dtype)
+    bf16 = od == torch.bfloat16
+    dt = (od,) if bf16 else ()          # a tree without bf16 takes none
+    name = (f"{call['path']} [{b},{nq},{k},{c}]{' bf16' if bf16 else ''} "
+            f"W={w} tq={tq}")
+    want = ga._gather_window_plain(v, i, st, w, tq, *dt)
+    counter = "launches_bf16" if bf16 else "launches"
+    before = getattr(ga.gather_window, counter)
+    got = ga.gather_window(v, i, st, w, tq, *dt)
+    if getattr(ga.gather_window, counter) != before + 1:
         raise AssertionError(f"K2 {name}: the kernel did not launch")
-    if not torch.equal(got, want):
+    if got.dtype != od or not _same_bits(got, want):
         raise AssertionError(f"K2 {name}: differs from the plain version")
     flat = i.long().reshape(b, -1, 1).expand(-1, -1, c)
+    v_lib = v.to(od)
     bd = bound(nbytes(v, i, st, got), 0)
-    out = dict(shape=name, max_abs_err=(got - want).abs().max().item(),
-               ms=device_ms(lambda: ga.gather_window(v, i, st, w, tq), reps),
+    out = dict(shape=name, dtype=str(od).split(".")[-1],
+               max_abs_err=(got.float() - want.float()).abs().max().item(),
+               ms=device_ms(lambda: ga.gather_window(v, i, st, w, tq, *dt),
+                            reps),
                plain_ms=device_ms(lambda: ga._gather_window_plain(
-                   v, i, st, w, tq), plain_reps),
+                   v, i, st, w, tq, *dt), plain_reps),
                bound_ms=bd[0], bound_by=bd[1],
-               library_ms=device_ms(lambda: torch.gather(v, 1, flat), reps))
+               library_ms=device_ms(lambda: torch.gather(v_lib, 1, flat),
+                                    reps))
     if hasattr(ga, "gather_plan"):
-        plan = ga.gather_plan(b, nq, k, c, w, tq)
+        plan = ga.gather_plan(b, nq, k, c, w, tq,
+                              **({"out_dtype": od} if bf16 else {}))
         out["plan"] = list(plan)
         if w * c * 4 <= SMEM_MAX:
-            other = ga.gather_plan(b, nq, k, c, w, tq, slab=not plan[0])
-            alt = ga._gather_window_launch(v, i, st, w, tq, other)
-            if not torch.equal(alt, want):
+            other = ga.gather_plan(b, nq, k, c, w, tq, slab=not plan[0],
+                                   **({"out_dtype": od} if bf16 else {}))
+            alt = ga._gather_window_launch(v, i, st, w, tq, other, *dt)
+            if not _same_bits(alt, want):
                 raise AssertionError(f"K2 {name} with plan {other}: differs "
                                      "from the plain version")
             out["other_plan"] = list(other)
             out["other_ms"] = device_ms(lambda: ga._gather_window_launch(
-                v, i, st, w, tq, other), reps)
+                v, i, st, w, tq, other, *dt), reps)
     return out
 
 
@@ -713,6 +752,50 @@ def check_main_path(cfg, dev, log=print, b_eval=8, b_train=6,
     return {"window_topk": k1, "window_topk_mxu": k5, "knn_tiled": k6,
             "gather_window": k2, "scatter_window": k4, "chamfer_sums": k3,
             "ties": ties, "calls": (k1_calls, k2_calls)}
+
+
+def check_bf16_path(cfg, dev):
+    """K2-bf16 at every K2 call of one forward of the bf16 model [8 ×
+    cfg.num_points] and K4-bf16 at every K4 call of one train-mode
+    backward [6 × cfg.num_points], each checked and timed as check_k2 /
+    check_k4 do, bitwise and run to run. Returns
+    {"gather_window_bf16": [...], "scatter_window_bf16": [...]}."""
+    import dataclasses
+
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    _, k2_calls = record_main_path(cfg16, dev, b=8)
+    k2 = []
+    for call in k2_calls:
+        if call["out_dtype"] != torch.bfloat16:
+            raise AssertionError(f"the bf16 forward made an f32 K2 call "
+                                 f"{tuple(call['values'].shape)}")
+        r = check_k2(call)
+        k2.append(r)
+        alt = (f", other source {r['other_plan']}: equal, "
+               f"{r['other_ms']:.4f} ms") if "other_ms" in r else ""
+        print(f"K2 {r['shape']}: bitwise equal, {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.3f} ms, torch.gather bf16 "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, plan {r.get('plan')}{alt})")
+    k4 = []
+    for call in record_train_backward(cfg16, dev, b=6):
+        if call["g"].dtype != torch.bfloat16:
+            raise AssertionError("the bf16 backward made an f32 K4 call")
+        r = check_k4(call)
+        k4.append(r)
+        print(f"K4 {r['shape']}: bitwise equal to the CPU plain version "
+            f"{r['bitwise']}, run to run {r['run_to_run']}, {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.3f} ms, index_add_ "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plan "
+            f"{r.get('plan')}; rows past the bins {r.get('overflow_rows')})")
+        if not (r["bitwise"] and r["run_to_run"]):
+            raise AssertionError(f"K4 {r['shape']}: not bitwise equal to "
+                                 "the plain version and to itself")
+    print(f"bf16: {len(k2)} K2 calls {sum(r['ms'] for r in k2):.4f} ms "
+        f"(torch.gather {sum(r['library_ms'] for r in k2):.4f} ms), "
+        f"{len(k4)} K4 calls {sum(r['ms'] for r in k4):.4f} ms (index_add_ "
+        f"{sum(r['library_ms'] for r in k4):.4f} ms)")
+    return {"gather_window_bf16": k2, "scatter_window_bf16": k4}
 
 
 def main() -> int:

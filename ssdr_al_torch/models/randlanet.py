@@ -19,6 +19,16 @@ BatchNorm to batch statistics (flax's arithmetic, below) and turns on the
 head's dropout, whose mask comes from the generator passed to forward;
 `model.eval()` uses the running statistics and no dropout.
 
+`cfg.compute_dtype` "bfloat16" runs the activations in bf16 as flax's
+`dtype=` does (models/randlanet.py:516): parameters stay f32 and are cast
+per call; every 1×1 conv multiplies in bf16 (`dense`), and its bias add
+and BatchNorm (statistics included) run in f32 and round to bf16 once;
+the attention softmax runs in f32; the windowed gathers take f32 values
+and store bf16 (K2's bf16 output) and their backward reads a bf16
+cotangent (K4); the penultimate features and the logits are f32. The
+rounding points are those of the JAX model compiled for the CPU.
+"float32" leaves every layer in its parameters' dtype.
+
 TF32 is switched off below for matmuls and cuDNN: the JAX reference runs
 in full f32 on the CPU, and a TF32 product keeps only ~3 decimal digits,
 which the parity tolerances (rtol 1e-4 on logits) would not survive.
@@ -59,10 +69,45 @@ GATHER_TQ = 512
 BN_EPS = 1e-6        # flax BatchNorm(epsilon=1e-6)
 BN_MOMENTUM = 0.99   # flax BatchNorm(momentum=0.99): ra = 0.99·ra + 0.01·batch
 DROPOUT_RATE = 0.5   # the head's nn.Dropout(0.5) before fc
+# jax.nn.leaky_relu's weakly typed 0.2 takes the activation's dtype:
+# in bf16 it is 0.2001953125
+SLOPE_BF16 = float(torch.tensor(0.2, dtype=torch.bfloat16))
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
+    """The activation dtype of cfg.compute_dtype: None for "float32"
+    (every layer in its parameters' dtype), torch.bfloat16."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}; options: "
+                         f"{list(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
 def leaky_relu(x):
+    if x.dtype == torch.bfloat16:
+        return torch.where(x >= 0, x, x * SLOPE_BF16)
     return F.leaky_relu(x, 0.2)
+
+
+def dense(layer: nn.Linear, x, dtype: Optional[torch.dtype],
+          bias_f32: bool = False):
+    """layer(x) as flax's nn.Dense(dtype=dtype): input, kernel and bias
+    cast to dtype, the product rounded to dtype, then the bias added in
+    dtype, or with bias_f32 in f32 and left unrounded (as XLA fuses the
+    add into the BatchNorm that follows). dtype None: the layer as it
+    is."""
+    if dtype is None:
+        return layer(x)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    if layer.bias is None:
+        return y
+    b = layer.bias.to(dtype)
+    return y.float() + b.float() if bias_f32 else y + b
+
+
+def _at_least_f32(x):
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def max_pool(pooled):
@@ -78,7 +123,9 @@ class BatchNorm(nn.Module):
     axis but the last (the k axis of [B, N, k, C] edge tensors too) with
     flax's fast variance E[x²] − E[x]² clipped at 0, and updates the running
     statistics as ra = 0.99·ra + 0.01·batch with that BIASED variance
-    (torch.nn.BatchNorm1d would take the unbiased one)."""
+    (torch.nn.BatchNorm1d would take the unbiased one). The bf16 model
+    feeds it f32 and rounds its output (SharedMLP), as flax's BatchNorm
+    with dtype=bfloat16 keeps its statistics and arithmetic in f32."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -119,24 +166,30 @@ class Dropout(nn.Module):
             raise ValueError("train-mode dropout needs a torch.Generator")
         keep_prob = 1.0 - self.rate
         keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=x.dtype) < keep_prob
+                          dtype=_at_least_f32(x).dtype) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class SharedMLP(nn.Module):
-    """1×1 conv (+BN, +leaky ReLU) over the channel axis."""
+    """1×1 conv (+BN, +leaky ReLU) over the channel axis, in `dtype`
+    (`dense`). In bf16 the product is rounded to bf16, the bias added and
+    the BatchNorm applied in f32, and its output rounded to bf16 once: the
+    rounding points of the JAX model's compiled bf16 layer."""
 
     def __init__(self, d_in: int, features: int, bn: bool = True,
-                 act: bool = True):
+                 act: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dense = nn.Linear(d_in, features)
         self.bn = BatchNorm(features) if bn else None
         self.act = act
+        self.dtype = dtype
 
     def forward(self, x):
-        x = self.dense(x)
+        x = dense(self.dense, x, self.dtype, bias_f32=self.bn is not None)
         if self.bn is not None:
             x = self.bn(x)
+            if self.dtype is not None:
+                x = x.to(self.dtype)
         return leaky_relu(x) if self.act else x
 
 
@@ -162,11 +215,14 @@ def relative_pos_encoding(xyz, neigh_idx, neighbor_xyz=None):
 def random_sample(feature, pool_idx, window: int = 0):
     """Max-pool the k neighbours of each kept point. feature [B, N, C];
     pool_idx [B, N', k] → [B, N', C]. On the sorted path (window > 0) the
-    gather goes through K2 with starts derived from the indices."""
+    gather goes through K2 with starts derived from the indices; a bf16
+    feature is gathered from its f32 values into K2's bf16 output."""
     n, n_sub = feature.shape[1], pool_idx.shape[1]
     if window and n % 128 == 0 and n_sub % 128 == 0:
-        pooled = gather_window_auto(feature.contiguous(), pool_idx,
-                                    min(window + 2048, n))
+        dt = feature.dtype
+        values = feature.float() if dt == torch.bfloat16 else feature
+        pooled = gather_window_auto(values.contiguous(), pool_idx,
+                                    min(window + 2048, n), out_dtype=dt)
     else:
         pooled = gather_neighbour(feature, pool_idx)
     return max_pool(pooled)
@@ -180,55 +236,75 @@ def nearest_interpolation(feature, interp_idx):
 
 
 class AttPooling(nn.Module):
-    """Attentive pooling over the k neighbours."""
+    """Attentive pooling over the k neighbours; the softmax in at least
+    f32, cast back (randlanet.py:180-182)."""
 
-    def __init__(self, d: int, d_out: int):
+    def __init__(self, d: int, d_out: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dense = nn.Linear(d, d, bias=False)
-        self.mlp = SharedMLP(d, d_out)
+        self.mlp = SharedMLP(d, d_out, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, feature_set):
-        scores = torch.softmax(self.dense(feature_set), dim=2)
-        return self.mlp((feature_set * scores).sum(2))
+        att = dense(self.dense, feature_set, self.dtype)
+        scores = torch.softmax(_at_least_f32(att), dim=2).to(
+            feature_set.dtype)
+        # the weighted sum of bf16 values in f32, rounded once (XLA's)
+        agg = (_at_least_f32(feature_set) * _at_least_f32(scores)).sum(2)
+        return self.mlp(agg.to(feature_set.dtype))
 
 
 class BuildingBlock(nn.Module):
     """Local feature aggregation. On the sorted path (starts given) xyz and
-    features are gathered together in one K2 call."""
+    features are gathered together in one K2 call. In bf16 the gathers
+    take f32 values and return bf16 (randlanet.py:206-209, 222-224), so
+    the neighbours' xyz reach the edge geometry rounded to bf16, which is
+    computed in f32 and cast to bf16 (:215)."""
 
-    def __init__(self, d_in: int, d_out: int):
+    def __init__(self, d_in: int, d_out: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.mlp1 = SharedMLP(10, d_in)
-        self.att_pooling_1 = AttPooling(2 * d_in, d_out // 2)
-        self.mlp2 = SharedMLP(d_in, d_out // 2)
-        self.att_pooling_2 = AttPooling(d_out, d_out)
+        self.mlp1 = SharedMLP(10, d_in, dtype=dtype)
+        self.att_pooling_1 = AttPooling(2 * d_in, d_out // 2, dtype)
+        self.mlp2 = SharedMLP(d_in, d_out // 2, dtype=dtype)
+        self.att_pooling_2 = AttPooling(d_out, d_out, dtype)
+        self.dtype = dtype
+
+    def _f32(self, x):
+        return x if self.dtype is None else x.float()
 
     def forward(self, xyz, feature, neigh_idx, starts=None, window=0):
         if starts is not None:
-            both = gather_window(torch.cat([xyz, feature], -1), neigh_idx,
-                                 starts, window, GATHER_TQ)
+            both = gather_window(torch.cat([xyz, self._f32(feature)], -1),
+                                 neigh_idx, starts, window, GATHER_TQ,
+                                 self.dtype)
             neighbor_xyz, f_neighbours = both[..., :3], both[..., 3:]
         else:
             neighbor_xyz = None
             f_neighbours = gather_neighbour(feature, neigh_idx)
-        f_xyz = self.mlp1(relative_pos_encoding(xyz, neigh_idx, neighbor_xyz))
+        f_xyz10 = relative_pos_encoding(xyz, neigh_idx, neighbor_xyz)
+        f_xyz = self.mlp1(f_xyz10 if self.dtype is None
+                          else f_xyz10.to(self.dtype))
         f_pc_agg = self.att_pooling_1(torch.cat([f_neighbours, f_xyz], -1))
         f_xyz = self.mlp2(f_xyz)
         if starts is not None:
-            f_neighbours = gather_window(f_pc_agg, neigh_idx, starts, window,
-                                         GATHER_TQ)
+            f_neighbours = gather_window(self._f32(f_pc_agg), neigh_idx,
+                                         starts, window, GATHER_TQ,
+                                         self.dtype)
         else:
             f_neighbours = gather_neighbour(f_pc_agg, neigh_idx)
         return self.att_pooling_2(torch.cat([f_neighbours, f_xyz], -1))
 
 
 class DilatedResBlock(nn.Module):
-    def __init__(self, d_in: int, d_out: int):
+    def __init__(self, d_in: int, d_out: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.mlp1 = SharedMLP(d_in, d_out // 2)
-        self.lfa = BuildingBlock(d_out // 2, d_out)
-        self.mlp2 = SharedMLP(d_out, 2 * d_out, act=False)
-        self.shortcut = SharedMLP(d_in, 2 * d_out, act=False)
+        self.mlp1 = SharedMLP(d_in, d_out // 2, dtype=dtype)
+        self.lfa = BuildingBlock(d_out // 2, d_out, dtype)
+        self.mlp2 = SharedMLP(d_out, 2 * d_out, act=False, dtype=dtype)
+        self.shortcut = SharedMLP(d_in, 2 * d_out, act=False, dtype=dtype)
 
     def forward(self, feature, xyz, neigh_idx, starts=None, window=0):
         f_pc = self.mlp1(feature)
@@ -422,25 +498,26 @@ class RandLANet(nn.Module):
     def __init__(self, cfg: Config, d_feature: int = 6):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dt = compute_dtype(cfg)
         self.fc0 = nn.Linear(d_feature, 8)
         self.fc0_bn = BatchNorm(8)
         enc, d = [], 8
         widths = []
         for i in range(cfg.num_layers):
-            enc.append(DilatedResBlock(d, cfg.d_out[i]))
+            enc.append(DilatedResBlock(d, cfg.d_out[i], dt))
             d = 2 * cfg.d_out[i]
             widths.append(d)
         self.encoder = nn.ModuleList(enc)
         skips = [widths[0]] + widths          # f_encoder_list channel widths
-        dec = [SharedMLP(skips[-1], skips[-1])]
+        dec = [SharedMLP(skips[-1], skips[-1], dtype=dt)]
         cur = skips[-1]
         for j in range(cfg.num_layers):
             skip = skips[-j - 2]
-            dec.append(SharedMLP(skip + cur, skip))
+            dec.append(SharedMLP(skip + cur, skip, dtype=dt))
             cur = skip
         self.decoder = nn.ModuleList(dec)
-        self.fc1 = SharedMLP(cur, 64)
-        self.fc2 = SharedMLP(64, 32)
+        self.fc1 = SharedMLP(cur, 64, dtype=dt)
+        self.fc2 = SharedMLP(64, 32, dtype=dt)
         self.dp1 = Dropout(DROPOUT_RATE)
         self.fc = nn.Linear(32, cfg.num_classes)
 
@@ -451,8 +528,10 @@ class RandLANet(nn.Module):
         sorted_mode = isinstance(pyramid, SortedPyramid)
         if sorted_mode:
             features = gather_rows(features, pyramid.order)
-        f = leaky_relu(self.fc0_bn(self.fc0(features.to(
-            self.fc0.weight.dtype))))
+        f = self.fc0_bn(dense(
+            self.fc0, features.to(self.dtype or self.fc0.weight.dtype),
+            self.dtype, bias_f32=True))
+        f = leaky_relu(f if self.dtype is None else f.to(self.dtype))
         f_encoder_list = []
         for i, enc in enumerate(self.encoder):
             starts = pyramid.starts[i] if sorted_mode else None
@@ -468,8 +547,9 @@ class RandLANet(nn.Module):
             f_interp = nearest_interpolation(f, pyramid.interp_idx[-j - 1])
             f = self.decoder[j + 1](
                 torch.cat([f_encoder_list[-j - 2], f_interp], -1))
-        penultimate = self.fc2(self.fc1(f))
-        logits = self.fc(self.dp1(penultimate, generator))
+        f = self.fc2(self.fc1(f))
+        penultimate = _at_least_f32(f)
+        logits = self.fc(_at_least_f32(self.dp1(f, generator)))
         if sorted_mode and unsort:
             logits = gather_rows(logits, pyramid.inv)
             penultimate = gather_rows(penultimate, pyramid.inv)

@@ -93,6 +93,20 @@ def chamfer_pairwise_blocks(points: torch.Tensor,
     return cd * (1.0 - eye)[None]
 
 
+def chamfer_pairwise(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Pairwise chamfer of one cloud's superpoints (chamfer.py:53, the exact
+    form the edcd branch calls): chamfer_pairwise_blocks on a block axis of
+    1, so CUDA tensors run K3. points [S, P, 3] centred; mask [S, P] →
+    [S, S] with zero diagonal.
+
+    Every superpoint must hold a valid point: for a pair of empty ones
+    JAX's exact form gives 0 where K3's epilogue gives 1e15. The edcd
+    candidates are never empty (each has its dominant points)."""
+    if not bool(mask.any(-1).all()):
+        raise ValueError("chamfer_pairwise: an empty superpoint")
+    return chamfer_pairwise_blocks(points[None], mask[None])[0]
+
+
 def pad_superpoints(sp_points_list, max_points=None):
     """Host helper: ragged [Pi, 3] arrays → ([S, P, 3] centred, [S, P] mask).
     Clouds are centred on their bbox centre; clouds above max_points are

@@ -1,6 +1,7 @@
-"""Farthest-feature sampling (counterpart of ssdr_al_tpu/ops/fps.py).
+"""Farthest-feature and farthest-superpoint sampling (counterpart of
+ssdr_al_tpu/ops/fps.py).
 
-The greedy loop runs on the features' device with no host sync per step:
+Each greedy loop runs on its inputs' device with no host sync per step:
 each step is one distance row, a running minimum and an argmax.
 """
 
@@ -33,4 +34,30 @@ def farthest_feature_sample(features: torch.Tensor, start_idx: int,
         d = ((features - cur) ** 2).sum(-1)
         distance = torch.minimum(distance, d)
         sel[i + 1] = torch.argmax(torch.where(valid_mask, distance, neg))
+    return sel
+
+
+def farthest_superpoint_sample(centroids_xyz: torch.Tensor,
+                               extra_dist: torch.Tensor, trigger_idx: int,
+                               sample_number: int) -> torch.Tensor:
+    """FPS over superpoints (sampler2.py:49-80, the edcd branch): the step
+    distance is the squared Euclidean distance of the bbox centres plus
+    the precomputed row extra_dist[cur] (the pairwise chamfer).
+
+    centroids_xyz [S, 3]; extra_dist [S, S] on the same device;
+    trigger_idx: the first pick. Returns [sample_number] int64; ties go to
+    the lowest index, as jnp.argmax."""
+    c = centroids_xyz.float()
+    s = c.shape[0]
+    dev = c.device
+    sel = torch.empty(sample_number, dtype=torch.long, device=dev)
+    sel[0] = int(trigger_idx)
+    distance = torch.full((s,), _BIG, dtype=torch.float32, device=dev)
+    for i in range(sample_number - 1):
+        cur = sel[i:i + 1]
+        diff = c - c.index_select(0, cur)                          # [S, 3]
+        ed = (diff * diff).sum(-1)
+        d = ed + extra_dist.index_select(0, cur)[0]
+        distance = torch.minimum(distance, d)
+        sel[i + 1] = torch.argmax(distance)
     return sel

@@ -5,11 +5,14 @@ neighbour index of a query tile lies inside that tile's search window
 [starts[t], starts[t] + window). The TPU turned the gather into a one-hot
 MXU matmul (bf16 output) and its VJP into the transposed one-hot product
 (`_scatter_kernel`); the port gathers rows directly in the hand-written
-CUDA kernel K2 (csrc/gather_window.cu), which keeps the input dtype and is
-exact, and sums the cotangent back in K4 (csrc/scatter_window.cu), which
-bins the entries by their dv row and adds each row in (q, j) order:
-deterministic, and bitwise equal to its plain version's index_add_ on the
-CPU.
+CUDA kernel K2 (csrc/gather_window.cu), and sums the cotangent back in K4
+(csrc/scatter_window.cu), which bins the entries by their dv row and adds
+each row in (q, j) order: deterministic, and bitwise equal to its plain
+version's index_add_ on the CPU. Each kernel has two instantiations: the
+float32 model's (f32 values gathered exactly; f32 cotangent) and the
+bfloat16 model's, as on the TPU (f32 values, each gathered value rounded
+to bf16 and stored bf16; the bf16 cotangent widened to f32 and summed
+into f32 dv).
 `gather_window` is a torch.autograd.Function
 with K2 forward and K4 backward; no gradient flows to idx or starts.
 
@@ -46,15 +49,17 @@ def _window_mask(idx, starts, n, window, tq):
     return i, (i >= lo) & (i < lo + window)
 
 
-def _gather_window_plain(values, idx, starts, window, tq):
-    """Plain PyTorch version of K2: same rows, zeros outside the window."""
+def _gather_window_plain(values, idx, starts, window, tq, out_dtype=None):
+    """Plain PyTorch version of K2: same rows, zeros outside the window,
+    then cast to out_dtype (bf16: rounded to nearest even)."""
     b, n, c = values.shape
     nq, k = idx.shape[1], idx.shape[2]
     i, inside = _window_mask(idx, starts, n, window, tq)
     flat = torch.where(inside, i, torch.zeros_like(i)).reshape(b, nq * k)
     out = torch.gather(values, 1, flat[..., None].expand(b, nq * k, c))
     out = out.reshape(b, nq, k, c)
-    return torch.where(inside[..., None], out, torch.zeros_like(out))
+    out = torch.where(inside[..., None], out, torch.zeros_like(out))
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 # K2's launch plan (csrc/gather_window.cu): a CTA copies its tile's window
@@ -70,11 +75,14 @@ GATHER_SPAN = 32768
 
 
 def gather_plan(b: int, nq: int, k: int, c: int, window: int, tq: int,
-                slab: Optional[bool] = None):
-    """(slab, rows per CTA, threads per CTA) of K2 for these shapes; `slab`
-    forces the source (chip_smoke.py checks both). A CTA's rows divide the
-    tile's tq·k rows and rows·c is a multiple of 4, so every CTA writes
-    whole float4s; that needs tq % 4 == 0."""
+                slab: Optional[bool] = None,
+                out_dtype: torch.dtype = torch.float32):
+    """(slab, rows per CTA, threads per CTA, unit) of K2 for these shapes
+    and output dtype; `slab` forces the source (chip_smoke.py checks
+    both). A CTA's rows divide the tile's tq·k rows and rows·c is a
+    multiple of the unit, the values a thread stores at once: 4 f32 (a
+    float4), or 8 bf16 (16 bytes) where rows·c % 8 == 0, else 4 bf16 (8
+    bytes). That needs tq % 4 == 0."""
     if tq % 4:
         raise ValueError(f"gather_window: the kernel takes tq % 4 == 0, "
                          f"not {tq}")
@@ -82,48 +90,66 @@ def gather_plan(b: int, nq: int, k: int, c: int, window: int, tq: int,
     if slab is None:
         slab = (window * c * 4 <= SLAB_MAX_BYTES
                 and b * (nq // tq) >= 2 * _kb.SMS)
-    if slab:
-        return True, rows, SLAB_THREADS
-    while rows * c > GATHER_SPAN and rows % 8 == 0:
-        rows //= 2
-    return False, rows, GATHER_THREADS
+    threads = SLAB_THREADS
+    if not slab:
+        threads = GATHER_THREADS
+        while rows * c > GATHER_SPAN and rows % 8 == 0:
+            rows //= 2
+    unit = 8 if _out_bf16(out_dtype) and rows * c % 8 == 0 else 4
+    return slab, rows, threads, unit
 
 
-def _gather_window_launch(values, idx, starts, window, tq, plan):
+def _out_bf16(out_dtype) -> bool:
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gather_window: output dtype {out_dtype}; K2 "
+                        "stores float32 or bfloat16")
+    return out_dtype == torch.bfloat16
+
+
+def _gather_window_launch(values, idx, starts, window, tq, plan,
+                          out_dtype=torch.float32):
     """Launch K2 with a given plan (gather_plan's, or another for a check
-    of both sources) and count the launch."""
+    of both sources) and count the launch: `gather_window.launches` (f32
+    output) or `gather_window.launches_bf16`."""
     b, n, c = values.shape
     nq, k = idx.shape[1], idx.shape[2]
-    slab, rows, threads = plan
-    out = torch.empty((b, nq, k, c), dtype=values.dtype, device=values.device)
+    slab, rows, threads, unit = plan
+    out = torch.empty((b, nq, k, c), dtype=out_dtype, device=values.device)
     err = _kb.library().gather_window_launch(
         values.data_ptr(), idx.data_ptr(), starts.data_ptr(), out.data_ptr(),
         b, n, nq, k, c, window, tq, int(slab), rows, threads,
+        int(_out_bf16(out_dtype)), unit,
         ctypes.c_void_p(_kb.stream_ptr(values.device)))
     _kb.check(err, "gather_window")
-    gather_window.launches += 1
+    if out_dtype == torch.bfloat16:
+        gather_window.launches_bf16 += 1
+    else:
+        gather_window.launches += 1
     return out
 
 
-def _gather_window_fwd(values, idx, starts, window, tq):
+def _gather_window_fwd(values, idx, starts, window, tq, out_dtype):
     """K2 on CUDA tensors, its plain version on CPU tensors."""
     b, n, c = values.shape
     nq, k = idx.shape[1], idx.shape[2]
     _check_window_args("gather_window", b, n, idx, starts, window, tq)
     if values.device.type == "cpu":
-        return _gather_window_plain(values, idx, starts, window, tq)
+        return _gather_window_plain(values, idx, starts, window, tq,
+                                    out_dtype)
     if values.dtype != torch.float32 or idx.dtype != torch.int32 \
             or starts.dtype != torch.int32:
         raise TypeError("gather_window: float32 values, int32 idx and starts")
     _kb.require_cuda("gather_window", values, idx, starts)
-    return _gather_window_launch(values, idx, starts, window, tq,
-                                 gather_plan(b, nq, k, c, window, tq))
+    return _gather_window_launch(
+        values, idx, starts, window, tq,
+        gather_plan(b, nq, k, c, window, tq, out_dtype=out_dtype), out_dtype)
 
 
 def _scatter_window_plain(g, idx, starts, n, window, tq):
     """Plain PyTorch version of K4: out-of-window contributions masked to
     zero, then one index_add_ over the flattened [B·N, C] rows
-    (deterministic on the CPU)."""
+    (deterministic on the CPU), in f32: a bf16 g is widened first."""
+    g = g.float()
     b, nq, k, c = g.shape
     i, inside = _window_mask(idx, starts, n, window, tq)
     rows = i + (torch.arange(b, device=g.device) * n)[:, None, None]
@@ -135,9 +161,11 @@ def _scatter_window_plain(g, idx, starts, n, window, tq):
 
 
 # K4's launch plan (csrc/scatter_window.cu): a group of G lanes sums each
-# dv row, lane l the units l, l + G, ... of it: float4s where c % 4 == 0,
-# G the power of 2 from 2 to 32 that covers them; else floats, 4 lanes up
-# to 16 channels and 32 above (measured on the H100, PERF.md). A tile is
+# dv row, lane l the units l, l + G, ... of it: vector units of a row
+# (f32: float4s where c % 4 == 0; bf16: 16-byte units of 8 where
+# c % 8 == 0, else 8-byte units of 4 where c % 4 == 0), G the power of 2
+# from 2 to 32 that covers them; else single values, 4 lanes up to 16
+# channels and 32 above (measured on the H100 in f32, PERF.md). A tile is
 # sorted by row in shared memory when its window has at most
 # SCATTER_HIST_MAX rows and it has at most SCATTER_FILL_ENTRIES entries,
 # else each entry claims its slot with a global atomic. Each row bins up
@@ -149,17 +177,20 @@ SCATTER_BIN = 48
 
 
 def scatter_plan(b: int, n: int, nq: int, k: int, c: int, window: int,
-                 tq: int):
-    """(group, hist) of K4 for these shapes: lanes per dv row, and whether
-    each tile is sorted in shared memory."""
+                 tq: int, g_dtype: torch.dtype = torch.float32):
+    """(group, hist) of K4 for these shapes and cotangent dtype: lanes per
+    dv row, and whether each tile is sorted in shared memory."""
     if not (1 <= b <= 65535 and n >= 1 and k >= 1 and c >= 1 and tq >= 1
             and nq >= 0 and nq % tq == 0 and 1 <= window <= n
             and nq * k < 2 ** 31):
         raise ValueError(f"scatter_plan: bad shapes b={b} n={n} nq={nq} "
                          f"k={k} c={c} window={window} tq={tq}")
+    if g_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"scatter_plan: cotangent dtype {g_dtype}")
+    per = (8 if c % 8 == 0 else 4) if g_dtype == torch.bfloat16 else 4
     if c % 4 == 0:
         group = 2
-        while group < min(c // 4, 32):
+        while group < min(c // per, 32):
             group *= 2
     else:
         group = 4 if c <= 16 else 32
@@ -174,7 +205,9 @@ def scatter_window(g: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor,
     query tile q // tq's window; an index outside its window contributes
     nothing. g [B, Nq, k, C]; idx [B, Nq, k] int32; starts [B, Nq/tq] int32.
     CPU tensors take the plain version; CUDA tensors launch K4, which takes
-    float32 g and adds in (q, j) order, as the plain version does."""
+    float32 or bfloat16 g and adds in (q, j) order in f32, as the plain
+    version does. dv is float32. A launch counts in
+    `scatter_window.launches` (f32 g) or `scatter_window.launches_bf16`."""
     b, nq, k, c = g.shape
     if idx.shape != (b, nq, k):
         raise ValueError(f"scatter_window: g {tuple(g.shape)} vs idx "
@@ -182,13 +215,14 @@ def scatter_window(g: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor,
     _check_window_args("scatter_window", b, n, idx, starts, window, tq)
     if g.device.type == "cpu":
         return _scatter_window_plain(g, idx, starts, n, window, tq)
-    if g.dtype != torch.float32 or idx.dtype != torch.int32 \
-            or starts.dtype != torch.int32:
-        raise TypeError("scatter_window: float32 g, int32 idx and starts")
+    if g.dtype not in (torch.float32, torch.bfloat16) \
+            or idx.dtype != torch.int32 or starts.dtype != torch.int32:
+        raise TypeError("scatter_window: float32 or bfloat16 g, int32 idx "
+                        "and starts")
     _kb.require_cuda("scatter_window", g, idx, starts)
-    group, hist = scatter_plan(b, n, nq, k, c, window, tq)
+    group, hist = scatter_plan(b, n, nq, k, c, window, tq, g.dtype)
     dev = g.device
-    dv = torch.empty((b, n, c), dtype=g.dtype, device=dev)
+    dv = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     # scratch: ids per row and per overflow list, each row's bin of ids,
     # and the (row, id) pairs past a full bin
     counts = torch.empty(b * n + b, dtype=torch.int32, device=dev)
@@ -197,46 +231,56 @@ def scatter_window(g: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor,
     err = _kb.library().scatter_window_launch(
         g.data_ptr(), idx.data_ptr(), starts.data_ptr(), counts.data_ptr(),
         bins.data_ptr(), ovf.data_ptr(), dv.data_ptr(), b, n, nq, k, c,
-        window, tq, group, int(hist), ctypes.c_void_p(_kb.stream_ptr(dev)))
+        window, tq, group, int(hist), int(g.dtype == torch.bfloat16),
+        ctypes.c_void_p(_kb.stream_ptr(dev)))
     _kb.check(err, "scatter_window")
-    scatter_window.launches += 1
+    if g.dtype == torch.bfloat16:
+        scatter_window.launches_bf16 += 1
+    else:
+        scatter_window.launches += 1
     return dv
 
 
 scatter_window.launches = 0
+scatter_window.launches_bf16 = 0
 
 
 class _GatherWindow(torch.autograd.Function):
-    """K2 forward, K4 backward (ssdr_al_tpu/ops/gather.py:269-330)."""
+    """K2 forward, K4 backward (ssdr_al_tpu/ops/gather.py:269-330): dv in
+    f32, cast to the values' dtype (:327)."""
 
     @staticmethod
-    def forward(ctx, values, idx, starts, window, tq):
+    def forward(ctx, values, idx, starts, window, tq, out_dtype):
         ctx.save_for_backward(idx, starts)
         ctx.window, ctx.tq, ctx.n = window, tq, values.shape[1]
-        return _gather_window_fwd(values, idx, starts, window, tq)
+        ctx.dtype = values.dtype
+        return _gather_window_fwd(values, idx, starts, window, tq, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         idx, starts = ctx.saved_tensors
         dv = scatter_window(g.contiguous(), idx, starts, ctx.n, ctx.window,
                             ctx.tq)
-        return dv, None, None, None, None
+        return dv.to(ctx.dtype), None, None, None, None, None
 
 
 def gather_window(values: torch.Tensor, idx: torch.Tensor,
-                  starts: torch.Tensor, window: int,
-                  tq: int = 128) -> torch.Tensor:
+                  starts: torch.Tensor, window: int, tq: int = 128,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """values [B, N, C]; idx [B, Nq, k] int32 with idx[b, t·tq:(t+1)·tq] in
     [starts[b, t], starts[b, t] + window); starts [B, Nq/tq] int32.
-    Returns [B, Nq, k, C] in the values' dtype (exact). An index outside
-    its window reads as a zero row, as on the TPU. Differentiable in
-    `values` (backward: scatter_window).
-    CPU tensors take the plain versions; CUDA tensors launch the kernels,
-    which take float32 values (the slice's dtype)."""
-    return _GatherWindow.apply(values, idx, starts, window, tq)
+    Returns [B, Nq, k, C] in out_dtype (default the values' dtype: an
+    exact copy; bfloat16 rounds each value to nearest even, as the TPU
+    kernel stores it). An index outside its window reads as a zero row, as
+    on the TPU. Differentiable in `values` (backward: scatter_window, in
+    f32). CPU tensors take the plain versions; CUDA tensors launch the
+    kernels, which take float32 values and store float32 or bfloat16."""
+    return _GatherWindow.apply(values, idx, starts, window, tq,
+                               out_dtype or values.dtype)
 
 
 gather_window.launches = 0
+gather_window.launches_bf16 = 0
 
 
 def tile_min_starts(idx: torch.Tensor, n: int, window: int,
@@ -249,13 +293,15 @@ def tile_min_starts(idx: torch.Tensor, n: int, window: int,
 
 
 def gather_window_auto(values: torch.Tensor, idx: torch.Tensor, window: int,
-                       tq: int = 128) -> torch.Tensor:
+                       tq: int = 128,
+                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """gather_window for windowed index sets whose starts are not carried
     (the pool gathers of the sorted path): each tile's start comes from its
     minimum index, and indices are clamped into [start, start + window).
     A clamp fires only when a tile's index spread exceeds the window
     (`window_violations` counts them; tests assert zero at their shapes).
-    The backward scatters through the same clamped indices."""
+    The backward scatters through the same clamped indices. out_dtype as
+    in gather_window."""
     n = values.shape[1]
     window = min(window, n)
     if window % 8:
@@ -263,7 +309,8 @@ def gather_window_auto(values: torch.Tensor, idx: torch.Tensor, window: int,
     starts = tile_min_starts(idx, n, window, tq)
     lo = torch.repeat_interleave(starts, tq, dim=1)[..., None]
     idx_c = torch.minimum(torch.maximum(idx, lo), lo + (window - 1))
-    return gather_window(values, idx_c.contiguous(), starts, window, tq)
+    return gather_window(values, idx_c.contiguous(), starts, window, tq,
+                         out_dtype)
 
 
 def window_violations(idx: torch.Tensor, window: int,

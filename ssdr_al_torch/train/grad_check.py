@@ -167,7 +167,7 @@ def gradient_errors(cfg, dev, seed, trace=False, pinned=False):
 
     # the wrapper counts its launches on the module's name for it, which
     # is `recording` while it stands in
-    recording.launches = 0
+    recording.launches = recording.launches_bf16 = 0
 
     cpu = torch.device("cpu")
     runs = [(dev, pyr, torch.float32), (cpu, cpu_pyr, torch.float32),

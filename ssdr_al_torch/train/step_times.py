@@ -1,7 +1,7 @@
 """Median wall time of warm train steps on the card, per training path.
 
     python3 ssdr_al_torch/train/step_times.py [--tree DIR] [--out PATH]
-        [--extract-sweep | --eval-steps]
+        [--extract-sweep | --eval-steps | --dtype bfloat16]
 
 Paths, each on a fresh Trainer (`window` engine, random weights) over
 synthetic rooms (seed 0):
@@ -34,8 +34,17 @@ EXTRACT_BYTES_PER_ROW). `--eval-steps` measures only eval steps
 (`MXU_DISTANCE_DEFAULT`), random weights (`init_params`, seed 0) on one
 random batch: each step by the host clock from its call to a
 synchronize, its numpy batch's upload included, the median and the
-range of 20 steps after 3 warm-up steps. Prints one line per path and, as its last line, the
-results as JSON (also written to PATH). chip_smoke.py runs `measure`.
+range of 20 steps after 3 warm-up steps. `--dtype bfloat16` measures only
+--compute_dtype bfloat16 beside float32: the pooled train step [6 × 40960]
+(al_loop's default path) and the `window` eval step [8 × 40960], each
+dtype on its own Trainer / model from the same random weights, the two
+dtypes in turns of 5 steps after 3 warm-up steps each, 20 timed steps a
+dtype (median and range as above); then, for each, the device time of
+its kernels a step under torch.profiler (kernels/measure.py::
+device_breakdown, 3 steps): their sum, the launches a step and the six
+largest kernels. Prints one line per path and, as its
+last line, the results as JSON (also written to PATH). chip_smoke.py runs
+`measure` and `dtype_steps`.
 """
 
 from __future__ import annotations
@@ -67,6 +76,30 @@ def timed_steps(step, steps, warmup):
             times.append(1e3 * (time.perf_counter() - t0))
     return dict(median_ms=statistics.median(times), min_ms=min(times),
                 max_ms=max(times), steps=steps)
+
+
+def in_turns(steps_by_name, steps, warmup, turn=5):
+    """timed_steps of several step(i) functions in turns of `turn` steps
+    (each warmed up first), so that a slow drift of the card or the host
+    falls on all of them alike; {name: {median_ms, min_ms, max_ms,
+    steps}}."""
+    times = {name: [] for name in steps_by_name}
+    for name, step in steps_by_name.items():
+        for i in range(warmup):
+            step(i)
+        torch.cuda.synchronize()
+    i = warmup
+    while any(len(v) < steps for v in times.values()):
+        for name, step in steps_by_name.items():
+            for _ in range(min(turn, steps - len(times[name]))):
+                t0 = time.perf_counter()
+                step(i)
+                torch.cuda.synchronize()
+                times[name].append(1e3 * (time.perf_counter() - t0))
+                i += 1
+    return {name: dict(median_ms=statistics.median(v), min_ms=min(v),
+                       max_ms=max(v), steps=len(v))
+            for name, v in times.items()}
 
 
 def event_ms(fn, reps):
@@ -217,6 +250,70 @@ def eval_steps(dev, steps=20, warmup=3, log=print):
     return out
 
 
+DTYPES = ("float32", "bfloat16")
+
+
+def dtype_steps(dev, steps=20, warmup=3, work="build/step_times",
+                log=print):
+    """The `--dtype bfloat16` readings (module docstring): {"train":
+    {dtype: {...}}, "eval": {dtype: {...}}}."""
+    import dataclasses
+
+    import numpy as np
+
+    from ssdr_al_torch import config
+    from ssdr_al_torch.data.synthetic import make_dataset
+    from ssdr_al_torch.models.randlanet import RandLANet, init_params
+    from ssdr_al_torch.train.device_pool import DeviceTrainPool
+    from ssdr_al_torch.train.trainer import make_eval_step
+
+    cfgs = {dt: dataclasses.replace(config.ConfigS3DIS, train_steps=steps,
+                                    compute_dtype=dt) for dt in DTYPES}
+    rooms, _ = make_dataset(num_train=S3DIS_ROOMS, num_val=0,
+                            num_points=S3DIS_ROOM_POINTS, seed=0, hard=True)
+    pool = DeviceTrainPool(rooms, cfgs["float32"], seed=1, device=dev)
+    if not pool.available:
+        raise AssertionError("the S3DIS pool is over its memory gate")
+    trainers = {dt: _trainer(c, dev, "S3DIS", work) for dt, c in cfgs.items()}
+    b = cfgs["float32"].batch_size
+
+    def train(tr):
+        return lambda i: tr.pooled_step(tr.train_state, pool,
+                                        *pool.sample_indices(b),
+                                        tr.dropout_gen)
+
+    from ssdr_al_torch.kernels.measure import device_breakdown
+
+    def kernels(step):
+        parts, launches = device_breakdown(lambda: step(0), reps=3)
+        return dict(device_ms=sum(parts.values()), launches=launches,
+                    top_ms={k[:60]: round(v, 4)
+                            for k, v in list(parts.items())[:6]})
+
+    fns = {dt: train(tr) for dt, tr in trainers.items()}
+    out = {"train": in_turns(fns, steps, warmup)}
+    for dt, f in fns.items():
+        out["train"][dt].update(kernels(f))
+    log(f"pooled train step [{b}x{cfgs['float32'].num_points}] in turns: "
+        + json.dumps(out["train"]))
+    del trainers, pool
+    n = cfgs["float32"].num_points
+    rng = np.random.RandomState(0)
+    xyz = (rng.rand(8, n, 3) * 6).astype(np.float32)
+    batch = {"xyz": xyz, "features": np.concatenate(
+        [xyz, rng.rand(8, n, 3).astype(np.float32)], -1)}
+    state = {k: v.to(dev) for k, v in init_params(
+        cfgs["float32"], torch.Generator().manual_seed(0)).items()}
+    evals = {dt: make_eval_step(RandLANet(c).to(dev), c, "window", False,
+                                device=dev) for dt, c in cfgs.items()}
+    fns = {dt: (lambda i, f=f: f(state, batch)) for dt, f in evals.items()}
+    out["eval"] = in_turns(fns, steps, warmup)
+    for dt, f in fns.items():
+        out["eval"][dt].update(kernels(f))
+    log(f"window eval step [8x{n}] in turns: " + json.dumps(out["eval"]))
+    return out
+
+
 def peak_bytes(fn, dev):
     """Peak device memory fn() allocates beyond what was allocated
     before it."""
@@ -294,6 +391,10 @@ def main() -> int:
     ap.add_argument("--eval-steps", action="store_true",
                     help="measure only the eval steps [8 x 40960] on the "
                          "pallas, window and window + K5 engines")
+    ap.add_argument("--dtype", choices=["bfloat16"],
+                    help="measure only the pooled train step [6 x 40960] "
+                         "and the window eval step [8 x 40960] in this "
+                         "dtype and in float32, in turns")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -314,6 +415,9 @@ def main() -> int:
         res = {"extraction": extraction_sweep(dev)}
     elif args.eval_steps:
         res = {"eval_steps": eval_steps(dev)}
+    elif args.dtype:
+        res = {"dtypes": dtype_steps(dev, work=os.path.join(
+            tree, "build", "step_times"))}
     else:
         res = measure(dev, work=os.path.join(tree, "build", "step_times"))
     res.update(tree=tree, card=card)

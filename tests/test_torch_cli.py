@@ -2,19 +2,28 @@
 tests/test_e2e.py::test_full_al_loop through ssdr_al_torch.cli (seed round,
 then one full-SSDR AL round with retraining), at that test's sizes. The
 superpoint partition is not ported, so the registry comes from
-grid_superpoints (cli/common.write_grid_superpoints). Also: the flags
+grid_superpoints (cli/common.write_grid_superpoints). Also: one al_loop
+round with each comparison branch and --compute_dtype bfloat16; the
+--sampler random round and the labels of cli.baseline and
+cli.max_dominant equal to the JAX samplers' on the same state; the flags
 whose path is not ported raise, and so does the default device without a
 card."""
 
 import argparse
+import functools
 import os
 import pickle
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from ssdr_al_torch.cli import al_loop, evaluate, seed
+from ssdr_al_tpu.active import samplers as j_samplers
+from ssdr_al_tpu.active import state as j_state
+from ssdr_al_torch.active import gcn as t_gcn
+from ssdr_al_torch.active import samplers as t_samplers
+from ssdr_al_torch.cli import al_loop, baseline, evaluate, max_dominant, seed
 from ssdr_al_torch.cli.common import setup_experiment, write_grid_superpoints
 
 torch.set_num_threads(1)
@@ -79,9 +88,121 @@ def test_full_al_loop(workdir):
                if v.is_floating_point())
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("num_devices", 2), ("compute_dtype", "bfloat16"), ("sampler", "random"),
-])
+@pytest.fixture(scope="module")
+def seeded(tmp_path_factory):
+    """A data root with the registry (grid superpoints) and the seed round
+    run by cli.seed, made once; tests copy it."""
+    base = tmp_path_factory.mktemp("seeded")
+    cwd = os.getcwd()
+    os.chdir(base)
+    try:
+        args = make_args(base)
+        exp = setup_experiment(args)
+        write_grid_superpoints(exp.make_state([]), exp.train_clouds, 24)
+        seed.run_seed(args)
+    finally:
+        os.chdir(cwd)
+    return base / "data"
+
+
+def _same_files(a_dir, b_dir):
+    names = sorted(os.listdir(a_dir))
+    assert names == sorted(os.listdir(b_dir)) and names
+    for fname in names:
+        with open(os.path.join(a_dir, fname), "rb") as a, \
+                open(os.path.join(b_dir, fname), "rb") as b:
+            assert a.read() == b.read(), fname
+
+
+@pytest.mark.parametrize("over", [
+    dict(compute_dtype="bfloat16"), dict(sampler="random",
+                                         oracle_mode="dominant"),
+    dict(edcd=1, gcn_fps=0), dict(gcn=1, gcn_fps=0), dict(chamfer_mxu=1)],
+    ids=["bfloat16", "random", "edcd", "gcn", "chamfer_mxu"])
+def test_al_loop_branches_run(workdir, seeded, monkeypatch, over):
+    """One al_loop round from the seed round with each comparison branch
+    and with bf16 activations: the round labels superpoints and trains to
+    a finite snap-2. The coreGCN fit is cut to 200 steps here (20 000 in
+    the branch; the full fit runs in chip_smoke.py)."""
+    shutil.copytree(seeded, workdir / "data")
+    monkeypatch.setattr(t_samplers, "gcn_sampling",
+                        functools.partial(t_gcn.gcn_sampling, num_steps=200))
+    args = make_args(workdir, **over)
+    ((miou, oa),) = al_loop.run_al_loop(args)
+    assert 0 <= miou <= 1 and 0 <= oa <= 1
+    exp = setup_experiment(args)
+    sargs = "-".join(al_loop.build_sampler_args(args))
+    t0 = _load(os.path.join(exp.data_path, "superpoint", "total.pkl"))
+    t2 = _load(os.path.join(exp.data_path, "sampling", sargs, "round_2",
+                            "total.pkl"))
+    assert sum(len(v) for v in t2["unlabeled"].values()) < \
+        sum(len(v) for v in t0["unlabeled"].values())
+    state = torch.load(os.path.join(exp.data_path, "saver", sargs,
+                                    "snapshots", "snap-2"),
+                       map_location="cpu", weights_only=True)
+    assert all(torch.isfinite(v).all() for v in state.values()
+               if v.is_floating_point())
+
+
+def test_al_loop_random_round_matches_jax(workdir, seeded):
+    """--sampler random: the round's files equal those of JAX's
+    RandomSampler (seed --t, the same budget) on the same seed round."""
+    shutil.copytree(seeded, workdir / "data")
+    shutil.copytree(seeded, workdir / "jax")
+    args = make_args(workdir, sampler="random", oracle_mode="dominant")
+    al_loop.run_al_loop(args)
+    exp = setup_experiment(args)
+    sargs = al_loop.build_sampler_args(args)
+    j_path = os.path.join(workdir, "jax", os.path.relpath(
+        exp.data_path, workdir / "data"))
+    j_state_ = j_state.ALState(j_path, sargs)
+    j_samplers.RandomSampler(
+        j_state_, exp.train_clouds, j_state_.load_registry()["sp_num"],
+        args.min_size, oracle_mode=args.oracle_mode, seed=args.t).sampling(
+            args.sp_batch_size, 1, j_state.RoundStats(),
+            threshold=args.threshold)
+    rd = os.path.join("sampling", "-".join(sargs), "round_2")
+    _same_files(os.path.join(exp.data_path, rd), os.path.join(j_path, rd))
+
+
+@pytest.mark.parametrize("driver", ["baseline", "max_dominant"])
+def test_driver_labels_match_jax(workdir, driver):
+    """cli.baseline (every superpoint precisely labelled) and
+    cli.max_dominant (every superpoint with its dominant label) each train
+    one round to a finite snapshot; the pseudo-GT files and the registry
+    they wrote before training equal those of the JAX sampler behind the
+    JAX driver, run on a copy of the same registry."""
+    args = make_args(workdir)
+    exp = setup_experiment(args)
+    total = write_grid_superpoints(exp.make_state([]), exp.train_clouds, 24)
+    j_path = str(workdir / "jax")
+    shutil.copytree(os.path.join(exp.data_path, "superpoint"),
+                    os.path.join(j_path, "superpoint"))
+    run, rnd = ((baseline.run_baseline, 1) if driver == "baseline"
+                else (max_dominant.run_max_dominant, 2))
+    miou, oa = run(args)
+    assert 0 <= miou <= 1 and 0 <= oa <= 1
+    st = j_state.ALState(j_path, [driver])
+    if driver == "baseline":
+        j_samplers.SeedSampler(st, exp.train_clouds, total["sp_num"]
+                               ).sampling(total["sp_num"], 0,
+                                          j_state.RoundStats())
+    else:
+        j_samplers.AllSampler(st, exp.train_clouds, total["sp_num"],
+                              oracle_mode="dominant").sampling(
+            total["sp_num"], 1, j_state.RoundStats())
+    rd = os.path.join("sampling", driver, f"round_{rnd}")
+    _same_files(os.path.join(exp.data_path, rd), os.path.join(j_path, rd))
+    assert not _load(os.path.join(exp.data_path, rd, "total.pkl"))[
+        "unlabeled"]
+    snap = os.path.join(exp.data_path, "saver", driver, "snapshots",
+                        f"snap-{rnd}")
+    state = torch.load(snap, map_location="cpu", weights_only=True)
+    assert all(torch.isfinite(v).all() for v in state.values()
+               if v.is_floating_point())
+
+
+@pytest.mark.parametrize("flag,value", [("num_devices", 2)])
 def test_unported_flags_raise(workdir, flag, value):
     args = make_args(workdir, **{flag: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -100,6 +221,10 @@ def _entry_points(tmp_path):
             ["--synthetic", "--data_root", str(tmp_path / "data")]),
         "cli.al_loop": lambda: al_loop.main(
             ["--synthetic", "--data_root", str(tmp_path / "data")]),
+        "cli.baseline": lambda: baseline.main(
+            ["--synthetic", "--data_root", str(tmp_path / "data")]),
+        "cli.max_dominant": lambda: max_dominant.main(
+            ["--synthetic", "--data_root", str(tmp_path / "data")]),
         "cli.evaluate": lambda: evaluate.main(
             ["--synthetic", "--data_root", str(tmp_path / "data"),
              "--snapshot", str(tmp_path / "snap-1")]),
@@ -117,13 +242,16 @@ def _entry_points(tmp_path):
         "build_region_graph": lambda: region_graph.build_region_graph({}),
         "gcn_fps_sampling": lambda: fps_gcn.gcn_fps_sampling(
             None, np.zeros((0, 4), np.float32), np.zeros(0, bool), 1),
+        "gcn_sampling": lambda: t_gcn.gcn_sampling(
+            None, np.zeros((0, 4), np.float32), np.zeros(0, bool), 1),
     }
 
 
 @pytest.mark.parametrize("entry", [
-    "cli.seed", "cli.al_loop", "cli.evaluate", "make_eval_step",
-    "make_train_step", "Trainer", "InferenceRunner", "TSampler",
-    "SuperpointBlockCache", "build_region_graph", "gcn_fps_sampling"])
+    "cli.seed", "cli.al_loop", "cli.baseline", "cli.max_dominant",
+    "cli.evaluate", "make_eval_step", "make_train_step", "Trainer",
+    "InferenceRunner", "TSampler", "SuperpointBlockCache",
+    "build_region_graph", "gcn_fps_sampling", "gcn_sampling"])
 def test_entry_points_default_to_the_card(workdir, entry):
     """Without device="cpu" every entry point asks for the card, and on a
     machine without one it raises before doing any work."""

@@ -498,3 +498,184 @@ def test_scatter_window_auto_gradient(dev):
     torch.cuda.synchronize()
     assert ga.window_violations(idx, window) > 0
     assert torch.equal(grads[0], grads[1])
+
+
+# ---------------------------------------------------- bfloat16 (K2, K4) ---
+
+@pytest.mark.parametrize("tq", [512, 128])
+@pytest.mark.parametrize("c", [8, 11, 32, 35, 64, 67, 128, 256])
+def test_gather_window_bf16_every_channel_count(dev, c, tq):
+    """K2 with bf16 output at every channel count the model gathers, both
+    tile sizes, the wrapper's plan and each source forced: bitwise equal
+    to the plain version, the f32 gather rounded to bf16."""
+    rng = np.random.RandomState(c + tq + 1)
+    b, n, k, window = 2, 4096, 16, 1024
+    vals = torch.from_numpy(rng.randn(b, n, c).astype(np.float32))
+    starts = torch.from_numpy(
+        (rng.randint(0, (n - window) // 128 + 2, (b, n // tq)) * 128)
+        .astype(np.int32))
+    lo = torch.repeat_interleave(torch.clamp(starts, 0, n - window), tq,
+                                 1)[..., None]
+    idx = (lo + torch.from_numpy(rng.randint(-9, window + 9, (b, n, k))))
+    idx = torch.clamp(idx, 0, n - 1).int()
+    want = ga.gather_window(vals, idx, starts, window, tq, torch.bfloat16)
+    assert want.dtype == torch.bfloat16
+    assert torch.equal(want, ga._gather_window_plain(
+        vals, idx, starts, window, tq).to(torch.bfloat16))
+    v, i, st = vals.to(dev), idx.to(dev), starts.to(dev)
+    got = [ga.gather_window(v, i, st, window, tq, torch.bfloat16)]
+    for slab in (True, False):
+        if slab and window * c * 4 > 227 * 1024:
+            continue
+        plan = ga.gather_plan(b, n, k, c, window, tq, slab=slab,
+                              out_dtype=torch.bfloat16)
+        got.append(ga._gather_window_launch(v, i, st, window, tq, plan,
+                                            torch.bfloat16))
+    torch.cuda.synchronize()
+    for g in got:
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g.cpu().view(torch.int16),
+                           want.view(torch.int16))
+
+
+@pytest.mark.parametrize("rows_c", ["8-byte units", "16-byte units"])
+def test_gather_window_bf16_units_and_ties(dev, rows_c):
+    """K2-bf16 where rows·c is not a multiple of 8 (tq = 4, k = 1, c odd:
+    8-byte stores) and where it is, on values at the rounding ties of
+    bf16 (halfway between two bf16 values, both parities, signed zeros,
+    the largest finite floats): bitwise equal to the plain version."""
+    b, n, window = 1, 256, 128
+    tq, k, c = (4, 1, 5) if rows_c == "8-byte units" else (128, 16, 11)
+    plan = ga.gather_plan(b, n, k, c, window, tq, slab=False,
+                          out_dtype=torch.bfloat16)
+    assert plan[3] == (4 if rows_c == "8-byte units" else 8)
+    base = (torch.arange(b * n * c, dtype=torch.int32) + 0x3F00) << 16
+    ties = base | 0x8000                       # exactly halfway
+    ties[::7] = 0x7F7FFFFF                     # rounds to inf
+    ties[1::7] = -0x80000000                   # -0.0
+    ties[2::7] = base[2::7] | 0x7FFF           # just below halfway
+    vals = ties.view(torch.float32).reshape(b, n, c)
+    rng = np.random.RandomState(3)
+    starts = torch.zeros((b, n // tq), dtype=torch.int32)
+    starts[:, n // tq // 2:] = n - window
+    lo = torch.repeat_interleave(starts, tq, 1)[..., None]
+    idx = (lo + torch.from_numpy(rng.randint(0, window, (b, n, k)))).int()
+    want = ga._gather_window_plain(vals, idx, starts, window,
+                                   tq).to(torch.bfloat16)
+    for slab in (True, False):
+        p = ga.gather_plan(b, n, k, c, window, tq, slab=slab,
+                           out_dtype=torch.bfloat16)
+        got = ga._gather_window_launch(vals.to(dev), idx.to(dev),
+                                       starts.to(dev), window, tq, p,
+                                       torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int16),
+                           want.view(torch.int16)), p
+
+
+@pytest.mark.parametrize("tq", [512, 128])
+@pytest.mark.parametrize("c", [8, 11, 32, 35, 64, 67, 128, 256])
+def test_scatter_window_bf16_every_channel_count(dev, c, tq):
+    """K4 with a bf16 cotangent at every channel count the model scatters:
+    bitwise equal to index_add_ of g.float() on the CPU (the plain
+    version) and to a second launch; f32 dv."""
+    rng = np.random.RandomState(c + tq + 2)
+    b, n, k, window = 2, 4096, 16, 1024
+    g, idx, starts = _scatter_inputs(rng, b, n, n, k, c, window, tq)
+    g = g.to(torch.bfloat16)
+    want = ga.scatter_window(g, idx, starts, n, window, tq)
+    assert want.dtype == torch.float32
+    assert torch.equal(want, ga.scatter_window(g.float(), idx, starts, n,
+                                               window, tq))
+    args = (g.to(dev), idx.to(dev), starts.to(dev), n, window, tq)
+    got, again = ga.scatter_window(*args), ga.scatter_window(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+
+
+_FIRST_K4_BF16 = _FIRST_K4.replace(
+    "g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))",
+    "g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))"
+    ".to(torch.bfloat16)")
+
+
+def test_scatter_window_bf16_first_launch_at_48_kib(dev):
+    """test_scatter_window_first_launch_at_48_kib with a bf16 cotangent:
+    the fill kernel's 48 KiB opt-in as the first K4 launch of a fresh
+    process, and the bf16 sum kernel after it."""
+    import os
+    import subprocess
+    import sys
+
+    assert "bfloat16" in _FIRST_K4_BF16
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FIRST_K4_BF16], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_gather_window_bf16_backward(dev):
+    """gather_window with bf16 output on the card: the forward launches K2
+    (bf16), the backward K4 (bf16 cotangent), the gradient f32 and bitwise
+    equal to the CPU's."""
+    rng = np.random.RandomState(11)
+    b, n, k, c, window, tq = 2, 8192, 16, 11, 2048, 512
+    g, idx, starts = _scatter_inputs(rng, b, n, n, k, c, window, tq)
+    vals = torch.from_numpy(rng.randn(b, n, c).astype(np.float32))
+    cot = g.to(torch.bfloat16)
+    grads = []
+    counts = (ga.gather_window.launches_bf16, ga.scatter_window.launches_bf16,
+              ga.gather_window.launches, ga.scatter_window.launches)
+    for d in ("cpu", dev):
+        v = vals.to(d, copy=True).requires_grad_(True)
+        out = ga.gather_window(v, idx.to(d), starts.to(d), window, tq,
+                               torch.bfloat16)
+        assert out.dtype == torch.bfloat16
+        out.backward(cot.to(d))
+        grads.append(v.grad.cpu())
+    torch.cuda.synchronize()
+    assert (ga.gather_window.launches_bf16, ga.scatter_window.launches_bf16,
+            ga.gather_window.launches, ga.scatter_window.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    assert grads[1].dtype == torch.float32
+    assert torch.equal(grads[0], grads[1])
+
+
+# --------------------------------------- the comparison branches' loops ---
+
+def test_kcenter_greedy_on_card_equals_cpu(dev):
+    """k-center greedy on the card (full-f32 products) picks what it picks
+    on the CPU, labeled points never among them."""
+    from ssdr_al_torch.ops.kcenter import kcenter_greedy
+
+    rng = np.random.RandomState(4)
+    feats = torch.from_numpy(rng.randn(3000, 129).astype(np.float32))
+    labeled = torch.from_numpy(rng.rand(3000) < 0.3)
+    want = kcenter_greedy(feats, labeled, 200, chunk=512)
+    got = kcenter_greedy(feats.to(dev), labeled.to(dev), 200, chunk=512)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert not labeled[want].any()
+
+
+def test_farthest_superpoint_sample_on_card_equals_cpu(dev):
+    """Farthest-superpoint sampling over ED² + a chamfer matrix from K3 on
+    the card against the same loop on the CPU on the plain version's
+    matrix: the same picks."""
+    from ssdr_al_torch.ops.fps import farthest_superpoint_sample
+
+    rng = np.random.RandomState(5)
+    s, p = 300, 128
+    pts = torch.from_numpy((rng.randn(s, p, 3) * 0.3).astype(np.float32))
+    msk = torch.from_numpy(rng.rand(s, p) < 0.7)
+    msk[:, 0] = True
+    cents = torch.from_numpy((rng.rand(s, 3) * 5).astype(np.float32))
+    before = ch.chamfer_sums.launches
+    cd_dev = ch.chamfer_pairwise(pts.to(dev), msk.to(dev))
+    assert ch.chamfer_sums.launches == before + 1
+    want = farthest_superpoint_sample(cents, ch.chamfer_pairwise(pts, msk),
+                                      3, 60)
+    got = farthest_superpoint_sample(cents.to(dev), cd_dev, 3, 60)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)

@@ -176,7 +176,8 @@ def test_gather_plan_at_main_path_shapes(nq, k, c, window, tq):
     row lookup in range; the slab only where it is small and the tiles
     fill the card."""
     b = 8
-    slab, rows, threads = tg.gather_plan(b, nq, k, c, window, tq)
+    slab, rows, threads, unit = tg.gather_plan(b, nq, k, c, window, tq)
+    assert unit == 4
     assert (tq * k) % rows == 0 and (rows * c) % 4 == 0
     assert rows * c < 1 << 24 and threads % 32 == 0 and threads <= 1024
     if slab:
@@ -192,10 +193,10 @@ def test_gather_plan_values_and_refusal():
     """The slab serves the L0 LFA gather of 8 channels only; tq must be a
     multiple of 4 for whole float4s."""
     plan = tg.gather_plan
-    assert plan(8, 40960, 16, 8, 2048, 512) == (True, 8192, 1024)
-    assert plan(8, 40960, 16, 11, 2048, 512) == (False, 2048, 256)
-    assert plan(8, 10240, 16, 35, 1024, 512) == (False, 512, 256)
-    assert plan(8, 640, 16, 256, 2560, 128) == (False, 128, 256)
+    assert plan(8, 40960, 16, 8, 2048, 512) == (True, 8192, 1024, 4)
+    assert plan(8, 40960, 16, 11, 2048, 512) == (False, 2048, 256, 4)
+    assert plan(8, 10240, 16, 35, 1024, 512) == (False, 512, 256, 4)
+    assert plan(8, 640, 16, 256, 2560, 128) == (False, 128, 256, 4)
     assert plan(2, 8192, 16, 8, 2048, 512)[0] is False    # too few tiles
     with pytest.raises(ValueError, match="tq % 4"):
         plan(1, 6, 2, 3, 4, 6)
@@ -206,7 +207,7 @@ def _k2_twin(values, idx, starts, window, tq, plan):
     [part·rows, (part+1)·rows) of its tile as float4s; a float4 at float
     p of the span starts in row umulhi(p, ceil(2^32 / c)) and steps the
     channel, moving to the next row when it reaches c."""
-    _, rows, _ = plan
+    _, rows, _, _ = plan
     b, n, c = values.shape
     nq, k = idx.shape[1:]
     magic = np.uint64(0xFFFFFFFF // c + 1)
@@ -254,6 +255,6 @@ def test_k2_span_arithmetic_equals_plain(c):
         plan = tg.gather_plan(b, n, k, c, window, tq, slab=slab)
         np.testing.assert_array_equal(
             _k2_twin(vals, idx, starts, window, tq, plan), want)
-    small = (False, 4, 256)                  # many parts per tile
+    small = (False, 4, 256, 4)               # many parts per tile
     np.testing.assert_array_equal(
         _k2_twin(vals, idx, starts, window, tq, small), want)
