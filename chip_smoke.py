@@ -36,6 +36,17 @@ room. Then the paper's comparison branches from the same snap-1: one
 selection round each with --sampler random, --edcd 1 (K3 per candidate
 cloud) and --gcn 1 (K3, the 20 000-step coreGCN fit and k-center), and
 one round each of cli.baseline and cli.max_dominant at the smoke's depth.
+First of the loops, the offline path at S3DIS room size (partition_path):
+raw S3DIS rooms (2 of Area_1 to train, 1 of Area_5 to validate, each of
+ROOM_POINTS points from the hard room generator, as Annotations/ text
+files), cli.prepare at its 0.04 grid, cli.superpoint at the defaults
+users run (k_nn_geof 45, k_nn_adj 10, reg_strength 0.008,
+lambda_edge_weight 1.0, knn_backend auto: the 46-NN graph through K6's
+K = 64 instantiation, geof on the card, cut-pursuit on the host) with
+each room's stage times, the card's graph against the host cKDTree's and
+its geof against the CPU's, K6 at the partition's call beside its plain
+version, cdist + topk and its bound, then cli.seed and one full-SSDR
+cli.al_loop round on that cut-pursuit registry.
 
     python3 chip_smoke.py [--profile [PATH]]
 
@@ -85,6 +96,8 @@ KERNELS = {
                            "ssdr_al_tpu/ops/gather.py:62"),
     "scatter_window_bf16": ("ssdr_al_torch/csrc/scatter_window.cu",
                             "ssdr_al_tpu/ops/gather.py:184"),
+    "knn_tiled_k64": ("ssdr_al_torch/csrc/knn_tiled.cu",
+                      "ssdr_al_tpu/ops/knn.py:760"),
 }
 ROOMS, ROOM_POINTS, TARGET_SP, BUDGET = 4, 150_000, 2048, 400
 TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 8, 2
@@ -107,6 +120,10 @@ BRANCH_ARGS = {
 }
 # cli.baseline and cli.max_dominant: synthetic rooms, one round
 DRIVER_ROOMS, DRIVER_EPOCHS, DRIVER_STEPS = 2, 1, 4
+# the partition path: raw rooms to train and to validate, the seed round's
+# and the AL round's depth, the AL round's budget of superpoints
+PART_TRAIN_ROOMS, PART_VAL_ROOMS = 2, 1
+PART_EPOCHS, PART_STEPS, PART_BUDGET = 1, 4, 400
 
 
 def cuda_ms(fn, reps):
@@ -136,7 +153,8 @@ def kernel_counters():
             "window_topk_mxu": (window_topk, "launches_mxu"),
             "knn_tiled": (knn_tiled, "launches"),
             "gather_window_bf16": (gather_window, "launches_bf16"),
-            "scatter_window_bf16": (scatter_window, "launches_bf16")}
+            "scatter_window_bf16": (scatter_window, "launches_bf16"),
+            "knn_tiled_k64": (knn_tiled, "launches_k64")}
 
 
 def reset_counts():
@@ -407,6 +425,202 @@ def check_selection_picks(k3_call, fps_call):
     if picks[0] != picks[1]:
         raise AssertionError("GCN-FPS picks differ between K3 and its plain "
                              "version")
+
+
+def graph_ties(xyz, idx_card, idx_host, rel=1e-6):
+    """The card's neighbour lists against the host's: row by row, their
+    f64 distances agree column by column within `rel` (two exact top-k
+    lists differ only in the order of near-equal distances). Returns the
+    count of differing entries."""
+    x = xyz.astype(np.float64)
+    dc = np.linalg.norm(x[idx_card] - x[:, None], axis=-1)
+    dh = np.linalg.norm(x[idx_host] - x[:, None], axis=-1)
+    bad = np.abs(dc - dh) > rel * dh + 1e-9
+    if bad.any():
+        raise AssertionError(f"{int(bad.sum())} neighbours of the card's "
+                             "graph are not distance ties of the host's")
+    return int((idx_card != idx_host).sum())
+
+
+def geof_agreement(xyz, nb, card, cpu):
+    """geof on the card against the CPU on the same neighbourhoods, within
+    the CPU tests' tolerance (ops/geof.py::agreement_tolerance, per point
+    from its neighbourhood's f64 eigenvalues: ATOL, or ATOL_SQRT for a
+    feature built on the root of an eigenvalue under SMALL·λ1, or
+    ATOL_NEAR_TIE for verticality where two eigenvalues nearly meet).
+    Returns (max difference by feature, share of entries within ATOL,
+    share of entries held to ATOL)."""
+    from ssdr_al_torch.ops import geof
+
+    d = np.abs(card - cpu)
+    tol = geof.agreement_tolerance(geof.neighbourhood_eigenvalues(xyz, nb))
+    if not (d <= tol).all() or not np.isfinite(card).all():
+        worst = np.unravel_index(np.argmax(d - tol), d.shape)
+        raise AssertionError(f"geof on the card off the CPU's: max "
+                             f"{d.max(0).tolist()}, worst {worst} "
+                             f"{d[worst]:.3e} over {tol[worst]:.1e}")
+    return d.max(0).tolist(), float((d <= geof.ATOL).mean()), \
+        float((tol == geof.ATOL).mean())
+
+
+def write_s3dis_raw(raw, area, rooms):
+    """Raw S3DIS rooms: <raw>/<area>/room_<i>/Annotations/<class>_1.txt
+    with x y z r g b rows, one file a class (the hard generator's labels
+    name S3DIS classes in S3DIS_CLASS_NAMES' order)."""
+    from ssdr_al_torch.data.prepare import S3DIS_CLASS_NAMES
+
+    for i, c in enumerate(rooms):
+        anno = os.path.join(raw, area, f"room_{i}", "Annotations")
+        os.makedirs(anno)
+        rgb = np.round(c.colors * 255.0)
+        for lab in np.unique(c.labels):
+            m = c.labels == lab
+            np.savetxt(os.path.join(anno, f"{S3DIS_CLASS_NAMES[lab]}_1.txt"),
+                       np.hstack([c.xyz[m], rgb[m]]),
+                       fmt=["%.4f"] * 3 + ["%d"] * 3)
+
+
+def partition_path(dev, work):
+    """The offline path and a round on its registry, each step's launches
+    counted from 0: raw S3DIS rooms → cli.prepare → cli.superpoint (K6 at
+    k = 46 on the new K = 64 instantiation, geof on the card, cut-pursuit
+    on the host) with per-room stage times; the card's 46-NN graph
+    against the host cKDTree's up to distance ties, its geof against the
+    CPU's; K6 at the partition's call (measure.check_k6); then cli.seed
+    and one full-SSDR cli.al_loop round, which labels exactly
+    PART_BUDGET superpoints. Returns ({path: launch counts}, K6's check at
+    the partition's call)."""
+    from scipy.spatial import cKDTree
+
+    from ssdr_al_torch.active import samplers as sm
+    from ssdr_al_torch.active.state import ALState
+    from ssdr_al_torch.cli import al_loop as cli_al_loop
+    from ssdr_al_torch.cli import prepare, seed, superpoint
+    from ssdr_al_torch.cli.common import setup_experiment
+    from ssdr_al_torch.data.synthetic import make_dataset
+    from ssdr_al_torch.kernels import measure
+    from ssdr_al_torch.ops import knn as kn
+    from ssdr_al_torch.ops.geof import geometric_features
+
+    paths = {}
+    t0 = time.perf_counter()
+    train, val = make_dataset(num_train=PART_TRAIN_ROOMS,
+                              num_val=PART_VAL_ROOMS, num_points=ROOM_POINTS,
+                              seed=6, hard=True)
+    raw = os.path.join(work, "raw")
+    write_s3dis_raw(raw, "Area_1", train)
+    write_s3dis_raw(raw, "Area_5", val)
+    t1 = time.perf_counter()
+    data_root = os.path.join(work, "data")
+    prepare.main(["--device", str(dev), "--dataset", "S3DIS", "--raw", raw,
+                  "--out", os.path.join(data_root, "S3DIS")])
+    t2 = time.perf_counter()
+    print(f"partition path: {PART_TRAIN_ROOMS} + {PART_VAL_ROOMS} raw S3DIS "
+          f"rooms of {ROOM_POINTS} points written in {t1 - t0:.1f} s, "
+          f"cli.prepare (0.04 grid) {t2 - t1:.1f} s")
+
+    common = ["--device", str(dev), "--dataset", "S3DIS", "--data_root",
+              data_root, "--reg_strength", "0.008"]
+    args = superpoint.parser().parse_args(common + [
+        "--k_nn_geof", "45", "--k_nn_adj", "10", "--lambda_edge_weight",
+        "1.0", "--knn_backend", "auto"])
+    reset_counts()
+    t0 = time.perf_counter()
+    total, times = superpoint.run_superpoint(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["partition"] = read_counts()
+    print(f"cli.superpoint: {wall:.1f} s wall, {total['sp_num']} "
+          f"superpoints in {total['file_num']} rooms; launches "
+          + json.dumps(paths["partition"]))
+    for t in times:
+        print(f"  room {t['name']}: {t['points']} prepared points, K6 "
+              f"46-NN {t['knn_ms']:.3f} ms ({t['knn_backend']}), geof "
+              f"{t['geof_ms']:.3f} ms (CUDA events), cut-pursuit "
+              f"{t['cutpursuit_s']:.3f} s, {t['superpoints']} superpoints")
+    require_launched("partition", paths["partition"], ("knn_tiled_k64",))
+    if paths["partition"]["knn_tiled_k64"] != len(times) or \
+            any(t["knn_backend"] != "device" for t in times):
+        raise AssertionError("cli.superpoint did not search every room "
+                             "through K6's K = 64 instantiation")
+
+    clouds = setup_experiment(args).train_clouds
+    for c in clouds:
+        x = torch.from_numpy(c.xyz).to(dev)
+        idx = kn.knn_tiled(x[None], x[None], 46)[0]
+        host = cKDTree(c.xyz).query(c.xyz, k=46)[1]
+        differ = graph_ties(c.xyz, idx.cpu().numpy(), host)
+        nb = idx[:, 1:]
+        card = geometric_features(x, nb).cpu().numpy()
+        cpu = geometric_features(x.cpu(), nb.cpu()).numpy()
+        dmax, share, tight = geof_agreement(c.xyz, nb.cpu().numpy(), card,
+                                            cpu)
+        print(f"  room {c.name}: the card's 46-NN graph equals the host "
+              f"cKDTree's up to distance ties ({differ} of "
+              f"{idx.numel()} entries differ); geof card vs CPU max diff "
+              f"{[f'{v:.2e}' for v in dmax]}, {100 * share:.3f} % of "
+              f"entries within 2e-5 ({100 * tight:.1f} % held to it)")
+    k64 = measure.check_k6(measure.partition_call(dev, clouds[0].xyz))
+    print(f"K6 knn_tiled_k64 at the partition's call {k64['shape']} "
+          f"(route {k64['route']}): equal to the plain version, "
+          f"{k64['ms']:.3f} ms (plain {k64['plain_ms']:.3f} ms, cdist+topk "
+          f"{k64['library_ms']:.3f} ms, bound {k64['bound_ms']:.4f} ms by "
+          f"{k64['bound_by']}; pairs {100 * k64['pair_share']:.3f} %)")
+
+    depth = ["--max_epoch", str(PART_EPOCHS), "--train_steps",
+             str(PART_STEPS), "--val_steps", str(VAL_STEPS)]
+    cwd = os.getcwd()
+    os.chdir(work)                      # record_round/ lands in the cwd
+    extras, record = [], sm.TSampler._record_selection_stats
+
+    def recording(self, file_list, total_obj, stats):
+        record(self, file_list, total_obj, stats)
+        extras.append(dict(stats.extra))
+
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        seed.main(common + depth + ["--seed_percent", "0.01"])
+        torch.cuda.synchronize()
+        paths["partition_seed"] = read_counts()
+        print(f"cli.seed on the cut-pursuit registry: "
+              f"{time.perf_counter() - t0:.1f} s wall; launches "
+              + json.dumps(paths["partition_seed"]))
+        sm.TSampler._record_selection_stats = recording
+        reset_counts()
+        t0 = time.perf_counter()
+        cli_al_loop.main(common + depth + [
+            "--sampler", "T", "--round", "2", "--rounds", "2", "--classbal",
+            "2", "--gcn_fps", "1", "--uncertainty_mode", "WetSU",
+            "--point_uncertainty_mode", "sb", "--oracle_mode", "NAIL",
+            "--threshold", "0.9", "--min_size", "1", "--t", "0",
+            "--sp_batch_size", str(PART_BUDGET)])
+        torch.cuda.synchronize()
+        paths["partition_al_round"] = read_counts()
+    finally:
+        sm.TSampler._record_selection_stats = record
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    state = ALState(os.path.join(data_root, "S3DIS", "0.008"), SSDR_ARGS)
+    n1 = sum(len(v) for v in state.load_registry(os.path.join(
+        state.data_path, "sampling", "seed", "round_1"))["unlabeled"].values())
+    n2 = sum(len(v) for v in state.load_registry(
+        state.round_dir(2))["unlabeled"].values())
+    print(f"cli.al_loop round 2 (full SSDR, budget {PART_BUDGET}): {wall:.1f} "
+          f"s wall, selection {extras}, unlabeled {n1} -> {n2}; launches "
+          + json.dumps(paths["partition_al_round"]))
+    for name in ("partition_seed", "partition_al_round"):
+        require_launched(name, paths[name], ("window_topk", "gather_window",
+                                             "scatter_window"))
+    require_launched("partition_al_round", paths["partition_al_round"],
+                     ("chamfer_sums",))
+    if len(extras) != 1 or extras[0]["gcn_sp_num"] != PART_BUDGET or \
+            extras[0]["gcn_unlabel_num"] != PART_BUDGET or not \
+            0 < n1 - n2 <= PART_BUDGET:
+        raise AssertionError(f"the AL round on the cut-pursuit registry "
+                             f"did not label its budget: {extras}, "
+                             f"unlabeled {n1} -> {n2}")
+    return paths, k64
 
 
 def make_workload(cfg, work):
@@ -1183,6 +1397,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1203,7 +1418,9 @@ def main() -> int:
     work = os.path.join(root, "build", "smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        paths = al_loop(cfg, dev, work, args.profile)
+        paths, checks["knn_tiled_k64"] = partition_path(
+            dev, os.path.join(work, "partition"))
+        paths.update(al_loop(cfg, dev, work, args.profile))
         paths.update(semantic3d_loop(dev, os.path.join(work, "semantic3d")))
         warm_steps(dev, work)
     finally:
@@ -1228,6 +1445,8 @@ def main() -> int:
                       if m.split(".")[0] in ("jax", "ssdr_al_tpu"))
     if jax_side:
         raise AssertionError(f"the port imported {jax_side[:5]}")
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s wall, the kernels' "
+          "build included")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """PyTorch + CUDA port of ssdr_al_tpu for one NVIDIA H100.
 
-Ported so far: the closed active-learning loop of the full SSDR
+Ported so far: the offline preparation and superpoint partition
+(cli/prepare.py, cli/superpoint.py, partition/), and the closed
+active-learning loop of the full SSDR
 configuration at RandLA-Net width for S3DIS, Semantic3D and SemanticKITTI:
 the seed round, then per round restore → TSampler selection (sb / WetSU /
 clsbal / GCN-FPS / NAIL) → retraining on the device training pool
@@ -17,7 +19,8 @@ hand-written CUDA kernel here (csrc/, built by kernels/build.py):
   K4 windowed scatter-add  ops/gather.py::scatter_window (K2's backward)
   K5 window top-k, centred-product distance
                            ops/knn.py::window_topk(mxu=True)
-  K6 exact tiled KNN       ops/knn.py::knn_tiled (the "pallas" engine)
+  K6 exact tiled KNN       ops/knn.py::knn_tiled (the "pallas" engine,
+                           and the partition's 46-NN graph)
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors. Entry points run on the card unless the caller

@@ -222,8 +222,9 @@ def make_record_file(args, sampler_args, suffix=""):
 
 def write_grid_superpoints(state: ALState, clouds, target_sp: int) -> dict:
     """Partition every cloud with grid_superpoints (~target_sp voxels each)
-    and write the superpoint files and the registry total.pkl. The stand-in
-    for the superpoint partition, which is not ported yet (ROADMAP.md)."""
+    and write the superpoint files and the registry total.pkl: a quick
+    registry for tests and the smoke's synthetic loops. Users partition
+    with cut-pursuit (cli/superpoint.py, partition/superpoint.py)."""
     total = {"unlabeled": {}, "file_num": len(clouds), "sp_num": 0,
              "point_num": sum(c.num_points for c in clouds)}
     for c in clouds:

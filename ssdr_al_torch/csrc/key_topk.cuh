@@ -44,15 +44,17 @@ __device__ __forceinline__ void key_insert(u64 key, u64 (&bk)[K]) {
   }
 }
 
-// Sort K (a power of two) keys ascending: a bitonic network, static indices.
-template <int K>
+// Sort the first N (a power of two, at most K) keys of bk ascending: a
+// bitonic network, static indices.
+template <int N, int K>
 __device__ __forceinline__ void key_sort(u64 (&bk)[K]) {
+  static_assert(N <= K && (N & (N - 1)) == 0, "N: a power of two <= K");
 #pragma unroll
-  for (int k = 2; k <= K; k <<= 1)
+  for (int k = 2; k <= N; k <<= 1)
 #pragma unroll
     for (int j = k >> 1; j > 0; j >>= 1)
 #pragma unroll
-      for (int i = 0; i < K; ++i) {
+      for (int i = 0; i < N; ++i) {
         const int l = i ^ j;
         if (l > i) {
           if (i & k)

@@ -51,6 +51,17 @@
 //    kernels/measure.py --k6-only's times of every route at every call of
 //    the three exact pyramids.
 //
+// Widths: the kernels are instantiated for K = 1, 16 and 64 (ops/knn.py::
+// KNN_K). A call with k runs the least K >= k and writes the first k keys
+// of each query's list: the keys (d2, original index) are a total order,
+// so the first k of the top-K are the top-k. K = 64 serves the partition's
+// 46-NN graph (partition/superpoint.py::knn_graph, k_geof + 1). Its list
+// of 64 keys takes 128 registers a thread, so its walk runs one CTA an SM
+// (ops/knn.py::KNN_CTAS) with up to 255 registers, where K = 1 and 16 run
+// three; its first fill takes one block of 32 candidates, half the list,
+// so its skip bound stays open until 64 candidates have entered (right,
+// and slower to prune; a faster K = 64 is later work).
+//
 // Numerics: d2 = (dx*dx + dy*dy) + dz*dz with round-to-nearest intrinsics
 // and no FMA contraction, as the plain PyTorch version
 // (ops/knn.py::_knn_tiled_plain) computes it on the unsorted clouds: the
@@ -257,11 +268,13 @@ __device__ __forceinline__ int warp_lower_bound(const int* codes, int n,
 // were left in their original order); out [B][nq][K] by original query
 // row. stats, when given, gains [the (query, candidate) pairs
 // evaluated, blocks kept, block box tests (each a warp's), keys buffered
-// (each a lane's), insertion rounds (each a warp's)]. At most 85 registers
-// a thread, so that three CTAs fit on an SM (ops/knn.py::knn_tiled_plan
-// keeps the box tables in shared memory only where three still fit).
+// (each a lane's), insertion rounds (each a warp's)]; each query's first
+// kout <= K keys are written. For K <= 16 at most 85 registers a thread,
+// so that three CTAs fit on an SM; K = 64 keeps 64 keys in registers and
+// runs one CTA an SM (ops/knn.py::knn_tiled_plan keeps the box tables in
+// shared memory only where that many CTAs still fit).
 template <int K>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, K > 16 ? 1 : 3)
     knn_walk_kernel(const float* __restrict__ groups,
                     const int* __restrict__ order,
                     const float* __restrict__ boxes,
@@ -269,8 +282,8 @@ __global__ void __launch_bounds__(kThreads, 3)
                     const long long* __restrict__ qorder,
                     const int* __restrict__ scodes,
                     const int* __restrict__ qcodes, int* __restrict__ out,
-                    u64* __restrict__ stats, int ns, int nq, int nblk,
-                    int nsup, int boxes_in_smem, int self_search) {
+                    u64* __restrict__ stats, int ns, int nq, int kout,
+                    int nblk, int nsup, int boxes_in_smem, int self_search) {
   // [super boxes][block boxes, where they fit][warp stages][buffers]
   extern __shared__ __align__(16) float smem[];
   const int nwarp = blockDim.x >> 5;
@@ -328,22 +341,25 @@ __global__ void __launch_bounds__(kThreads, 3)
     rounds += (int)__reduce_max_sync(kFull, (unsigned)top.cnt);
     top.flush(1);
   };
+  // the fill: the first min(K, 32) candidates of blk0 sorted at once (at
+  // K = 64 half the list; the rest stays empty, behind every real key)
+  constexpr int kFill = K < kBlk ? K : kBlk;
   int first = 0;       // groups of blk0 the fill took
   if constexpr (K % 8 == 0) {
-    if (blk0 * kBlk + K <= ns) {
+    if (blk0 * kBlk + kFill <= ns) {
       stage_block(blk0);
 #pragma unroll
-      for (int m = 0; m < K / 4; ++m)
+      for (int m = 0; m < kFill / 4; ++m)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           top.bk[4 * m + c] = make_key(
               sq_dist(qx, qy, qz, sg[12 * m + c], sg[12 * m + 4 + c],
                       sg[12 * m + 8 + c]),
               sid[4 * m + c]);
-      key_sort<K>(top.bk);
+      key_sort<kFill>(top.bk);
       top.flush(1);  // nothing buffered: sets the threshold
-      first = K / 4;
-      seen = K;
+      first = kFill / 4;
+      seen = kFill;
     }
   }
   // the spiral: sb0, sb0 + 1, sb0 - 1, sb0 + 2, ... over the super-blocks,
@@ -398,8 +414,8 @@ __global__ void __launch_bounds__(kThreads, 3)
     }
   }
   if (!live) return;
-  int* o = out + ((size_t)b * nq + row) * K;
-  if (K % 4 == 0) {
+  int* o = out + ((size_t)b * nq + row) * kout;
+  if (K % 4 == 0 && kout == K) {
 #pragma unroll
     for (int j = 0; j < K; j += 4)
       *reinterpret_cast<int4*>(o + j) = make_int4(
@@ -407,7 +423,8 @@ __global__ void __launch_bounds__(kThreads, 3)
           (int)(unsigned)top.bk[j + 2], (int)(unsigned)top.bk[j + 3]);
   } else {
 #pragma unroll
-    for (int j = 0; j < K; ++j) o[j] = (int)(unsigned)top.bk[j];
+    for (int j = 0; j < K; ++j)
+      if (j < kout) o[j] = (int)(unsigned)top.bk[j];
   }
 }
 
@@ -426,8 +443,9 @@ cudaError_t launch_walk(const float* groups, const int* order,
                         const float* boxes, const float* query,
                         const long long* qorder, const int* scodes,
                         const int* qcodes, int* out, u64* stats, int B,
-                        int ns, int nq, int nblk, int nsup, int boxes_in_smem,
-                        int self_search, size_t smem, cudaStream_t stream) {
+                        int ns, int nq, int kout, int nblk, int nsup,
+                        int boxes_in_smem, int self_search, size_t smem,
+                        cudaStream_t stream) {
   // the kernel has no static shared memory: a dynamic size above 48 KiB
   // needs the opt-in
   if (smem > 48 * 1024) {
@@ -439,7 +457,7 @@ cudaError_t launch_walk(const float* groups, const int* order,
   const dim3 grid((nq + kThreads - 1) / kThreads, B);
   knn_walk_kernel<K><<<grid, kThreads, smem, stream>>>(
       groups, order, boxes, query, qorder, scodes, qcodes, out, stats, ns,
-      nq, nblk, nsup, boxes_in_smem, self_search);
+      nq, kout, nblk, nsup, boxes_in_smem, self_search);
   return cudaGetLastError();
 }
 
@@ -470,14 +488,15 @@ constexpr int kBruteS = 512;  // support points a shared-memory tile
 // The brute-force route: one CTA per 256-query tile of one cloud, one
 // thread per query; the support, in its original order, streamed through
 // shared memory in tiles of 512 points as x, y, z arrays and read four
-// candidates at a time with 16-byte broadcast loads; a register top-k per
-// thread. The pad of the last tile is +inf and is never taken; with fewer
-// than k support points the slots past them keep index 0.
+// candidates at a time with 16-byte broadcast loads; a register top-K per
+// thread, its first kout written. The pad of the last tile is +inf and is
+// never taken; with fewer than k support points the slots past them keep
+// index 0.
 template <int K>
 __global__ void __launch_bounds__(kBruteQ)
     knn_brute_kernel(const float* __restrict__ support,
                      const float* __restrict__ query, int* __restrict__ out,
-                     int ns, int nq) {
+                     int ns, int nq, int kout) {
   __shared__ __align__(16) float sx[kBruteS];
   __shared__ __align__(16) float sy[kBruteS];
   __shared__ __align__(16) float sz[kBruteS];
@@ -527,34 +546,41 @@ __global__ void __launch_bounds__(kBruteQ)
     }
   }
   if (!live) return;
-  int* o = out + ((size_t)b * nq + q) * K;
+  int* o = out + ((size_t)b * nq + q) * kout;
 #pragma unroll
-  for (int j = 0; j < K; ++j) o[j] = bi[j];
+  for (int j = 0; j < K; ++j)
+    if (j < kout) o[j] = bi[j];
+}
+
+// The instantiated width that serves k (ops/knn.py::knn_kernel_k): the
+// least of 1, 16 and 64 at or above it; 0 for k outside [1, 64].
+int kernel_k(int k) {
+  return k == 1 ? 1 : k >= 2 && k <= 16 ? 16 : k > 16 && k <= 64 ? 64 : 0;
 }
 
 }  // namespace
 
 // The brute-force route: support [B, ns, 3], query [B, nq, 3] f32 in their
-// original order; out [B, nq, k] i32 support indices, k 16 or 1.
+// original order; out [B, nq, k] i32 support indices, 1 <= k <= 64.
 extern "C" int knn_brute_launch(const void* support, const void* query,
                                 void* out, int B, int ns, int nq, int k,
                                 void* stream) {
-  if (B < 1 || B > 65535 || nq < 1 || ns < 1)
+  if (B < 1 || B > 65535 || nq < 1 || ns < 1 || !kernel_k(k))
     return (int)cudaErrorInvalidValue;
   const float* s = (const float*)support;
   const float* q = (const float*)query;
   int* o = (int*)out;
   cudaStream_t cs = (cudaStream_t)stream;
   const dim3 grid((nq + kBruteQ - 1) / kBruteQ, B);
-  switch (k) {
+  switch (kernel_k(k)) {
     case 1:
-      knn_brute_kernel<1><<<grid, kBruteQ, 0, cs>>>(s, q, o, ns, nq);
+      knn_brute_kernel<1><<<grid, kBruteQ, 0, cs>>>(s, q, o, ns, nq, k);
       break;
     case 16:
-      knn_brute_kernel<16><<<grid, kBruteQ, 0, cs>>>(s, q, o, ns, nq);
+      knn_brute_kernel<16><<<grid, kBruteQ, 0, cs>>>(s, q, o, ns, nq, k);
       break;
     default:
-      return (int)cudaErrorInvalidValue;
+      knn_brute_kernel<64><<<grid, kBruteQ, 0, cs>>>(s, q, o, ns, nq, k);
   }
   return (int)cudaGetLastError();
 }
@@ -587,7 +613,9 @@ extern "C" int knn_codes_launch(const void* support, const void* query,
 // [B, nsup + nblk, 8] f32 scratch; out [B, nq, k] i32 support indices by
 // original query row; stats 5 u64 counters or null (knn_walk_kernel).
 // nblk = ceil(ns / 32), nsup = ceil(nblk / 32); threads, boxes_in_smem
-// and smem as ops/knn.py::knn_tiled_plan computes them. k is 16 (cfg.k_n) or 1 (the nearest-neighbour upsample).
+// and smem as ops/knn.py::knn_tiled_plan computes them. 1 <= k <= 64: 16
+// (cfg.k_n) and 1 (the nearest-neighbour upsample) in the model, 46 in the
+// partition; the walk of the least width K >= k (kernel_k) runs.
 extern "C" int knn_tiled_launch(const void* support, const void* query,
                                 const void* sorder, const void* qorder,
                                 const void* scodes, const void* qcodes,
@@ -597,7 +625,7 @@ extern "C" int knn_tiled_launch(const void* support, const void* query,
                                 int self_search, int smem, void* stream) {
   const int nblk = (ns + kBlk - 1) / kBlk, nsup = (nblk + kSup - 1) / kSup;
   if (B < 1 || B > 65535 || nq < 1 || ns < 1 || threads != kThreads ||
-      (k != 1 && k != 16) || (self_search && nq != ns) ||
+      !kernel_k(k) || (self_search && nq != ns) ||
       !sorder != !qorder || !sorder != !scodes || !sorder != !qcodes ||
       (size_t)smem != knn_walk_smem(nblk, nsup, k, boxes_in_smem))
     return (int)cudaErrorInvalidValue;
@@ -616,11 +644,18 @@ extern "C" int knn_tiled_launch(const void* support, const void* query,
   const int* qc = (const int*)qcodes;
   int* out_i = (int*)out;
   u64* st = (u64*)stats;
-  if (k == 1)
-    return (int)launch_walk<1>(g, o, bx, q, qo, sc, qc, out_i, st, B, ns, nq,
-                               nblk, nsup, boxes_in_smem, self_search, smem,
-                               cs);
-  return (int)launch_walk<16>(g, o, bx, q, qo, sc, qc, out_i, st, B, ns, nq,
-                              nblk, nsup, boxes_in_smem, self_search, smem,
-                              cs);
+  switch (kernel_k(k)) {
+    case 1:
+      return (int)launch_walk<1>(g, o, bx, q, qo, sc, qc, out_i, st, B, ns,
+                                 nq, k, nblk, nsup, boxes_in_smem,
+                                 self_search, smem, cs);
+    case 16:
+      return (int)launch_walk<16>(g, o, bx, q, qo, sc, qc, out_i, st, B, ns,
+                                  nq, k, nblk, nsup, boxes_in_smem,
+                                  self_search, smem, cs);
+    default:
+      return (int)launch_walk<64>(g, o, bx, q, qo, sc, qc, out_i, st, B, ns,
+                                  nq, k, nblk, nsup, boxes_in_smem,
+                                  self_search, smem, cs);
+  }
 }

@@ -43,11 +43,13 @@ gather rounded to bf16; index_add_ of g.float()), beside `torch.gather`
 of the values cast to bf16 and `index_add_` of the cotangent widened to
 f32; the bound counts the bf16 output and cotangent at 2 bytes a value.
 
-`--k6-only` runs only the K6 calls, each also on every route of the
-wrapper (the brute-force loop, the walk over the clouds in their own
-order, the walk over the curve-sorted clouds; ops/knn.py::
-knn_tiled_route picks one by the support's size) and split by kernel
-under torch.profiler.
+`--k6-only` runs only the K6 calls, and the partition's (`partition_call`:
+the k = 46 self-search over one prepared S3DIS-sized room, K6's K = 64
+instantiation), each also on every route of the wrapper (the brute-force
+loop, the walk over the clouds in their own order, the walk over the
+curve-sorted clouds; ops/knn.py::knn_tiled_route picks one by the
+support's size) and split by kernel under torch.profiler. `chip_smoke.py`
+checks the partition's call on a room its partition phase prepared.
 
 `--tree DIR` measures the `ssdr_al_torch` package under DIR (for example
 a `git archive` of another commit) with this file's inputs and timing, so
@@ -205,6 +207,32 @@ def record_exact_path(cfg, dev, b=8, seed=0):
     return calls
 
 
+# the partition's K6 call (partition/superpoint.py::knn_graph): k_geof + 1
+# neighbours at the default k_nn_geof 45, on one S3DIS-sized room (the
+# smoke's ROOM_POINTS) prepared as cli.prepare does at the 0.04 grid
+PARTITION_K, PARTITION_ROOM_POINTS, PARTITION_GRID = 46, 150_000, 0.04
+
+
+def partition_call(dev, xyz=None, seed=0):
+    """The partition's K6 call as a dict of the wrapper's arguments: the
+    self-search of k = PARTITION_K over one prepared room [1, N, 3] on the
+    card; xyz, when given, is the prepared room's points, else a
+    synthetic hard room of PARTITION_ROOM_POINTS points is shifted to its
+    least corner and subsampled on the PARTITION_GRID grid
+    (data/prepare.py::prepare_s3dis_room's steps)."""
+    if xyz is None:
+        from ssdr_al_torch.data.synthetic import make_dataset
+        from ssdr_al_torch.ops.grid_subsample import grid_subsample_np
+
+        room = make_dataset(num_train=1, num_val=0,
+                            num_points=PARTITION_ROOM_POINTS, seed=seed,
+                            hard=True)[0][0]
+        xyz = grid_subsample_np(room.xyz - room.xyz.min(0),
+                                grid_size=PARTITION_GRID)
+    x = torch.from_numpy(np.ascontiguousarray(xyz, np.float32)).to(dev)[None]
+    return dict(support=x, query=x, k=PARTITION_K)
+
+
 def cdist_topk(support, query, k, chunk=4096):
     """The library call for K6: torch.cdist then torch.topk, chunked over
     queries so the [B, chunk, Ns] distance block fits."""
@@ -232,9 +260,10 @@ def check_k6(call, reps=10, plain_reps=1, lib_reps=2):
     self_search = s.data_ptr() == q.data_ptr() and s.shape == q.shape
     name = (f"[{b}x{nq}] k={k} " + ("self" if self_search
                                      else f"upsample from {ns}"))
-    before = kn.knn_tiled.launches
+    counter = kn.knn_tiled_counter(k)
+    before = getattr(kn.knn_tiled, counter)
     got = kn.knn_tiled(s, q, k)
-    if kn.knn_tiled.launches != before + 1:
+    if getattr(kn.knn_tiled, counter) != before + 1:
         raise AssertionError(f"K6 {name}: the kernel did not launch")
     want = kn._knn_tiled_plain(s, q, k)
     if not torch.equal(got, want):
@@ -811,8 +840,9 @@ def main() -> int:
                          "× 45056, 4 layers), these two K1, K2 and K4 "
                          "only")
     ap.add_argument("--k6-only", action="store_true",
-                    help="only K6 at every call of one exact pyramid, on "
-                         "each of its routes")
+                    help="only K6 at every call of one exact pyramid and "
+                         "at the partition's call (k = 46 over one "
+                         "prepared room), on each of its routes")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -833,8 +863,9 @@ def main() -> int:
     if args.k6_only:
         cfg = config.get_config(args.dataset)
         res = {"knn_tiled": []}
-        for call in record_exact_path(cfg, dev, b=8 if args.dataset ==
-                                      "S3DIS" else cfg.batch_size):
+        calls = record_exact_path(cfg, dev, b=8 if args.dataset == "S3DIS"
+                                  else cfg.batch_size)
+        for call in calls + [partition_call(dev)]:
             r = check_k6(call)
             r.update(k6_routes(call))
             res["knn_tiled"].append(r)

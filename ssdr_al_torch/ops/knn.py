@@ -34,7 +34,7 @@ import torch
 from ssdr_al_torch.kernels import build as _kb
 
 QUERY_TILE = 256   # queries per K1 tile (the TPU kernel's query_chunk)
-KERNEL_K = (1, 16)  # the widths K1, K5 and K6 are built for: the 1-NN
+KERNEL_K = (1, 16)  # the widths K1 and K5 are built for: the 1-NN
                     # upsample and k_n
 SENTINEL = 3e18    # coordinate of the pad rows of a sorted cloud
 # K5 (centred-product distance) in place of K1 for window searches that do
@@ -208,20 +208,26 @@ def _knn_tiled_plain(support, query, k, query_chunk=1024):
 # KNN_THREADS threads a CTA, a warp per 32 sorted queries, each warp
 # staging a kept block in KNN_STAGE floats and each thread buffering
 # KNN_BUF candidate keys of 8 bytes (k > 1). The kernel's registers allow
-# KNN_CTAS CTAs an SM; the box tables take shared memory only where as
-# many still fit beside the stages and buffers.
+# KNN_CTAS[K] CTAs an SM; the box tables take shared memory only where as
+# many still fit beside the stages and buffers. K6 is instantiated for
+# the widths KNN_K (the 1-NN upsample, k_n, and the partition's
+# k_geof + 1 = 46 neighbours); a call with k runs the least width at or
+# above k and keeps the first k columns. The 64 keys a thread of K = 64
+# take 128 registers, so its walk runs one CTA an SM.
 KNN_BLOCK, KNN_SUPER, KNN_THREADS, KNN_STAGE, KNN_BUF = 32, 32, 256, 128, 24
-KNN_CTAS = 3
+KNN_K = (1, 16, 64)
+KNN_CTAS = {1: 3, 16: 3, 64: 1}
 # K6's route by the support's size (knn_tiled_route): a thread per query
-# over every support point at most KNN_BRUTE_MAX[k] points, the walk over
+# over every support point at most KNN_BRUTE_MAX[K] points, the walk over
 # the clouds in their own order at most KNN_SORT_MIN, the walk over the
 # curve-sorted clouds beyond. Set from kernels/measure.py --k6-only, which
 # times every route at every call of the three exact pyramids (H100): for
 # k=1 the brute force is fastest up to 4096 points (0.135 against the
 # sorted walk's 0.194 ms) and the sorted walk from 10240 (0.497 against
 # 1.490); for k=16 the walk in the clouds' own order up to 704 points
-# (0.093 against 0.107), the sorted walk from 1024 (0.115 against 0.116)
-KNN_BRUTE_MAX = {1: 4096, 16: 0}
+# (0.093 against 0.107), the sorted walk from 1024 (0.115 against 0.116).
+# K = 64 takes the same walk thresholds as K = 16 (not timed per route)
+KNN_BRUTE_MAX = {1: 4096, 16: 0, 64: 0}
 KNN_SORT_MIN = 896
 KNN_ROUTES = ("brute", "walk", "sorted")
 SMEM_DEFAULT = 48 * 1024   # dynamic shared memory a launch has without
@@ -231,18 +237,29 @@ SMEM_SM = 228 * 1024       # an SM's shared memory, 1 KiB of it reserved
                            # for each resident CTA
 
 
+def knn_kernel_k(k: int) -> int:
+    """The width of K6 that serves a call with k: the least of KNN_K at or
+    above k. Raises for k outside [1, KNN_K[-1]], on every device, so that
+    a call that the card refuses is refused on the CPU too."""
+    for width in KNN_K:
+        if 1 <= k <= width:
+            return width
+    raise ValueError(f"knn_tiled: k={k}, but K6 is built for 1 <= k <= "
+                     f"{KNN_K[-1]} (widths {KNN_K})")
+
+
 def knn_tiled_plan(ns: int, k: int):
     """(nblk, nsup, boxes_in_smem, smem bytes) of K6's walk over ns support
-    points: both box tables go to shared memory where KNN_CTAS CTAs an SM
-    still fit with them, else only the super-blocks' do and the walk reads
-    the block boxes through L1. A launch above SMEM_DEFAULT sets the opt-in
-    attribute (the kernel has no static shared memory)."""
+    points: both box tables go to shared memory where KNN_CTAS[K] CTAs an
+    SM still fit with them, else only the super-blocks' do and the walk
+    reads the block boxes through L1. A launch above SMEM_DEFAULT sets the
+    opt-in attribute (the kernel has no static shared memory)."""
     nblk = -(-ns // KNN_BLOCK)
     nsup = -(-nblk // KNN_SUPER)
     fixed = KNN_THREADS // 32 * KNN_STAGE * 4 \
         + (KNN_THREADS * KNN_BUF * 8 if k > 1 else 0)
     both = fixed + (nsup + nblk) * 32
-    in_smem = both <= SMEM_SM // KNN_CTAS - 1024
+    in_smem = both <= SMEM_SM // KNN_CTAS[knn_kernel_k(k)] - 1024
     return nblk, nsup, in_smem, both if in_smem else fixed + nsup * 32
 
 
@@ -252,7 +269,7 @@ def knn_tiled_route(ns: int, k: int) -> str:
     a warp's walk costs more than it prunes), "walk" (the walk over the
     clouds in their own order, where the codes and sorts cost more than
     the boxes save) or "sorted" (the walk over the curve-sorted clouds)."""
-    if ns <= KNN_BRUTE_MAX[k]:
+    if ns <= KNN_BRUTE_MAX[knn_kernel_k(k)]:
         return "brute"
     return "walk" if ns <= KNN_SORT_MIN else "sorted"
 
@@ -326,8 +343,10 @@ def knn_tiled(support: torch.Tensor, query: torch.Tensor,
     index 0. CPU tensors take the plain version; CUDA tensors launch the
     kernel (csrc/knn_tiled.cu) on the curve-sorted clouds (as
     knn_sorted_inputs sorts them), on small clouds in their own order or a
-    thread per query over every support point (knn_tiled_route), for k in
-    KERNEL_K."""
+    thread per query over every support point (knn_tiled_route). Any
+    1 <= k <= 64 runs on both (the width knn_kernel_k(k) of the kernel,
+    its first k columns); a larger k raises on both. A launch counts in
+    knn_tiled.launches (widths 1 and 16) or knn_tiled.launches_k64."""
     return _knn_tiled(support, query, k)[0]
 
 
@@ -346,6 +365,7 @@ def _knn_tiled(support, query, k, with_stats=False, route=None):
             or query.shape[-1] != 3 or support.shape[0] != query.shape[0]:
         raise ValueError(f"knn_tiled: bad shapes {tuple(support.shape)} "
                          f"{tuple(query.shape)}")
+    knn_kernel_k(k)
     if support.device.type == "cpu" and not with_stats:
         return _knn_tiled_plain(support.float(), query.float(), k), None
     if support.dtype != torch.float32 or query.dtype != torch.float32:
@@ -355,9 +375,6 @@ def _knn_tiled(support, query, k, with_stats=False, route=None):
     support = support.contiguous()
     query = support if self_search else query.contiguous()
     _kb.require_cuda("knn_tiled", support, query)
-    if k not in KERNEL_K:
-        raise ValueError(f"knn_tiled: the kernel is built for k in "
-                         f"{KERNEL_K}, not {k}")
     b, ns, _ = support.shape
     nq = query.shape[1]
     dev = support.device
@@ -372,7 +389,7 @@ def _knn_tiled(support, query, k, with_stats=False, route=None):
         _kb.check(_kb.library().knn_brute_launch(
             support.data_ptr(), query.data_ptr(), out.data_ptr(), b, ns, nq,
             k, stream), "knn_tiled brute")
-        knn_tiled.launches += 1
+        _count_launch(k)
         return out, dict(pairs=b * ns * nq) if with_stats else None
     # the sort orders and sorted codes; none where the walk takes the
     # clouds in their own order
@@ -399,7 +416,7 @@ def _knn_tiled(support, query, k, with_stats=False, route=None):
         out.data_ptr(), None if stats is None else stats.data_ptr(), b, ns,
         nq, k, KNN_THREADS, int(in_smem), int(self_search), smem, stream)
     _kb.check(err, "knn_tiled")
-    knn_tiled.launches += 1
+    _count_launch(k)
     if stats is None:
         return out, None
     return out, dict(zip(("pairs", "blocks_kept", "block_tests",
@@ -429,7 +446,19 @@ def _knn_codes(support, query, self_search, stream=None):
     return s_codes, q_codes
 
 
+def knn_tiled_counter(k: int) -> str:
+    """The attribute of knn_tiled that counts launches of the width that
+    serves k: "launches_k64" for K = 64, else "launches"."""
+    return "launches_k64" if knn_kernel_k(k) == 64 else "launches"
+
+
+def _count_launch(k: int):
+    attr = knn_tiled_counter(k)
+    setattr(knn_tiled, attr, getattr(knn_tiled, attr) + 1)
+
+
 knn_tiled.launches = 0
+knn_tiled.launches_k64 = 0
 
 
 # --------------------------------------------------------- window search ---

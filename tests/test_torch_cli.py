@@ -1,8 +1,9 @@
 """The port's AL loop end to end on the CPU: a twin of
-tests/test_e2e.py::test_full_al_loop through ssdr_al_torch.cli (seed round,
-then one full-SSDR AL round with retraining), at that test's sizes. The
-superpoint partition is not ported, so the registry comes from
-grid_superpoints (cli/common.write_grid_superpoints). Also: one al_loop
+tests/test_e2e.py::test_full_al_loop through ssdr_al_torch.cli (the
+cut-pursuit partition as that test runs it, the seed round, then one
+full-SSDR AL round with retraining), at that test's sizes. The other tests
+take the quick grid_superpoints registry
+(cli/common.write_grid_superpoints). Also: one al_loop
 round with each comparison branch and --compute_dtype bfloat16; the
 --sampler random round and the labels of cli.baseline and
 cli.max_dominant equal to the JAX samplers' on the same state; the flags
@@ -23,8 +24,17 @@ from ssdr_al_tpu.active import samplers as j_samplers
 from ssdr_al_tpu.active import state as j_state
 from ssdr_al_torch.active import gcn as t_gcn
 from ssdr_al_torch.active import samplers as t_samplers
-from ssdr_al_torch.cli import al_loop, baseline, evaluate, max_dominant, seed
+from ssdr_al_torch.cli import (
+    al_loop,
+    baseline,
+    evaluate,
+    max_dominant,
+    prepare,
+    seed,
+    superpoint,
+)
 from ssdr_al_torch.cli.common import setup_experiment, write_grid_superpoints
+from ssdr_al_torch.partition.superpoint import compute_superpoints
 
 torch.set_num_threads(1)
 
@@ -61,8 +71,12 @@ def _load(path):
 def test_full_al_loop(workdir):
     args = make_args(workdir)
     exp = setup_experiment(args)
-    total = write_grid_superpoints(exp.make_state([]), exp.train_clouds, 24)
+    total = compute_superpoints(
+        exp.train_clouds, exp.make_state([]), args.reg_strength,
+        knn_backend="host", k_geof=20, device="cpu", log=lambda *a: None)
     assert total["sp_num"] > 10
+    assert os.path.exists(os.path.join(exp.data_path, "superpoint",
+                                       "total.pkl"))
 
     miou, oa = seed.run_seed(args)
     assert 0 <= miou <= 1 and 0 <= oa <= 1
@@ -228,6 +242,13 @@ def _entry_points(tmp_path):
         "cli.evaluate": lambda: evaluate.main(
             ["--synthetic", "--data_root", str(tmp_path / "data"),
              "--snapshot", str(tmp_path / "snap-1")]),
+        "cli.superpoint": lambda: superpoint.main(
+            ["--synthetic", "--data_root", str(tmp_path / "data")]),
+        "cli.prepare": lambda: prepare.main(
+            ["--dataset", "S3DIS", "--raw", str(tmp_path / "raw"),
+             "--out", str(tmp_path / "data")]),
+        "compute_superpoints": lambda: compute_superpoints(
+            [], state.ALState(str(tmp_path / "data")), 0.008),
         "make_eval_step": lambda: trainer.make_eval_step(RandLANet(cfg), cfg),
         "make_train_step": lambda: trainer.make_train_step(
             RandLANet(cfg), cfg, np.ones(cfg.num_classes, np.float32)),
@@ -249,7 +270,8 @@ def _entry_points(tmp_path):
 
 @pytest.mark.parametrize("entry", [
     "cli.seed", "cli.al_loop", "cli.baseline", "cli.max_dominant",
-    "cli.evaluate", "make_eval_step", "make_train_step", "Trainer",
+    "cli.evaluate", "cli.superpoint", "cli.prepare", "compute_superpoints",
+    "make_eval_step", "make_train_step", "Trainer",
     "InferenceRunner", "TSampler", "SuperpointBlockCache",
     "build_region_graph", "gcn_fps_sampling", "gcn_sampling"])
 def test_entry_points_default_to_the_card(workdir, entry):

@@ -121,8 +121,62 @@ def test_knn_tiled_matches_plain(dev, b, ns, nq, k):
     torch.cuda.synchronize()
     assert kn.knn_tiled.launches == before + 1
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="built for k"):
-        kn.knn_tiled(s, q, 4)
+    with pytest.raises(ValueError, match="built for"):
+        kn.knn_tiled(s, q, 65)
+
+
+def _cloud_of(kind, rng, n):
+    """[1, n, 3] f32: random in a 6 m cube, or with every point four times
+    (exact d² ties between distinct indices, self not always first)."""
+    if kind == "duplicates":
+        x = np.repeat((rng.rand(-(-n // 4), 3) * 6).astype(np.float32), 4,
+                      axis=0)[rng.permutation(n)]
+    else:
+        x = (rng.rand(n, 3) * 6).astype(np.float32)
+    return torch.from_numpy(x[None])
+
+
+@pytest.mark.parametrize("k", [17, 46, 64])
+@pytest.mark.parametrize("kind,n", [
+    ("random", 40000),      # the sorted walk at a prepared room's order
+    ("duplicates", 40000),
+    ("duplicates", 3000),
+    ("random", 700),        # the walk in the cloud's own order
+    ("random", 40),         # fewer points than k (k = 46, 64)
+    ("duplicates", 12)])
+def test_knn_tiled_any_k_matches_plain(dev, k, kind, n):
+    """K6 at k above 16 (the K = 64 instantiation: 46 is the partition's
+    k_geof + 1): a self-search equal to its plain version index for
+    index on random clouds, on clouds of duplicated points and on clouds
+    of fewer than k points (slots past them index 0), one launch each,
+    counted in knn_tiled.launches_k64."""
+    x = _cloud_of(kind, np.random.RandomState(n + k), n).to(dev)
+    want = kn._knn_tiled_plain(x, x, k)
+    before = (kn.knn_tiled.launches, kn.knn_tiled.launches_k64)
+    got = kn.knn_tiled(x, x, k)
+    torch.cuda.synchronize()
+    assert (kn.knn_tiled.launches, kn.knn_tiled.launches_k64) == \
+        (before[0], before[1] + 1)
+    assert got.shape == (1, n, k)
+    assert torch.equal(got, want)
+    if n < k:
+        assert (got[..., n:] == 0).all()
+
+
+@pytest.mark.parametrize("route", ["brute", "walk", "sorted"])
+@pytest.mark.parametrize("k", [2, 5, 17, 46, 64])
+def test_knn_tiled_every_route_any_k(dev, route, k):
+    """Every route of K6 at widths between and above the model's: an
+    upsample-shaped search (queries apart from the support) with
+    duplicated support points equals the plain version."""
+    rng = np.random.RandomState(k)
+    s = _cloud_of("duplicates", rng, 2000).to(dev)
+    q = _cloud_of("random", rng, 1500).to(dev)
+    want = kn._knn_tiled_plain(s, q, k)
+    got, stats = kn.knn_tiled_stats(s, q, k, route=route)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert 0 < stats["pairs"] <= 2000 * 1500
 
 
 def _far_sorted_cloud(rng, b, n, offset):

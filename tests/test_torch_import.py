@@ -1,6 +1,8 @@
 """ssdr_al_torch imports without jax and without ssdr_al_tpu: every
 submodule, in a fresh interpreter where `import jax` fails
-(tests/conftest.py itself imports jax, so the check runs in a subprocess)."""
+(tests/conftest.py itself imports jax, so the check runs in a subprocess).
+Nor does importing it load pandas, h5py or sklearn, which the machine
+with the card does not have."""
 
 import os
 import pkgutil
@@ -37,7 +39,15 @@ def test_every_submodule_is_listed():
                  "ssdr_al_torch.utils.visualize",
                  "ssdr_al_torch.active.gcn", "ssdr_al_torch.ops.kcenter",
                  "ssdr_al_torch.cli.baseline",
-                 "ssdr_al_torch.cli.max_dominant"):
+                 "ssdr_al_torch.cli.max_dominant",
+                 "ssdr_al_torch.ops.geof", "ssdr_al_torch.ops.grid_subsample",
+                 "ssdr_al_torch.partition", "ssdr_al_torch.partition.cp",
+                 "ssdr_al_torch.partition.superpoint",
+                 "ssdr_al_torch.partition.sp_graph",
+                 "ssdr_al_torch.partition.spg",
+                 "ssdr_al_torch.partition.provider",
+                 "ssdr_al_torch.data.prepare", "ssdr_al_torch.cli.prepare",
+                 "ssdr_al_torch.cli.superpoint"):
         assert name in SUBMODULES
 
 
@@ -53,6 +63,31 @@ def test_imports_without(blocked):
         "('jax', 'jaxlib', 'flax', 'optax', 'ssdr_al_tpu') and "
         "sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+
+
+@pytest.mark.parametrize("absent", ["pandas", "h5py", "sklearn"])
+def test_imports_without_host_only_packages(absent):
+    """Every submodule imports where `absent` cannot be imported, and
+    importing them all loads none of pandas, h5py and sklearn (the
+    partition's readers use numpy; its HDF5 files import h5py inside the
+    function that needs it). Importing them builds no cut-pursuit library
+    either (a fresh interpreter: other tests of a worker load it)."""
+    code = (
+        "import importlib, sys\n"
+        f"sys.modules[{absent!r}] = None\n"
+        "import ssdr_al_torch\n"
+        f"for m in {SUBMODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('pandas', 'h5py', 'sklearn') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "from ssdr_al_torch.partition import cp\n"
+        "assert cp._lib is None\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

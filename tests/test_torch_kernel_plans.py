@@ -12,6 +12,9 @@
 - K2 (csrc/gather_window.cu) writes each CTA's rows as float4s, finding a
   float4's row by a multiply-high with ceil(2^32 / c) and stepping the
   channel: a numpy twin of that arithmetic equals the plain gather.
+- K6 (csrc/knn_tiled.cu) runs the width K = knn_kernel_k(k) of 1, 16 and
+  64 for a call with k; the K = 64 walk (the partition's k = 46) runs one
+  CTA an SM, and its shared-memory plan and route follow from that.
 """
 
 import numpy as np
@@ -258,3 +261,51 @@ def test_k2_span_arithmetic_equals_plain(c):
     small = (False, 4, 256, 4)               # many parts per tile
     np.testing.assert_array_equal(
         _k2_twin(vals, idx, starts, window, tq, small), want)
+
+
+# ---------------------------------------------------------- K6 widths ---
+
+
+def test_k6_width_of_every_k():
+    """k = 1 runs K = 1, 2..16 run K = 16, 17..64 run K = 64 (the
+    partition's k_geof + 1 = 46 among them); 0 and 65 raise on any
+    device."""
+    assert [tk.knn_kernel_k(k) for k in (1, 2, 15, 16, 17, 46, 63, 64)] == \
+        [1, 16, 16, 16, 64, 64, 64, 64]
+    for k in (0, 65, 100):
+        with pytest.raises(ValueError, match="built for"):
+            tk.knn_kernel_k(k)
+    assert tk.knn_tiled_counter(46) == "launches_k64"
+    assert tk.knn_tiled_counter(16) == tk.knn_tiled_counter(1) == "launches"
+
+
+@pytest.mark.parametrize("ns,in_smem", [
+    (60000, True),     # a prepared S3DIS room (0.04 grid, ~6 x 6 x 3 m)
+    (150000, True),    # a room at its raw 150 000 points
+    (200000, False),   # past the tables' room beside one CTA's buffers
+    (700, True), (46, True)])
+def test_k6_k64_shared_memory_plan(ns, in_smem):
+    """The K = 64 walk (k = 46): one CTA an SM (its 64 keys a thread take
+    128 registers), so both box tables stay in shared memory up to ~170 000
+    points, where K = 16's three CTAs an SM keep them only below ~20 000;
+    the stages and the candidate buffers are K = 16's; every launch fits
+    one CTA's limit."""
+    nblk, nsup, got_in, smem = tk.knn_tiled_plan(ns, 46)
+    assert tk.KNN_CTAS[64] == 1 and tk.KNN_CTAS[16] == 3
+    fixed = 8 * 512 + 256 * 24 * 8
+    assert got_in == in_smem
+    assert smem == (nblk + nsup if in_smem else nsup) * 32 + fixed
+    assert smem + 1024 <= 228 * 1024 and smem <= tk.SMEM_LIMIT
+    if ns == 60000:
+        assert not tk.knn_tiled_plan(ns, 16)[2]
+    assert tk.knn_tiled_plan(ns, 64) == (nblk, nsup, got_in, smem)
+
+
+@pytest.mark.parametrize("ns,route", [(46, "walk"), (700, "walk"),
+                                      (896, "walk"), (897, "sorted"),
+                                      (60000, "sorted")])
+def test_k6_k64_route(ns, route):
+    """K = 64 takes K = 16's routes: never the thread-per-query loop by
+    default (its 64 keys a thread spill there), the walk in the cloud's
+    own order up to KNN_SORT_MIN points, the sorted walk beyond."""
+    assert tk.knn_tiled_route(ns, 46) == route

@@ -51,15 +51,19 @@ def _box_lb(lo, hi, q):
 
 
 def walk_twin(groups, order, q_xyz, q_order, q_pos, ns, k, strict=True):
-    """K6's walk for one batch row, in numpy: a warp per 32 sorted queries
-    starting at the block of its middle query's rank, the first k
-    candidates of that block taken at once, then the spiral over
+    """K6's walk for one batch row, in numpy, at the kernel's width
+    K = knn_kernel_k(k): a warp per 32 sorted queries starting at the
+    block of its middle query's rank, the first min(K, 32) candidates of
+    that block taken at once, then the spiral over
     super-blocks and, in each kept one, over its blocks from the one
     nearest the start; a (super-)block is kept while its box_lb is <=
-    some lane's k-th best (strict=False keeps it only while below, the
+    some lane's K-th best (strict=False keeps it only while below, the
     skip that loses ties). Each lane's list is updated as soon as a block
     is evaluated, the tightest threshold the kernel's buffered one can
-    reach. Returns (out [nq, k] by original query row, pairs evaluated)."""
+    reach. Returns (out [nq, k] by original query row: the first k of each
+    list of K, pairs evaluated)."""
+    k_out, k = k, tk.knn_kernel_k(k)
+    fill = min(k, tk.KNN_BLOCK)
     pts = groups.transpose(0, 2, 1).reshape(-1, 3)
     nblk = pts.shape[0] // tk.KNN_BLOCK
     nsup = -(-nblk // tk.KNN_SUPER)
@@ -71,7 +75,7 @@ def walk_twin(groups, order, q_xyz, q_order, q_pos, ns, k, strict=True):
     shi = np.stack([bhi[i * tk.KNN_SUPER:(i + 1) * tk.KNN_SUPER].max(0)
                     for i in range(nsup)])
     nq = q_xyz.shape[0]
-    out = np.zeros((nq, k), np.int64)
+    out = np.zeros((nq, k_out), np.int64)
     pairs = 0
 
     def keep(lo, hi, qs, best):
@@ -94,11 +98,12 @@ def walk_twin(groups, order, q_xyz, q_order, q_pos, ns, k, strict=True):
             return np.sort(np.concatenate([best, keys], 1), 1)[:, :k], \
                 len(ranks)
 
-        if k % 8 == 0 and blk0 * 32 + k <= ns:
-            ranks = np.arange(blk0 * 32, blk0 * 32 + k)
-            best = np.sort(_keys(_d2(qs, pts[ranks]), np.broadcast_to(
-                order[ranks], (32, k))), 1)
-            first, seen = k, k
+        if k % 8 == 0 and blk0 * 32 + fill <= ns:
+            ranks = np.arange(blk0 * 32, blk0 * 32 + fill)
+            best[:, :fill] = np.sort(_keys(_d2(qs, pts[ranks]),
+                                           np.broadcast_to(order[ranks],
+                                                           (32, fill))), 1)
+            first, seen = fill, fill
         else:
             seen = 0
         for i in range(2 * nsup):
@@ -118,8 +123,8 @@ def walk_twin(groups, order, q_xyz, q_order, q_pos, ns, k, strict=True):
                 best, n = evaluate(blk, first if blk == blk0 else 0, best)
                 seen += n
         pairs += seen * live
-        out[q_order[r0:r0 + live]] = (best[:live] & np.uint64(0xFFFFFFFF)
-                                      ).astype(np.int64)
+        out[q_order[r0:r0 + live]] = (best[:live, :k_out]
+                                      & np.uint64(0xFFFFFFFF)).astype(np.int64)
     return out, pairs
 
 
@@ -151,7 +156,7 @@ def _twin_knn(s, q, k, self_search, strict=True, sort=True):
 
 
 @pytest.mark.parametrize("kind", ["random", "duplicates", "grid"])
-@pytest.mark.parametrize("k", [16, 1])
+@pytest.mark.parametrize("k", [16, 1, 46])
 @pytest.mark.parametrize("ns,nq,self_search,sort", [
     (1500, 1500, True, True),    # a pyramid self-search, nq % 32 != 0
     (700, 2500, False, True),    # an upsample: queries against a subset
@@ -162,8 +167,11 @@ def _twin_knn(s, q, k, self_search, strict=True, sort=True):
 def test_k6_walk_twin_equals_plain(kind, k, ns, nq, self_search, sort):
     """The walk over the sorted clouds (or the clouds in their own order),
     keyed on the original index and written back by the original query
-    row, equals _knn_tiled_plain index for index, ties included; on random
-    sorted clouds it evaluates a fraction of the pairs."""
+    row, equals _knn_tiled_plain index for index, ties included, at the
+    widths K = 1, 16 and (for k = 46, the partition's) 64; on random
+    sorted clouds it evaluates a fraction of the pairs for k <= 16 (at
+    k = 46 a query's neighbourhood is a large part of these small
+    clouds)."""
     rng = np.random.RandomState(ns + nq + k)
     b = 2
     s = torch.from_numpy(np.stack([_cloud(kind, ns, rng) for _ in range(b)]))
@@ -174,7 +182,7 @@ def test_k6_walk_twin_equals_plain(kind, k, ns, nq, self_search, sort):
     np.testing.assert_array_equal(got, want)
     share = pairs / (b * ns * nq)
     assert 0 < share <= 1
-    if kind == "random" and sort:
+    if kind == "random" and sort and k <= 16:
         assert share < 0.7, share
 
 
