@@ -35,9 +35,16 @@ snap-1, a bf16 training round on the device pool, bf16 and f32 eval steps
 room. Then the paper's comparison branches from the same snap-1: one
 selection round each with --sampler random, --edcd 1 (K3 per candidate
 cloud) and --gcn 1 (K3, the 20 000-step coreGCN fit and k-center), and
-one round each of cli.baseline and cli.max_dominant at the smoke's depth.
-First of the loops, the offline path at S3DIS room size (partition_path):
-raw S3DIS rooms (2 of Area_1 to train, 1 of Area_5 to validate, each of
+one round each of cli.baseline and cli.max_dominant at the smoke's
+depth. Then data parallelism on the one card (data_parallel_path, ranks
+spawned from ssdr_al_torch/parallel/ after the kernels are built): two
+gloo ranks' [6 x 40960] train step against the one-rank step (loss,
+gradient, BatchNorm statistics) and its time, a dp selection round and
+a dp evaluation from snap-1 against the single-card round, the step in a
+one-rank NCCL group, dryrun_multichip(2) and the flagship forward of
+dryrun.entry on the card, with K1, K2, K4 and K3 counted inside the
+ranks. First of the loops, the offline path at S3DIS room size
+(partition_path): raw S3DIS rooms (2 of Area_1 to train, 1 of Area_5 to validate, each of
 ROOM_POINTS points from the hard room generator, as Annotations/ text
 files), cli.prepare at its 0.04 grid, cli.superpoint at the defaults
 users run (k_nn_geof 45, k_nn_adj 10, reg_strength 0.008,
@@ -124,6 +131,23 @@ DRIVER_ROOMS, DRIVER_EPOCHS, DRIVER_STEPS = 2, 1, 4
 # and the AL round's depth, the AL round's budget of superpoints
 PART_TRAIN_ROOMS, PART_VAL_ROOMS = 2, 1
 PART_EPOCHS, PART_STEPS, PART_BUDGET = 1, 4, 400
+# the data-parallel step against the one-rank step on the card: the loss
+# and the BatchNorm statistics within DP_REL; the summed gradient (relative
+# L2) within DP_SPREAD times what reversing the batch's rows does to the
+# one-rank gradient (the same gradient in exact arithmetic; max-pool
+# picks and leaky-ReLU slopes within f32 rounding of a kink follow the
+# summation order, and that spread exceeds 1e-4 on the card; the dp step
+# lies within 0.5-2x of it: `python -m ssdr_al_torch.parallel.agreement`
+# measures both at 2048, 8192 and 40960 points)
+DP_REL, DP_SPREAD = 1e-4, 2.0
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps):
@@ -140,31 +164,16 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_counters():
-    """{kernel: (wrapper, attribute holding its launch count)}."""
-    from ssdr_al_torch.ops.chamfer import chamfer_sums
-    from ssdr_al_torch.ops.gather import gather_window, scatter_window
-    from ssdr_al_torch.ops.knn import knn_tiled, window_topk
-
-    return {"window_topk": (window_topk, "launches"),
-            "gather_window": (gather_window, "launches"),
-            "chamfer_sums": (chamfer_sums, "launches"),
-            "scatter_window": (scatter_window, "launches"),
-            "window_topk_mxu": (window_topk, "launches_mxu"),
-            "knn_tiled": (knn_tiled, "launches"),
-            "gather_window_bf16": (gather_window, "launches_bf16"),
-            "scatter_window_bf16": (scatter_window, "launches_bf16"),
-            "knn_tiled_k64": (knn_tiled, "launches_k64")}
-
-
 def reset_counts():
-    for fn, attr in kernel_counters().values():
-        setattr(fn, attr, 0)
+    from ssdr_al_torch.kernels import counts
+
+    counts.reset()
 
 
 def read_counts():
-    return {name: getattr(fn, attr)
-            for name, (fn, attr) in kernel_counters().items()}
+    from ssdr_al_torch.kernels import counts
+
+    return counts.read()
 
 
 def require_launched(path, counts, names):
@@ -819,6 +828,7 @@ def al_loop(cfg, dev, work, profile_out=None):
     paths.update(bf16_paths(cfg, dev, work, train, val, pseudo))
     paths.update(selection_branches(cfg, dev, work, train, total))
     paths.update(driver_paths(cfg, dev, work))
+    paths.update(data_parallel_path(cfg, dev, work, train, val, total))
 
     if profile_out:
         prof = profile_rounds(cfg, dev, sampler, trainer.eval_step,
@@ -1072,6 +1082,163 @@ def selection_branches(cfg, dev, work, train, total):
         if not ok:
             raise AssertionError(f"{branch} round: {len(picked)} labelled, "
                                  f"stats {stats}")
+    return paths
+
+
+def data_parallel_path(cfg, dev, work, train, val, total):
+    """Data parallelism on the one card (ssdr_al_torch/parallel/): ranks
+    are processes spawned from the package with the kernels built here
+    already, each path's launches counted from 0 inside every rank.
+    Two gloo ranks on the card take one `window` train step at [6 x 40960]
+    (3 rows a rank) from spread_weights at GRAD_SEED, dropout off, held
+    to the one-rank step on the same batch (loss and BatchNorm statistics
+    within DP_REL, the summed gradient within DP_SPREAD times the one-rank
+    step's own change when the batch's rows are reversed) and timed
+    against it; a dp selection
+    round and a dp evaluation from snap-1 against the single-card round's
+    files and this process's evaluation (differences counted); the same
+    step in a one-rank NCCL group; dryrun_multichip(2) and dryrun.entry's
+    flagship forward on the card.
+    Two ranks on one card measure the collectives' overhead, not a
+    speed-up."""
+    from ssdr_al_torch.active.state import ALState
+    from ssdr_al_torch.config import ConfigS3DIS, class_weights
+    from ssdr_al_torch.data.dataset import TrainingPipeline
+    from ssdr_al_torch.models.randlanet import init_params
+    from ssdr_al_torch.parallel import dryrun, launch
+    from ssdr_al_torch.train.grad_check import spread_weights
+    from ssdr_al_torch.train.trainer import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    store = os.path.join(work, "dp_runs")
+    batch = TrainingPipeline(train, cfg, seed=11).sample_batch(cfg.batch_size)
+    case = dict(cfg=cfg, weights=class_weights("S3DIS"), batch=batch,
+                state=spread_weights(init_params(
+                    cfg, torch.Generator().manual_seed(0)), GRAD_SEED))
+    want = dryrun.train_step_result(None, device=dev, **case)
+    one_ms = dryrun.train_step_times(None, device=dev, **case)
+    snap1 = restore_checkpoint(os.path.join(work, "saver", "seed",
+                                            "snapshots", "snap-1"), "cpu")
+    sel_dir = os.path.join(work, "dp_selection")
+    shutil.copytree(os.path.join(work, "superpoint"),
+                    os.path.join(sel_dir, "superpoint"))
+    shutil.copytree(os.path.join(work, "sampling", "seed"),
+                    os.path.join(sel_dir, "sampling", "seed"))
+    eval_one = dryrun.evaluate_result(None, cfg, val, snap1, max_epochs=1,
+                                      device=dev)
+    calls = [(dryrun.train_step_result, case),
+             (dryrun.train_step_times, case),
+             (dryrun.selection_round_result, dict(
+                 work=sel_dir, cfg=cfg, clouds=train, state=snap1,
+                 sampler_args=SSDR_ARGS, total_num=total["sp_num"],
+                 budget=BUDGET)),
+             (dryrun.evaluate_result, dict(cfg=cfg, clouds=val, state=snap1,
+                                           max_epochs=1))]
+    t0 = time.perf_counter()
+    ranks = launch(dryrun.run_calls, 2, [dev, dev], store, calls)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # one rank on one card: NCCL (parallel/mesh.py::backend_for)
+    (nccl, nccl_counts), = launch(dryrun.run_calls, 1, [dev], store,
+                                  calls[:1])[0]
+    nccl_wall = time.perf_counter() - t0
+
+    def step_errors(got):
+        bn = max(float(np.abs(got["state"][k] - want["state"][k]).max()
+                       / np.abs(want["state"][k]).max())
+                 for k in want["state"] if "running" in k)
+        return dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                    grad=dryrun.gradient_rel(got["grad"], want["grad"]),
+                    bn_stats=bn)
+
+    def check(name, err):
+        if max(err["loss"], err["bn_stats"]) > DP_REL or \
+                err["grad"] > DP_SPREAD * spread["grad"]:
+            raise AssertionError(f"{name}: step errors {err} (limits "
+                                 f"{DP_REL}, gradient {DP_SPREAD} x "
+                                 f"{spread['grad']:.2e})")
+
+    # one rank's own spread under another summation order: the same batch
+    # with its rows reversed (the same gradient in exact arithmetic)
+    spread = step_errors(dryrun.train_step_result(None, device=dev, **dict(
+        case, batch={k: v[::-1].copy() for k, v in batch.items()})))
+    print("one rank, the batch's rows reversed: loss rel err "
+          f"{spread['loss']:.2e}, gradient rel L2 {spread['grad']:.2e}, BN "
+          f"statistics {spread['bn_stats']:.2e}")
+
+    paths, report = {}, {}
+    one_state = ALState(work, SSDR_ARGS)
+    r2 = one_state.round_dir(2)
+    one_reg = one_state.load_registry(r2)
+    for r, res in enumerate(ranks):
+        (step, c_step), (times, _), (sel, c_sel), (ev, c_ev) = res
+        paths[f"dp_train_step_rank{r}"] = c_step
+        paths[f"dp_selection_rank{r}"] = c_sel
+        paths[f"dp_evaluate_rank{r}"] = c_ev
+        err = step_errors(step)
+        picks = {n: set(v) for n, v in sel["registry"]["unlabeled"].items()}
+        want_picks = {n: set(v) for n, v in one_reg["unlabeled"].items()}
+        picks_differ = sum(len(picks.get(n, set()) ^ want_picks.get(
+            n, set())) for n in set(picks) | set(want_picks))
+        gt_differ = sum(int((sel["pseudo"][c.name] != one_state.load_pseudo_gt(
+            r2, c.name)).any(0).sum()) for c in train)
+        report[f"rank{r}"] = dict(
+            step_errors=err, step_ms=times, selection_picks_differing=
+            picks_differ, selection_points_differing=gt_differ,
+            selection_stats=sel["stats"], evaluate=ev)
+        print(f"dp rank {r}/2 on {dev}: train step [{cfg.batch_size}x"
+              f"{cfg.num_points}] loss rel err {err['loss']:.2e}, gradient "
+              f"rel L2 {err['grad']:.2e}, BN statistics {err['bn_stats']:.2e}"
+              f"; step {np.median(times):.3f} ms (median of {len(times)}); "
+              f"selection: {picks_differ} superpoints picked otherwise than "
+              f"the single-card round, {gt_differ} points labelled "
+              f"otherwise; evaluation mIoU {ev[0]:.4f} OA {ev[1]:.4f} "
+              f"(single card {eval_one[0]:.4f} {eval_one[1]:.4f}); "
+              "launches " + json.dumps({"step": c_step, "selection": c_sel,
+                                        "evaluate": c_ev}))
+        check(f"dp rank {r}", err)
+        require_launched(f"dp_train_step_rank{r}", c_step,
+                         ("window_topk", "gather_window", "scatter_window"))
+        require_launched(f"dp_selection_rank{r}", c_sel,
+                         ("window_topk", "gather_window", "chamfer_sums"))
+        require_launched(f"dp_evaluate_rank{r}", c_ev,
+                         ("window_topk", "gather_window"))
+    (sel0, _), (ev0, _) = ranks[0][2], ranks[0][3]
+    for r in range(1, len(ranks)):
+        (sel, _), (ev, _) = ranks[r][2], ranks[r][3]
+        if ev != ev0 or sel["registry"] != sel0["registry"] or any(
+                not np.array_equal(sel["pseudo"][n], sel0["pseudo"][n])
+                for n in sel0["pseudo"]):
+            raise AssertionError(f"dp rank {r} disagrees with rank 0 on "
+                                 "the selection or the evaluation")
+    err = step_errors(nccl)
+    paths["dp_nccl_train_step"] = nccl_counts
+    print(f"dp NCCL world size 1 on {dev}: loss rel err {err['loss']:.2e}, "
+          f"gradient rel L2 {err['grad']:.2e}, BN statistics "
+          f"{err['bn_stats']:.2e}, {nccl_wall:.1f} s with the process start"
+          "; launches " + json.dumps(nccl_counts))
+    check("dp NCCL", err)
+    require_launched("dp_nccl_train_step", nccl_counts,
+                     ("window_topk", "gather_window", "scatter_window"))
+    dp_ms = np.median(report["rank0"]["step_ms"])
+    print(f"dp train step [{cfg.batch_size}x{cfg.num_points}] on one "
+          f"{card_line()}: 2 gloo ranks {dp_ms:.3f} ms "
+          f"against one rank {np.median(one_ms):.3f} ms (medians of "
+          f"{len(one_ms)} warm steps; both ranks share the card, so this is "
+          "the collectives' overhead, not a speed-up); the 2-rank launch "
+          f"{wall:.1f} s with the process start")
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(2, [dev, dev], store)
+    print(f"dryrun_multichip(2) on {dev}: {time.perf_counter() - t0:.1f} s; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    if not all(np.isfinite(d["loss"]) for d in dry):
+        raise AssertionError("dryrun_multichip: non-finite loss")
+    fn, example = dryrun.entry(dev)
+    logits = fn(*example)
+    print(f"dryrun.entry: logits {tuple(logits.shape)}")
+    if logits.shape != (1, ConfigS3DIS.num_points, ConfigS3DIS.num_classes) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError("dryrun.entry: bad logits")
     return paths
 
 
@@ -1398,10 +1565,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
 
     from ssdr_al_torch.config import ConfigS3DIS

@@ -9,8 +9,10 @@ clsbal / GCN-FPS / NAIL) → retraining on the device training pool
 (train/device_pool.py; Semantic3D's possibility-scheduled pool,
 train/possibility_pool.py) or the host pipeline → evaluation →
 best-mIoU snapshot (cli/seed.py, cli/al_loop.py), on every KNN engine,
-and the standalone
-evaluation (cli/evaluate.py). Every Pallas kernel of the TPU package is a
+on one device or data-parallel over torch.distributed ranks
+(--num_devices, parallel/), and the standalone evaluation
+(cli/evaluate.py), which reads the port's snapshots and JAX's
+(train/flax_snapshot.py). Every Pallas kernel of the TPU package is a
 hand-written CUDA kernel here (csrc/, built by kernels/build.py):
 
   K1 window top-k search   ops/knn.py::window_topk

@@ -13,6 +13,12 @@ the slab width, and sends every cloud in one dispatch.
 SuperpointBlockCache's `mxu` (--chamfer_mxu) is accepted as JAX's is, and
 every setting runs the exact f32 K3: on the TPU it picks the bf16x3 chamfer kernel
 (region_graph.py:43-62), which the port does not have.
+
+Under data parallelism (a DataGroup, JAX's `mesh=`) the block axis C is
+split over the ranks: the slab is on every rank, each rank runs K3 on its
+contiguous share of blocks and the [C, S, S] result is gathered
+(chamfer_pairwise_blocks_dp). JAX's gate `_G_CHUNK % mesh size` served its
+shape ladder and has no counterpart: any C splits.
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ import numpy as np
 import torch
 
 from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
-from ssdr_al_torch.ops.chamfer import chamfer_pairwise_blocks
+from ssdr_al_torch.ops.chamfer import (
+    chamfer_pairwise_blocks,
+    chamfer_pairwise_blocks_dp,
+)
 
 
 @dataclasses.dataclass
@@ -134,10 +143,11 @@ class SuperpointBlockCache:
 
     def __init__(self, max_points_per_sp: Optional[int] = 512, *,
                  device: torch.device | str = DEFAULT_DEVICE,
-                 mxu: Optional[bool] = None):
+                 mxu: Optional[bool] = None, group=None):
         self.cap = max_points_per_sp
         self.mxu = mxu        # every setting runs K3 (module docstring)
         self.device = resolve_device(device)
+        self.group = group    # split the chamfer's blocks over its ranks
         self._host: List[tuple] = []            # (pts, msk) per staged cloud
         self._info: Dict[str, tuple] = {}       # name -> (base row, S)
         self._centroids: Dict[str, np.ndarray] = {}
@@ -197,11 +207,18 @@ class SuperpointBlockCache:
         return self._rows
 
     def chamfer(self, idx: np.ndarray) -> torch.Tensor:
-        """Chamfer blocks of slab rows idx [C, S] → [C, S, S] on the device."""
+        """Chamfer blocks of slab rows idx [C, S] → [C, S, S] on the device;
+        with a group, each rank gathers and runs its share of the blocks."""
         if self._slab is None or self._dirty:
             raise RuntimeError("SuperpointBlockCache.finalize() not called")
         pts, msk = self._slab
-        i = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
+        idx = np.asarray(idx, np.int64)
+        if self.group is not None:
+            part = self.group.share(len(idx))
+            i = torch.from_numpy(idx[part]).to(self.device)
+            return chamfer_pairwise_blocks_dp(pts[i], msk[i], self.group,
+                                              len(idx))
+        i = torch.from_numpy(idx).to(self.device)
         return chamfer_pairwise_blocks(pts[i], msk[i])
 
 
@@ -213,14 +230,17 @@ def build_region_graph(
     max_points_per_sp: Optional[int] = 512,
     cache: Optional[SuperpointBlockCache] = None,
     device: torch.device | str = DEFAULT_DEVICE,
+    group=None,
 ) -> RegionGraph:
     """regions_by_cloud: {cloud: [(sp_idx, is_labeled, dominant_point_ids)]}.
 
     ED = bbox-centre Euclidean distance (not squared, fps_gcn_cpu.py:96-98)
     + CD = pairwise chamfer of the superpoints' points, capped at
     max_points_per_sp by linspace subsampling. With a cache, points come
-    from its device slab; without one, the regions are padded here from
-    cloud_xyz and components and uploaded to `device`."""
+    from its device slab (and the cache's group splits the blocks);
+    without one, the regions are padded here from cloud_xyz and
+    components and uploaded to `device`, and a data-parallel group splits
+    the blocks over its ranks."""
     device = cache.device if cache is not None else resolve_device(device)
     timings: Dict[str, float] = {}
     t0 = time.perf_counter()
@@ -255,8 +275,15 @@ def build_region_graph(
             msk_g[ci, :msk.shape[0], :msk.shape[1]] = msk
         timings["pad_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        cd_dev = chamfer_pairwise_blocks(torch.from_numpy(pts_g).to(device),
-                                torch.from_numpy(msk_g).to(device))
+        if group is None:
+            cd_dev = chamfer_pairwise_blocks(
+                torch.from_numpy(pts_g).to(device),
+                torch.from_numpy(msk_g).to(device))
+        else:
+            part = group.share(c)
+            cd_dev = chamfer_pairwise_blocks_dp(
+                torch.from_numpy(pts_g[part]).to(device),
+                torch.from_numpy(msk_g[part]).to(device), group, c)
     cd = cd_dev.cpu().numpy()
     timings["chamfer_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -14,6 +14,8 @@ JAX sampler, so both pick from the same seeds.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import pickle
 import time
 from typing import Dict, List, Optional
 
@@ -90,18 +92,26 @@ class InferenceRunner:
     one forward; all groups are launched before any result is read back.
 
     keep_penult_on_device keeps the f16 penultimate features on the device
-    and `region_feature_means` reduces them there."""
+    and `region_feature_means` reduces them there.
+
+    group: a data-parallel DataGroup (JAX's `mesh=`). The group size is
+    then a multiple of the world size and each rank runs its rows of each
+    group; the per-point results are gathered so every rank holds the
+    whole prediction, while the retained penultimate rows stay on the
+    rank that computed them and `region_feature_means` all-reduces the
+    ranks' partial sums."""
 
     def __init__(self, cfg: Config, clouds: List[Cloud], eval_step, state,
                  point_unc_mode: str, seed: int = 0, chunk_batch: int = 0,
                  keep_penult_on_device: bool = False, *,
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE, group=None):
         self.cfg = cfg
         self.eval_step = eval_step
         self.state = state
         self.mode = point_unc_mode
         self.device = resolve_device(device)
         self.keep_penult = keep_penult_on_device
+        self.group = group
         self._penult_groups: List[torch.Tensor] = []
         self._row_map: Dict[str, np.ndarray] = {}
         self.chunk_batch = chunk_batch or min(
@@ -124,7 +134,9 @@ class InferenceRunner:
         boundaries. The scatter back to cloud order runs on the host with
         numpy's last-assignment-wins rule: padded chunk rows repeat points,
         and a device scatter with duplicate targets has no defined winner."""
-        cb = max(self.chunk_batch, 1)
+        m = 1 if self.group is None else self.group.size
+        cb = max((max(self.chunk_batch, m) // m) * m, m)
+        self._cb = cb
         flat = []
         for cloud in clouds:
             for chunk in self.pipe.cloud_chunks(cloud):
@@ -137,6 +149,9 @@ class InferenceRunner:
         for g in groups:
             batch = {k: np.concatenate([c[0][k] for _, c in g], axis=0)
                      for k in g[0][1][0]}
+            if self.group is not None:
+                batch = {k: self.group.shard_rows(v)
+                         for k, v in batch.items()}
             cls, u, f16, order = self._reduced(batch)
             if self.keep_penult:
                 self._penult_groups.append(f16)
@@ -155,10 +170,13 @@ class InferenceRunner:
             self._row_map = {c.name: np.full(c.num_points, -1, np.int64)
                              for c in clouds}
         n = self.cfg.num_points
-        for gi, (g, cls, u, feats, order) in enumerate(pending):
-            cls, u = cls.cpu().numpy(), u.cpu().numpy()
-            feats = None if feats is None else feats.cpu().numpy()
-            order = None if order is None else order.cpu().numpy()
+        results = [tuple(None if x is None else x.cpu().numpy()
+                         for x in (cls, u, feats, order))
+                   for _, cls, u, feats, order in pending]
+        if self.group is not None:
+            results = self.group.gather_rows(results)
+        for gi, ((g, *_), (cls, u, feats, order)) in enumerate(
+                zip(pending, results)):
             for j, (name, (_, idx, valid)) in enumerate(g):
                 if name is None:
                     continue
@@ -178,17 +196,24 @@ class InferenceRunner:
         """[num_slots, 32] f32 mean retained penult feature per region slot.
         slot_of_point: per-cloud [num_points] slot id or −1. The sums run on
         the device in float64 (index_add_ on CUDA adds in no fixed order;
-        f64 sums of f16 values make that order immaterial at f32 output)."""
+        f64 sums of f16 values make that order immaterial at f32 output).
+        Under data parallelism each rank sums the rows it holds and the
+        f64 partial sums and counts are all-reduced."""
         if not self._penult_groups:
             raise RuntimeError("run_many(keep_penult_on_device) not run")
-        rows = sum(int(g.shape[0]) * int(g.shape[1])
-                   for g in self._penult_groups)
+        n = self.cfg.num_points
+        rows = self._cb * n * len(self._penult_groups)
         slot = np.full(rows, num_slots, np.int64)        # trash slot
         for name, sp in slot_of_point.items():
             rm = self._row_map[name]
             pts = np.flatnonzero((sp >= 0) & (rm >= 0))
             slot[rm[pts]] = sp[pts]
-        slot_t = torch.from_numpy(slot).to(self.device)
+        if self.group is not None:
+            # the rows of this rank's share of every chunk group
+            slot = self.group.shard_rows(
+                slot.reshape(-1, self._cb, n).swapaxes(0, 1)
+            ).swapaxes(0, 1).reshape(-1)
+        slot_t = torch.from_numpy(np.ascontiguousarray(slot)).to(self.device)
         d = self._penult_groups[0].shape[-1]
         sums = torch.zeros((num_slots + 1, d), dtype=torch.float64,
                            device=self.device)
@@ -202,6 +227,10 @@ class InferenceRunner:
             cnt.index_add_(0, s, torch.ones(r, dtype=torch.float64,
                                             device=self.device))
             off += r
+        if self.group is not None:
+            both = self.group.all_reduce_sum(torch.cat([sums, cnt[:, None]],
+                                                       1))
+            sums, cnt = both[:, :d], both[:, d]
         means = sums[:num_slots] / cnt[:num_slots].clamp(min=1.0)[:, None]
         return means.float().cpu().numpy()
 
@@ -335,6 +364,8 @@ class TSamplerArgs:
     min_size: int = 1
     gcn_number: int = 1
     gcn_top: int = 0
+    # the coreGCN fit's steps (None: gcn_sampling's 20 000)
+    gcn_steps: Optional[int] = None
     # cap on the points per superpoint in the chamfer (linspace subsample);
     # 0 = no cap
     chamfer_cap: int = 512
@@ -344,11 +375,21 @@ class TSamplerArgs:
 
 
 class TSampler:
-    """Uncertainty + diversity selection (sampler2.py:522-810)."""
+    """Uncertainty + diversity selection (sampler2.py:522-810).
+
+    group: a data-parallel DataGroup (JAX's `mesh=`): the selection
+    forward and the region means run data-parallel (InferenceRunner) and
+    the chamfer blocks are split over the ranks (SuperpointBlockCache);
+    the host selection then runs alike on every rank, on rank 0's region
+    scores and rank 0's diversity picks (segment sums, FPS and the coreGCN
+    fit need not round alike in two processes on CUDA, and every rank must
+    take the same decisions); the round ends by checking that every rank
+    wrote the same registry and pseudo-GT. `state` should hold its writes
+    on ranks other than 0 (ALState(write_files=False))."""
 
     def __init__(self, state: ALState, clouds: List[Cloud], cfg: Config,
                  args: TSamplerArgs, total_num: int, seed: int = 0, *,
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE, group=None):
         if args.diversity not in ("", "edcd", "gcn", "gcn_fps"):
             raise ValueError(f"unknown diversity {args.diversity!r}")
         self.state = state
@@ -358,6 +399,7 @@ class TSampler:
         self.args = args
         self.total_num = total_num
         self.device = resolve_device(device)
+        self.group = group
         self.rng = np.random.RandomState(seed)
         self._gt_dom_cache: Dict[str, tuple] = {}
         self._runner = None        # round-lifetime InferenceRunner
@@ -374,7 +416,7 @@ class TSampler:
             self.cfg, self.clouds, eval_step, model_state,
             a.point_uncertainty_mode, seed=self.rng.randint(1 << 31),
             keep_penult_on_device=(a.diversity in ("gcn", "gcn_fps")),
-            device=self.device,
+            device=self.device, group=self.group,
         )
         self._runner = runner
         inference = runner.run_many(list(self.clouds))
@@ -457,7 +499,8 @@ class TSampler:
         runc = region_uncertainty(unc, cls, seg, total_s,
                                   self.cfg.num_classes, mode)
         dom, _ = segment_majority(cls, seg, total_s, self.cfg.num_classes)
-        return runc.cpu().numpy(), dom.cpu().numpy()
+        out = runc.cpu().numpy(), dom.cpu().numpy()
+        return out if self.group is None else self.group.broadcast_host(out)
 
     # ------------------------------------------------------------ anchors ---
     def _gt_dominant(self, name):
@@ -557,10 +600,15 @@ class TSampler:
             for i in sorted_inds[:batch_size]:
                 file_list.setdefault(table.cloud_name(i), []).append(
                     int(table.sp_idx[i]))
+        if self.group is not None:
+            file_list, rng_state = self.group.broadcast_host(
+                (file_list, self.rng.get_state()))
+            self.rng.set_state(rng_state)
         self.phase_times["diversity_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         self._record_selection_stats(file_list, total_obj, stats)
+        digest = None if self.group is None else hashlib.sha256()
         for name, sp_inds in file_list.items():
             sp = self.state.load_superpoints(name)
             pseudo_gt = self.state.load_pseudo_gt(round_dir, name)
@@ -571,7 +619,16 @@ class TSampler:
                 total_obj["selected_class_list"])
             self.state.write_pseudo_gt(round_dir, name, pseudo_gt)
             self.state.mark_labeled(total_obj, name, used)
+            if digest is not None:
+                digest.update(np.asarray(pseudo_gt, np.float32).tobytes())
         self.state.write_registry(total_obj, round_dir)
+        if digest is not None:
+            digest.update(pickle.dumps(total_obj))
+            digests = self.group.gather_host(digest.hexdigest())
+            if len(set(digests)) > 1:
+                raise RuntimeError(
+                    f"round {round_num}: the ranks wrote different "
+                    f"registries or pseudo-GT (digests {digests})")
         self.phase_times["oracle_s"] = time.perf_counter() - t0
         self._runner = None  # free the retained device penult buffers
 
@@ -649,7 +706,7 @@ class TSampler:
             # the run, later rounds only gather slab rows
             self._block_cache = SuperpointBlockCache(
                 a.chamfer_cap or None, device=self.device,
-                mxu=a.chamfer_mxu)
+                mxu=a.chamfer_mxu, group=self.group)
             for c in self.clouds:
                 self._block_cache.ensure(
                     c.name, c.xyz,
@@ -688,10 +745,11 @@ class TSampler:
                     graph, feats, unlabeled_flags, sampling_batch,
                     gcn_number=a.gcn_number, gcn_top=a.gcn_top, rng=self.rng,
                     device=self.device)
+            steps = {} if a.gcn_steps is None else {"num_steps": a.gcn_steps}
             return gcn_sampling(graph, feats, unlabeled_flags,
                                 sampling_batch,
                                 seed=int(self.rng.randint(1 << 31)),
-                                device=self.device)
+                                device=self.device, **steps)
         finally:
             self.phase_times["div_gcn_s"] = time.perf_counter() - t0
 

@@ -82,13 +82,47 @@ class Superpoints:
 
 
 class ALState:
-    """Filesystem-backed AL state with the reference's directory layout."""
+    """Filesystem-backed AL state with the reference's directory layout.
 
-    def __init__(self, data_path: str, sampler_args=()):
+    write_files=False keeps every write in memory instead (the pickled
+    bytes a file would hold, read back before the disk): the state of a
+    data-parallel rank other than 0, which takes the same decisions as
+    rank 0 while rank 0 alone writes the files."""
+
+    def __init__(self, data_path: str, sampler_args=(), *,
+                 write_files: bool = True):
         self.data_path = data_path           # data/<ds>/<reg_strength>
         self.sampler_args = list(sampler_args)
         self.superpoint_dir = os.path.join(data_path, "superpoint")
         self._sp_cache: Dict[str, Superpoints] = {}
+        self._held: Optional[Dict[str, bytes]] = \
+            None if write_files else {}
+
+    # ------------------------------------------------------------- files ---
+    def _dump(self, path: str, obj):
+        if self._held is not None:
+            self._held[os.path.normpath(path)] = pickle.dumps(obj)
+            return
+        with open(path, "wb") as f:
+            pickle.dump(obj, f)
+
+    def _load(self, path: str):
+        held = None if self._held is None else \
+            self._held.get(os.path.normpath(path))
+        if held is not None:
+            return pickle.loads(held)
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    def _files(self, where: str) -> List[str]:
+        """The names of the files in `where`, held ones included."""
+        names = {f for f in os.listdir(where)
+                 if os.path.isfile(os.path.join(where, f))} \
+            if os.path.isdir(where) else set()
+        for p in self._held or ():
+            if os.path.dirname(p) == os.path.normpath(where):
+                names.add(os.path.basename(p))
+        return sorted(names)
 
     # ------------------------------------------------------------ layout ---
     def round_dir(self, round_num: int, sampler_args=None) -> str:
@@ -102,23 +136,23 @@ class ALState:
     def write_superpoints(self, cloud_name: str, components, in_component,
                           num_points: int):
         """Persist a partition + a zeroed pseudo-gt, as compute_superpoint.py:63-74."""
-        os.makedirs(self.superpoint_dir, exist_ok=True)
+        if self._held is None:
+            os.makedirs(self.superpoint_dir, exist_ok=True)
         comp_arr = np.empty(len(components), dtype=object)
         for i, c in enumerate(components):
             comp_arr[i] = np.asarray(c, dtype=np.int64)
         sp = {"components": comp_arr,
               "in_component": np.asarray(in_component, dtype=np.int32)}
-        with open(os.path.join(self.superpoint_dir, cloud_name + ".superpoint"), "wb") as f:
-            pickle.dump(sp, f)
-        pseudo_gt = np.zeros([2, num_points], dtype=np.float32)
-        with open(os.path.join(self.superpoint_dir, cloud_name + ".gt"), "wb") as f:
-            pickle.dump(pseudo_gt, f)
+        self._dump(os.path.join(self.superpoint_dir,
+                                cloud_name + ".superpoint"), sp)
+        self._dump(os.path.join(self.superpoint_dir, cloud_name + ".gt"),
+                   np.zeros([2, num_points], dtype=np.float32))
 
     def load_superpoints(self, cloud_name: str) -> Superpoints:
         if cloud_name in self._sp_cache:
             return self._sp_cache[cloud_name]
-        with open(os.path.join(self.superpoint_dir, cloud_name + ".superpoint"), "rb") as f:
-            sp = pickle.load(f)
+        sp = self._load(os.path.join(self.superpoint_dir,
+                                     cloud_name + ".superpoint"))
         components = [np.asarray(c, dtype=np.int64) for c in sp["components"]]
         in_component = np.asarray(sp["in_component"], dtype=np.int32)
         out = Superpoints(components=components, in_component=in_component)
@@ -128,25 +162,24 @@ class ALState:
     # ----------------------------------------------------------- registry ---
     def write_registry(self, total_obj: dict, where: Optional[str] = None):
         where = where or self.superpoint_dir
-        with open(os.path.join(where, "total.pkl"), "wb") as f:
-            pickle.dump(total_obj, f)
+        self._dump(os.path.join(where, "total.pkl"), total_obj)
 
     def load_registry(self, where: Optional[str] = None) -> dict:
         where = where or self.superpoint_dir
-        with open(os.path.join(where, "total.pkl"), "rb") as f:
-            total_obj = pickle.load(f)
+        total_obj = self._load(os.path.join(where, "total.pkl"))
         # sampler2.py:439-440 — lazily added key
         total_obj.setdefault("selected_class_list", [])
         return total_obj
 
     # ---------------------------------------------------------- pseudo-gt ---
     def load_pseudo_gt(self, round_dir: str, cloud_name: str) -> np.ndarray:
-        with open(os.path.join(round_dir, cloud_name + ".gt"), "rb") as f:
-            return np.asarray(pickle.load(f), dtype=np.float32)
+        return np.asarray(self._load(os.path.join(round_dir,
+                                                  cloud_name + ".gt")),
+                          dtype=np.float32)
 
     def write_pseudo_gt(self, round_dir: str, cloud_name: str, pseudo_gt):
-        with open(os.path.join(round_dir, cloud_name + ".gt"), "wb") as f:
-            pickle.dump(np.asarray(pseudo_gt, dtype=np.float32), f)
+        self._dump(os.path.join(round_dir, cloud_name + ".gt"),
+                   np.asarray(pseudo_gt, dtype=np.float32))
 
     # ------------------------------------------------------------- rounds ---
     def begin_round(self, last_round: int, *, seed_from_superpoint=False,
@@ -164,6 +197,12 @@ class ALState:
         else:
             src = self.round_dir(last_round)
         dst = self.round_dir(last_round + 1)
+        if self._held is not None:
+            for fname in self._files(src):
+                if ".superpoint" not in fname:
+                    self._held[os.path.normpath(os.path.join(dst, fname))] \
+                        = pickle.dumps(self._load(os.path.join(src, fname)))
+            return dst
         os.makedirs(dst, exist_ok=True)
         for fname in os.listdir(src):
             p = os.path.join(src, fname)

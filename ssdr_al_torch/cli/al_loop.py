@@ -14,8 +14,11 @@ accepted and every setting runs the exact chamfer kernel K3.
 Every round trains on the device-resident pool by default (--pool 1, as
 in JAX): DeviceTrainPool for S3DIS and SemanticKITTI, the possibility-
 scheduled PossibilityDevicePool for semantic3d; past the pool's memory
-gate, and with --pool 0, on the host pipeline. Not ported yet
-(ROADMAP.md), and refused with NotImplementedError: --num_devices > 1.
+gate, and with --pool 0, on the host pipeline. --num_devices N runs the
+rounds data-parallel (cli/common.py::run_ranks): the train steps, the
+evaluation, the selection forward and the diversity chamfer split over
+the ranks; the possibility pool is single-device, so semantic3d trains
+on the host pipeline under dp, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ from ssdr_al_torch.active.samplers import (
 from ssdr_al_torch.active.state import RoundStats
 from ssdr_al_torch.cli.common import (
     add_common_args,
-    log_out,
     make_evaluator,
     make_record_file,
     make_trainer,
     make_training_pipeline,
     pseudo_gt_for_round,
+    rank_device,
+    rank_log,
+    run_ranks,
     setup_experiment,
 )
 from ssdr_al_torch.train.device_pool import DeviceTrainPool
@@ -66,16 +71,21 @@ def build_sampler_args(args) -> list:
 
 
 def run_al_loop(args):
+    return run_ranks(_run_al_loop, args)
+
+
+def _run_al_loop(group, args):
     exp = setup_experiment(args)
     sampler_args = build_sampler_args(args)
-    state = exp.make_state(sampler_args)
+    state = exp.make_state(sampler_args, group)
     trainer = make_trainer(exp, sampler_args, args.knn_engine,
-                           device=args.device)
-    record = make_record_file(args, sampler_args)
+                           device=rank_device(args, group), group=group)
+    record = make_record_file(args, sampler_args, group=group)
+    log = rank_log(record, group)
 
     total_obj = state.load_registry()
     total_sp_num = total_obj["sp_num"]
-    log_out(f"total_sp_num {total_sp_num}", record)
+    log(f"total_sp_num {total_sp_num}")
 
     diversity = ""
     if args.edcd:
@@ -106,11 +116,11 @@ def run_al_loop(args):
                 chamfer_mxu={-1: None, 0: False, 1: True}[
                     getattr(args, "chamfer_mxu", -1)],
             ),
-            total_sp_num, seed=args.t, device=trainer.device)
+            total_sp_num, seed=args.t, device=trainer.device, group=group)
     pipe0 = make_training_pipeline(exp)
     trainer.init_state(pipe0.sample_batch(exp.cfg.batch_size))
-    pool = make_pool(args, exp, trainer, record)
-    evaluate = make_evaluator(exp)
+    pool = make_pool(args, exp, trainer, log)
+    evaluate = make_evaluator(exp, group)
 
     sp_batch_size = args.sp_batch_size or exp.cfg.sp_batch_size
     last = args.rounds if args.rounds else exp.cfg.al_rounds[1]
@@ -128,8 +138,8 @@ def run_al_loop(args):
                              r - 1, stats)
         regions = max(stats.sp_num + stats.split_sp_num, 1)
         points = stats.p_num + stats.sub_p_num
-        log_out(f"round= {r} | labeling mean point={points / regions:.1f}, "
-                f"{stats}, costTime={time.time() - t0:.1f}", record)
+        log(f"round= {r} | labeling mean point={points / regions:.1f}, "
+            f"{stats}, costTime={time.time() - t0:.1f}")
 
         t0 = time.time()
         round_dir = state.round_dir(r)
@@ -147,32 +157,39 @@ def run_al_loop(args):
                 return pipe.batches(exp.cfg.train_steps, exp.cfg.batch_size)
         miou, oa = trainer.train_round(r, batch_iter_fn, evaluate,
                                        device_pool=pool)
-        log_out(f"round= {r} | best_miou= {miou:.4f}, best_OA= {oa:.4f}, "
-                f"costTime={time.time() - t0:.1f}", record)
+        log(f"round= {r} | best_miou= {miou:.4f}, best_OA= {oa:.4f}, "
+            f"costTime={time.time() - t0:.1f}")
         results.append((miou, oa))
-    record.close()
+    if record is not None:
+        record.close()
     return results
 
 
-def make_pool(args, exp, trainer, record):
+def make_pool(args, exp, trainer, log):
     """The run's device training pool on the trainer's device (--pool 1):
     the possibility-scheduled pool for semantic3d, DeviceTrainPool
-    otherwise; None with --pool 0 or past the pool's memory gate (the host
-    pipeline then trains, as it does in JAX)."""
+    otherwise; None with --pool 0, past the pool's memory gate, and for
+    semantic3d under data parallelism (the host pipeline then trains, as
+    it does in JAX). Under data parallelism every rank holds a pool with
+    the same seed."""
     if not args.pool:
+        return None
+    if exp.dataset_name == "semantic3d" and trainer.group is not None:
+        log("possibility pool is single-device only; host pipeline "
+            "under dp")
         return None
     cls = (PossibilityDevicePool if exp.dataset_name == "semantic3d"
            else DeviceTrainPool)
     pool = cls(exp.train_clouds, exp.cfg, seed=args.t, device=trainer.device)
     if not pool.available:
-        log_out("device pool over budget; host pipeline", record)
+        log("device pool over budget; host pipeline")
         return None
     if args.round > 2:
         # the pool's block stream differs from the host pipeline's, so a
         # run resumed here switches streams mid-curve
-        log_out(f"resuming at round {args.round} with the device pool: "
-                "block-sampling RNG differs from the host pipeline (pass "
-                "--pool 0 to keep the original stream)", record)
+        log(f"resuming at round {args.round} with the device pool: "
+            "block-sampling RNG differs from the host pipeline (pass "
+            "--pool 0 to keep the original stream)")
     return pool
 
 

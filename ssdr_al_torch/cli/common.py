@@ -3,9 +3,11 @@ flags and the same on-disk layout, keyed by the sampler-args string under
 data/<ds>/<reg_strength>/, plus `--device`, the port's counterpart of
 JAX_PLATFORMS (default: the card).
 
-The one flag value whose path is not ported yet, --num_devices > 1,
-raises NotImplementedError naming ROADMAP.md. Every --dataset, every
---knn_engine and both --compute_dtype values are ported.
+--num_devices N > 1 runs the entry point data-parallel (run_ranks): N
+ranks, rank r on cuda:r (ValueError when the machine has fewer cards;
+JAX's make_mesh silently takes fewer devices), or N CPU ranks with
+--device cpu. Every rank runs the same round; rank 0 alone writes the
+AL state, the snapshots and the record_round/ log.
 """
 
 from __future__ import annotations
@@ -33,10 +35,9 @@ from ssdr_al_torch.data.synthetic import (
 )
 from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
 from ssdr_al_torch.models.randlanet import KNN_ENGINES
+from ssdr_al_torch.parallel.mesh import data_devices, launch
 from ssdr_al_torch.train.evaluator import Evaluator
 from ssdr_al_torch.train.trainer import Trainer
-
-NOT_PORTED = "is not ported yet (ROADMAP.md)"
 
 
 def log_out(msg: str, f=None):
@@ -45,6 +46,14 @@ def log_out(msg: str, f=None):
         f.write(msg + "\n")
         f.flush()
     print(msg)
+
+
+def rank_log(record, group):
+    """log(msg): log_out to `record` on rank 0 (or without a group); a
+    no-op on the other ranks."""
+    if group is not None and not group.lead:
+        return lambda msg: None
+    return lambda msg: log_out(msg, record)
 
 
 def add_common_args(p: argparse.ArgumentParser):
@@ -86,16 +95,36 @@ def add_common_args(p: argparse.ArgumentParser):
                         "(0 = config default 2048; multiple of 512 in "
                         "[1024, 4096])")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel cards (only 1 is ported yet)")
+                   help="data-parallel ranks, one device each: cuda:0 … "
+                        "cuda:N-1 (at most the machine's cards), or N CPU "
+                        "ranks with --device cpu")
 
 
-def check_ported(args):
-    """Raise on a flag value whose path the port does not have yet, and on
-    --device cuda without a card."""
-    resolve_device(getattr(args, "device", DEFAULT_DEVICE))
-    if getattr(args, "num_devices", 1) > 1:
-        raise NotImplementedError(f"--num_devices {args.num_devices} "
-                                  + NOT_PORTED)
+def run_ranks(fn, args):
+    """fn(group, args) on every rank of --num_devices and rank 0's result;
+    with one device fn(None, args) in this process. The data is set up
+    once here before the ranks start (they read it), and the batch is
+    checked to split over the ranks, as JAX's make_trainer does."""
+    n = getattr(args, "num_devices", 1)
+    if n == 1:
+        return fn(None, args)
+    resolve_device(args.device)
+    devices = data_devices(args.device, n)
+    check_batch_split(setup_experiment(args).cfg, n)
+    return launch(fn, n, devices, os.path.join(args.data_root, "dp_runs"),
+                  args)[0]
+
+
+def check_batch_split(cfg: Config, n: int):
+    """JAX's make_trainer check: the batch splits over the ranks."""
+    if cfg.batch_size % n:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"{n} devices")
+
+
+def rank_device(args, group):
+    """The device of this rank: the group's, else --device."""
+    return args.device if group is None else group.device
 
 
 @dataclasses.dataclass
@@ -108,8 +137,10 @@ class Experiment:
     val_clouds: List[Cloud]
     class_weight_name: str  # key for config.class_weights, or "" for flat
 
-    def make_state(self, sampler_args) -> ALState:
-        return ALState(self.data_path, sampler_args)
+    def make_state(self, sampler_args, group=None) -> ALState:
+        """The AL state; ranks other than 0 hold their writes."""
+        return ALState(self.data_path, sampler_args,
+                       write_files=group is None or group.lead)
 
     def save_dir(self, sampler_args) -> str:
         return os.path.join(self.data_path, "saver",
@@ -117,7 +148,7 @@ class Experiment:
 
 
 def setup_experiment(args) -> Experiment:
-    check_ported(args)
+    resolve_device(getattr(args, "device", DEFAULT_DEVICE))
     cfg = get_config(args.dataset)
     overrides = {}
     synth_hard = args.synthetic and not getattr(args, "synthetic_easy", False)
@@ -196,22 +227,29 @@ def experiment_class_weights(exp: Experiment) -> np.ndarray:
 
 
 def make_trainer(exp: Experiment, sampler_args, knn_engine="window", *,
-                 device=DEFAULT_DEVICE) -> Trainer:
-    """Trainer wired to this experiment's snapshot dir and class weights."""
+                 device=DEFAULT_DEVICE, group=None) -> Trainer:
+    """Trainer wired to this experiment's snapshot dir and class weights;
+    data-parallel over `group`."""
     return Trainer(exp.cfg, exp.dataset_name,
                    save_dir=exp.save_dir(sampler_args),
                    seed_save_dir=exp.save_dir(["seed"]),
                    knn_engine=knn_engine,
-                   weights=experiment_class_weights(exp), device=device)
+                   weights=experiment_class_weights(exp), device=device,
+                   group=group)
 
 
-def make_evaluator(exp: Experiment) -> Evaluator:
+def make_evaluator(exp: Experiment, group=None) -> Evaluator:
     """Evaluator over the validation clouds; full-resolution reprojection
-    is picked up when every val cloud carries its `_proj.pkl`."""
-    return Evaluator(exp.cfg, exp.val_clouds)
+    is picked up when every val cloud carries its `_proj.pkl`; `group`
+    splits each batch over the data-parallel ranks."""
+    return Evaluator(exp.cfg, exp.val_clouds, group=group)
 
 
-def make_record_file(args, sampler_args, suffix=""):
+def make_record_file(args, sampler_args, suffix="", group=None):
+    """The record_round/ log of the run, appended to; None on the ranks
+    other than 0."""
+    if group is not None and not group.lead:
+        return None
     os.makedirs("record_round", exist_ok=True)
     path = os.path.join(
         "record_round",

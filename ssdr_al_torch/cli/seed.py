@@ -6,6 +6,7 @@ ssdr_al_tpu/cli/seed.py; reference ssdr_create_seed.py:6-59):
       --reg_strength 0.012 [--device cpu]
 
 The superpoint registry (data/<ds>/<reg>/superpoint/total.pkl) must exist.
+--num_devices N trains data-parallel (cli/common.py::run_ranks).
 """
 
 from __future__ import annotations
@@ -16,51 +17,58 @@ from ssdr_al_torch.active.samplers import SeedSampler
 from ssdr_al_torch.active.state import RoundStats
 from ssdr_al_torch.cli.common import (
     add_common_args,
-    log_out,
     make_evaluator,
     make_record_file,
     make_trainer,
     make_training_pipeline,
     pseudo_gt_for_round,
+    rank_device,
+    rank_log,
+    run_ranks,
     setup_experiment,
 )
 
 
 def run_seed(args):
+    return run_ranks(_run_seed, args)
+
+
+def _run_seed(group, args):
     exp = setup_experiment(args)
     sampler_args = ["seed"]
-    state = exp.make_state(sampler_args)
+    state = exp.make_state(sampler_args, group)
     trainer = make_trainer(exp, sampler_args, args.knn_engine,
-                           device=args.device)
-    record = make_record_file(args, sampler_args)
+                           device=rank_device(args, group), group=group)
+    record = make_record_file(args, sampler_args, group=group)
+    log = rank_log(record, group)
 
     total_obj = state.load_registry()
     total_sp_num = total_obj["sp_num"]
     sp_batch = max(1, int(total_sp_num * args.seed_percent))
-    log_out(f"total_sp_num {total_sp_num}, seeding {sp_batch}", record)
+    log(f"total_sp_num {total_sp_num}, seeding {sp_batch}")
 
     sampler = SeedSampler(state, exp.train_clouds, total_sp_num)
     stats = RoundStats()
     sampler.sampling(sp_batch, last_round=0, stats=stats)
     n_regions = max(stats.sp_num + stats.sub_num, 1)
     n_points = stats.p_num + stats.sub_p_num
-    log_out(
-        f"round= 1 | labeling_region_num={n_regions}, "
+    log(f"round= 1 | labeling_region_num={n_regions}, "
         f"labeling_point_num={n_points}, "
-        f"mean_points={n_points / n_regions:.1f}", record)
+        f"mean_points={n_points / n_regions:.1f}")
 
     round_dir = state.round_dir(1)
     pipe = make_training_pipeline(
         exp, pseudo_gt=pseudo_gt_for_round(state, round_dir,
                                            exp.train_clouds))
     trainer.init_state(pipe.sample_batch(exp.cfg.batch_size))
-    evaluate = make_evaluator(exp)
+    evaluate = make_evaluator(exp, group)
     miou, oa = trainer.train_round(
         1, lambda epoch: pipe.batches(exp.cfg.train_steps,
                                       exp.cfg.batch_size),
         evaluate)
-    log_out(f"round= 1 | best_miou= {miou:.4f}, best_OA= {oa:.4f}", record)
-    record.close()
+    log(f"round= 1 | best_miou= {miou:.4f}, best_OA= {oa:.4f}")
+    if record is not None:
+        record.close()
     return miou, oa
 
 

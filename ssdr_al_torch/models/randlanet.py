@@ -125,7 +125,15 @@ class BatchNorm(nn.Module):
     statistics as ra = 0.99·ra + 0.01·batch with that BIASED variance
     (torch.nn.BatchNorm1d would take the unbiased one). The bf16 model
     feeds it f32 and rounds its output (SharedMLP), as flax's BatchNorm
-    with dtype=bfloat16 keeps its statistics and arithmetic in f32."""
+    with dtype=bfloat16 keeps its statistics and arithmetic in f32.
+
+    With a data-parallel `group` (set_data_group), train mode takes the
+    statistics of the GLOBAL batch, as JAX's sharded BatchNorm does: the
+    ranks' Σx and Σx² are all-reduced (differentiably, so the gradient of
+    the statistics reaches every rank's rows) and divided by the global
+    count, every rank's shard having the same shape; every rank then
+    holds the same running statistics. torch.nn.SyncBatchNorm would take
+    the unbiased running variance."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -133,12 +141,26 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.group = None
+
+    def _statistics(self, x):
+        """(mean, biased variance) over every axis but the last."""
+        if self.group is None:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            return mean, torch.clamp((x * x).mean(dims) - mean * mean,
+                                     min=0.0)
+        c = x.shape[-1]
+        flat = x.reshape(-1, c)
+        sums = self.group.all_reduce_sum(
+            torch.cat([flat.sum(0), (flat * flat).sum(0)]), grad=True)
+        count = flat.shape[0] * self.group.size
+        mean = sums[:c] / count
+        return mean, torch.clamp(sums[c:] / count - mean * mean, min=0.0)
 
     def forward(self, x):
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            mean, var = self._statistics(x)
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
                     (1 - BN_MOMENTUM) * mean)
@@ -153,11 +175,17 @@ class BatchNorm(nn.Module):
 class Dropout(nn.Module):
     """flax nn.Dropout in train mode: keep with probability 1 − rate and
     scale kept values by 1 / (1 − rate); the identity in eval mode. The
-    mask is drawn from the generator passed in, on x's device."""
+    mask is drawn from the generator passed in, on x's device.
+
+    With a data-parallel `group` (set_data_group) x is this rank's rows:
+    every rank draws the GLOBAL batch's mask from a generator seeded alike
+    and keeps its rows, so the shards' masks differ and together equal
+    the single-device mask, as JAX's sharded dropout does."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.group = None
 
     def forward(self, x, generator: Optional[torch.Generator]):
         if not self.training or self.rate == 0.0:
@@ -165,8 +193,12 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("train-mode dropout needs a torch.Generator")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=_at_least_f32(x).dtype) < keep_prob
+        m = 1 if self.group is None else self.group.size
+        u = torch.rand((x.shape[0] * m,) + tuple(x.shape[1:]),
+                       generator=generator, device=x.device,
+                       dtype=_at_least_f32(x).dtype)
+        keep = (u if self.group is None else
+                self.group.shard_rows(u)) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -571,8 +603,17 @@ def _on(x, dtype, device):
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def set_data_group(model: nn.Module, group):
+    """Give every BatchNorm and Dropout of `model` the data-parallel group
+    whose global batch its statistics and its mask cover (None: this
+    process's batch)."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, Dropout)):
+            m.group = group
+
+
 def masked_weighted_ce(logits, pseudo, activation, labels, class_weights,
-                       ignored_label_inds=(), reduce_table=None):
+                       ignored_label_inds=(), reduce_table=None, group=None):
     """Activation-masked, class-weighted softmax CE, as
     ssdr_al_tpu/models/randlanet.py::masked_weighted_ce: points whose TRUE
     label is ignored are dropped, pseudo labels go through the reduce
@@ -580,7 +621,13 @@ def masked_weighted_ce(logits, pseudo, activation, labels, class_weights,
     valid points. logits [B, N, C]; pseudo / labels [B, N] int;
     activation [B, N] {0, 1}; class_weights and reduce_table numpy or
     tensors. Returns (loss, accuracy): top-1 against the TRUE labels on
-    valid points."""
+    valid points.
+
+    With a data-parallel `group` the logits are this rank's rows and the
+    denominator is the GLOBAL valid count (each rank's shard may hold a
+    different number of ignored labels): the returned loss is this rank's
+    share of the global loss, whose gradients the ranks sum; the accuracy
+    is the global one."""
     c = logits.shape[-1]
     logits2 = logits.reshape(-1, c)
     pseudo = pseudo.reshape(-1).long()
@@ -595,10 +642,13 @@ def masked_weighted_ce(logits, pseudo, activation, labels, class_weights,
     logp = F.log_softmax(logits2, dim=-1)
     ce = -logp.gather(1, pseudo[:, None])[:, 0]
     w = _on(class_weights, logits2.dtype, logits.device)[pseudo]
-    denom = torch.clamp(valid.sum(), min=1)
+    count = valid.sum()
+    correct = ((logits2.argmax(-1) == labels) & valid).sum()
+    if group is not None:
+        count, correct = group.all_reduce_sum(torch.stack([count, correct]))
+    denom = torch.clamp(count, min=1)
     loss = (ce * w * activation * valid).sum() / denom
-    acc = ((logits2.argmax(-1) == labels) & valid).sum() / denom
-    return loss, acc
+    return loss, correct / denom
 
 
 def init_params(cfg: Config, generator: torch.Generator,

@@ -93,6 +93,22 @@ def chamfer_pairwise_blocks(points: torch.Tensor,
     return cd * (1.0 - eye)[None]
 
 
+def chamfer_pairwise_blocks_dp(points: torch.Tensor, mask: torch.Tensor,
+                               group, c: int) -> torch.Tensor:
+    """chamfer_pairwise_blocks with the block axis split over a data-
+    parallel group (chamfer.py:238-254's chamfer_pairwise_blocks_gathered_dp):
+    points [C_r, S, P, 3] and mask [C_r, S, P] are this rank's share
+    group.share(c) of c blocks; returns the whole [c, S, S] on every rank.
+    A rank whose share is empty launches nothing."""
+    s = points.shape[1]
+    if points.shape[0]:
+        part = chamfer_pairwise_blocks(points, mask)
+    else:
+        part = torch.zeros((0, s, s), dtype=torch.float32,
+                           device=points.device)
+    return group.gather_share(part, c)
+
+
 def chamfer_pairwise(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Pairwise chamfer of one cloud's superpoints (chamfer.py:53, the exact
     form the edcd branch calls): chamfer_pairwise_blocks on a block axis of

@@ -60,8 +60,14 @@ def block_d2(xyz: torch.Tensor, pick: torch.Tensor) -> torch.Tensor:
     return (d[..., 2] * d[..., 2] + s).float()
 
 
+def _rows(group, x):
+    """x, or this rank's rows of the global [B, ...] x."""
+    return x if group is None else group.shard_rows(x)
+
+
 def extract_blocks(xyz, planes, offsets, n, cloud_ids, picks,
-                   num_points: int, window: int, generator: torch.Generator):
+                   num_points: int, window: int, generator: torch.Generator,
+                   group=None):
     """Blocks of B clouds on the pool's device.
 
     xyz [T, 3] f32 and planes [T, 6] f32 (the pool's rows); offsets [C]
@@ -74,8 +80,14 @@ def extract_blocks(xyz, planes, offsets, n, cloud_ids, picks,
     block_d2, in stable (d², index) order; its positions past the cloud's
     size take random duplicates of its points. Returns (xyz [B, K, 3]
     recentred on the pick, features [B, K, 6] = [xyz, rgb], labels
-    [B, K] int64, activation [B, K] f32, pseudo [B, K] int64)."""
+    [B, K] int64, activation [B, K] f32, pseudo [B, K] int64).
+
+    With a data-parallel group, cloud_ids and picks are the global batch's
+    and the blocks this rank's rows of it; the duplicates' draw is made
+    for the global batch and cut to the rows, so every rank advances the
+    generator alike and the rows equal the single-device blocks."""
     b = cloud_ids.shape[0]
+    cloud_ids, picks = _rows(group, cloud_ids), _rows(group, picks)
     dev = xyz.device
     iota = torch.arange(window, device=dev)
     first = offsets[cloud_ids]
@@ -85,21 +97,24 @@ def extract_blocks(xyz, planes, offsets, n, cloud_ids, picks,
     d2 = torch.where(iota < valid[:, None], d2, torch.inf)
     order = torch.sort(d2, dim=1, stable=True).indices         # [B, P]
     idx = order[:, :num_points]
-    dup = (torch.rand((b, num_points), generator=generator, device=dev)
-           * valid[:, None]).long()
+    dup = (_rows(group, torch.rand((b, num_points), generator=generator,
+                                   device=dev)) * valid[:, None]).long()
     dup = torch.minimum(dup, valid[:, None] - 1)
     pos = torch.arange(num_points, device=dev)
     idx = torch.where(pos < valid[:, None], idx, torch.gather(order, 1, dup))
     return _block_payload(xyz, planes, first[:, None] + idx, picks)
 
 
-def shuffle_blocks(blocks, generator: torch.Generator):
+def shuffle_blocks(blocks, generator: torch.Generator, group=None):
     """The [B, K, ...] tensors of a batch of blocks with each block's rows
     in one random order (a permutation a block, from `generator`), so the
-    prefix the pyramid keeps is a random subsample of the block."""
+    prefix the pyramid keeps is a random subsample of the block. With a
+    data-parallel group the blocks are this rank's rows and their
+    permutations its rows of the global batch's draw."""
     b, k = blocks[0].shape[:2]
-    perm = torch.argsort(torch.rand((b, k), generator=generator,
-                                    device=blocks[0].device), dim=1)
+    m = 1 if group is None else group.size
+    perm = torch.argsort(_rows(group, torch.rand(
+        (b * m, k), generator=generator, device=blocks[0].device)), dim=1)
     return tuple(torch.gather(t, 1, perm.reshape(
         (b, k) + (1,) * (t.dim() - 2)).expand_as(t)) for t in blocks)
 
@@ -219,10 +234,11 @@ class DeviceTrainPool:
     def device_args(self):
         return self.xyz, self.planes, self.offsets, self.n
 
-    def extract(self, cloud_ids, picks):
+    def extract(self, cloud_ids, picks, group=None):
         """extract_blocks of host ids [B] and picks [B, 3], uploaded here
         (the only upload of a pooled step); each block reads as many rows
-        as the batch's largest cloud has."""
+        as the batch's largest cloud has. With a data-parallel group,
+        this rank's rows of the global batch's blocks."""
         cloud_ids = np.asarray(cloud_ids)
         window = max(int(self.sizes[cloud_ids].max()), self.cfg.num_points)
         ids = torch.as_tensor(cloud_ids, dtype=torch.long,
@@ -230,7 +246,8 @@ class DeviceTrainPool:
         picks = torch.as_tensor(np.asarray(picks), dtype=torch.float32,
                                 device=self.device)
         return extract_blocks(*self.device_args(), ids, picks,
-                              self.cfg.num_points, window, self.generator)
+                              self.cfg.num_points, window, self.generator,
+                              group)
 
     # ------------------------------------------------------------ oracle ---
     def extract_host(self, cloud_ids, picks):

@@ -56,12 +56,18 @@ def simple_evaluate(eval_step, state, batches, num_classes,
 
 
 class Evaluator:
-    """evaluate(eval_step, state) → (mIoU, OA) over the validation clouds."""
+    """evaluate(eval_step, state) → (mIoU, OA) over the validation clouds.
+
+    group: a data-parallel DataGroup (JAX's `mesh=`). The batch is rounded
+    up to a multiple of the world size (every row is a real possibility-
+    scheduled block, so nothing is padded); each rank runs its rows, the
+    probabilities are gathered, and every rank folds the same votes and
+    returns the same (mIoU, OA)."""
 
     def __init__(self, cfg, clouds: List[Cloud], *,
                  val_proj: Optional[List[np.ndarray]] = None,
                  val_labels: Optional[List[np.ndarray]] = None,
-                 seed: int = 0, max_epochs: int = 100):
+                 seed: int = 0, max_epochs: int = 100, group=None):
         self.cfg = cfg
         self.clouds = clouds
         if val_proj is None and all(c.proj_idx is not None for c in clouds):
@@ -72,6 +78,7 @@ class Evaluator:
         self.val_labels = val_labels
         self.seed = seed
         self.max_epochs = max_epochs
+        self.group = group
 
     def __call__(self, eval_step, state):
         """eval_step(state, batch) → (probs, penult[, order]) tensors."""
@@ -81,20 +88,29 @@ class Evaluator:
                       for c in self.clouds]
         test_smooth = 0.95
         last_min = -0.5
+        group = self.group
+        bs = cfg.val_batch_size
+        if group is not None:
+            bs = -(-bs // group.size) * group.size
         for _ in range(self.max_epochs):
             # launch the epoch's device work, then fold the results: block
             # sampling does not depend on the probabilities
             pending = []
             for _ in range(cfg.val_steps):
-                batch = pipe.get_batch(cfg.val_batch_size)
-                res = eval_step(state, batch)
+                batch = pipe.get_batch(bs)
+                res = eval_step(state, batch if group is None else {
+                    k: group.shard_rows(batch[k])
+                    for k in ("xyz", "features")})
                 pending.append((batch, res[0].half(),
                                 res[2] if len(res) == 3 else None))
                 if pipe.global_min > last_min + 1:
                     break
-            for batch, probs, order in pending:
-                probs = probs.cpu().numpy()   # [B, N, C] float16
-                order = None if order is None else order.cpu().numpy()
+            results = [(probs.cpu().numpy(),       # [B, N, C] float16
+                        None if order is None else order.cpu().numpy())
+                       for _, probs, order in pending]
+            if group is not None:
+                results = group.gather_rows(results)
+            for (batch, _, _), (probs, order) in zip(pending, results):
                 for j in range(probs.shape[0]):
                     ci = int(batch["cloud_idx"][j])
                     p_idx = batch["point_idx"][j]

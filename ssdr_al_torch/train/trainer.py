@@ -14,7 +14,9 @@ fresh optimizer and step count each round (reset_lr, RandLANet.py:
 
 A model state is the RandLANet module itself (parameters and BatchNorm
 statistics) on the device; checkpoints are its `state_dict` saved with
-torch.save. The eval step runs the module functionally on a state_dict
+torch.save, and JAX's `snap-<n>` files restore too (flax_snapshot.py).
+A data-parallel group (parallel/mesh.py) makes each of these a rank's
+share of JAX's mesh computation. The eval step runs the module functionally on a state_dict
 (torch.func.functional_call), as flax's `model.apply(variables, ...)`.
 Entry points run on the card unless the caller passes device="cpu".
 """
@@ -40,8 +42,10 @@ from ssdr_al_torch.models.randlanet import (
     init_params,
     label_reduce_table,
     masked_weighted_ce,
+    set_data_group,
 )
 from ssdr_al_torch.train.device_pool import shuffle_blocks
+from ssdr_al_torch.train.flax_snapshot import load_flax_snapshot
 from ssdr_al_torch.train.possibility_pool import (
     PossibilityDevicePool,
     possibility_extract,
@@ -106,10 +110,16 @@ def _tensor(x, dtype, device):
 
 
 def _make_step_body(model: RandLANet, cfg: Config, weights: np.ndarray,
-                    knn_engine: str, device: torch.device):
+                    knn_engine: str, device: torch.device, group=None):
     """body(state, xyz, features, labels, activation, pseudo, generator)
     → (state, metrics) on [B, N, ...] tensors on `device`: the part of a
-    train step after its blocks are on the card."""
+    train step after its blocks are on the card.
+
+    With a data-parallel group the tensors are this rank's rows of the
+    global batch; the model's BatchNorms take the global statistics
+    (set_data_group), the loss the global valid count, the gradients are
+    summed over the ranks before the same Adam update on every rank, and
+    the metrics are the global batch's."""
     table = (torch.as_tensor(label_reduce_table(
         cfg.num_classes, cfg.ignored_label_inds), dtype=torch.long,
         device=device) if cfg.ignored_label_inds else None)
@@ -130,12 +140,17 @@ def _make_step_body(model: RandLANet, cfg: Config, weights: np.ndarray,
         logits, _ = state.model(feats, pyramid, unsort=not sorted_mode,
                                 generator=generator)
         loss, acc = masked_weighted_ce(logits, pseudo, act, labels, weights,
-                                       cfg.ignored_label_inds, table)
+                                       cfg.ignored_label_inds, table, group)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss, act_sum = loss.detach(), act.sum()
+        if group is not None:
+            group.all_reduce_grads([p for p in state.model.parameters()
+                                    if p.grad is not None])
+            loss, act_sum = group.all_reduce_sum(torch.stack([loss,
+                                                              act_sum]))
         apply_gradients(state)
-        metrics = {"loss": loss.detach(), "accuracy": acc,
-                   "activation_sum": act.sum()}
+        metrics = {"loss": loss, "accuracy": acc, "activation_sum": act_sum}
         return state, metrics
 
     return body
@@ -143,7 +158,7 @@ def _make_step_body(model: RandLANet, cfg: Config, weights: np.ndarray,
 
 def make_train_step(model: RandLANet, cfg: Config, weights: np.ndarray,
                     knn_engine: str = "window", *,
-                    device: torch.device | str = DEFAULT_DEVICE):
+                    device: torch.device | str = DEFAULT_DEVICE, group=None):
     """Return train_step(state, batch, generator) → (state, metrics).
 
     batch: {"xyz", "features", "labels", "activation", "pseudo"} numpy
@@ -152,37 +167,47 @@ def make_train_step(model: RandLANet, cfg: Config, weights: np.ndarray,
     pseudo, labels and activation permuted by pyramid.order instead of
     unsorting the logits (the loss averages over points). The state is
     updated in place: parameters, Adam moments, BatchNorm statistics and
-    the step count."""
+    the step count. With a data-parallel group (set on the model too,
+    set_data_group) every rank passes the same global batch and uploads
+    its rows."""
     device = resolve_device(device)
-    body = _make_step_body(model, cfg, weights, knn_engine, device)
+    body = _make_step_body(model, cfg, weights, knn_engine, device, group)
+
+    def rows(x):
+        x = np.asarray(x)
+        return x if group is None else group.shard_rows(x)
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
-        return body(state, _tensor(batch["xyz"], torch.float32, device),
-                    _tensor(batch["features"], torch.float32, device),
-                    _tensor(batch["labels"], torch.int64, device),
-                    _tensor(batch["activation"], torch.float32, device),
-                    _tensor(batch["pseudo"], torch.int64, device), generator)
+        return body(state, *(
+            _tensor(rows(batch[k]), dt, device) for k, dt in (
+                ("xyz", torch.float32), ("features", torch.float32),
+                ("labels", torch.int64), ("activation", torch.float32),
+                ("pseudo", torch.int64))), generator)
 
     return train_step
 
 
 def make_pooled_train_step(model: RandLANet, cfg: Config,
                            weights: np.ndarray, knn_engine: str = "window",
-                           *, device: torch.device | str = DEFAULT_DEVICE):
+                           *, device: torch.device | str = DEFAULT_DEVICE,
+                           group=None):
     """Return pooled_step(state, pool, cloud_ids, picks, generator) →
     (state, metrics): a train step over a DeviceTrainPool on `device`.
     cloud_ids [B] and picks [B, 3] are the pool's host draws
     (pool.sample_indices), the only upload of the step; the blocks are
     extracted on the card (extract_blocks) and shuffled (shuffle_blocks),
     both drawing from the pool's generator; generator draws the dropout
-    mask."""
+    mask. With a data-parallel group every rank holds a pool seeded alike
+    and passes the global draws; it extracts and shuffles its rows, taking
+    its rows of each global random draw, so the blocks are those of the
+    single-device step."""
     device = resolve_device(device)
-    body = _make_step_body(model, cfg, weights, knn_engine, device)
+    body = _make_step_body(model, cfg, weights, knn_engine, device, group)
 
     def pooled_step(state: TrainState, pool, cloud_ids, picks,
                     generator: torch.Generator):
-        blocks = shuffle_blocks(pool.extract(cloud_ids, picks),
-                                pool.generator)
+        blocks = shuffle_blocks(pool.extract(cloud_ids, picks, group),
+                                pool.generator, group)
         return body(state, *blocks, generator)
 
     return pooled_step
@@ -260,22 +285,36 @@ def save_checkpoint(path: str, state: dict):
 
 
 def restore_checkpoint(path: str, device: torch.device | str) -> dict:
-    """Load a state_dict saved by save_checkpoint onto `device`."""
-    return torch.load(path, map_location=device, weights_only=True)
+    """Load a snapshot onto `device` as a state_dict: the port's own
+    (save_checkpoint, a torch.save zip) or a JAX `snap-<n>` (flax msgpack
+    of {"params", "batch_stats"}, read by flax_snapshot), told apart by
+    their first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return torch.load(path, map_location=device, weights_only=True)
+    return {k: v.to(device) for k, v in load_flax_snapshot(path).items()}
 
 
 class Trainer:
     """Round-based trainer (ssdr_al_tpu/train/trainer.py::Trainer, on the
-    host pipeline or a device pool; the data-parallel mesh is not ported,
-    ROADMAP.md). `state` is the model's state_dict, which the eval step
-    and the samplers take."""
+    host pipeline or a device pool). `state` is the model's state_dict,
+    which the eval step and the samplers take.
+
+    group: a data-parallel DataGroup (JAX's `mesh=`); `device` is then
+    this rank's. Every rank builds the same state, trains on its rows of
+    the same global batches and ends each step with the same parameters;
+    rank 0's state is broadcast at each round's start, rank 0 alone
+    writes snapshots and log lines, and the others wait for its writes.
+    Every rank's dropout generator starts from the single-device seed and
+    draws the global batch's mask, of which each rank keeps its rows."""
 
     def __init__(self, cfg: Config, dataset_name: str, *, save_dir: str,
                  seed_save_dir: Optional[str] = None,
                  knn_engine: str = "window",
                  log_fn: Callable[[str], None] = print,
                  weights: Optional[np.ndarray] = None,
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE, group=None):
         if knn_engine not in KNN_ENGINES:
             raise ValueError(f"unknown knn engine {knn_engine!r}; options: "
                              f"{KNN_ENGINES}")
@@ -284,16 +323,20 @@ class Trainer:
         self.knn_engine = knn_engine
         self.save_dir = save_dir
         self.seed_save_dir = seed_save_dir
-        self.log = log_fn
+        self.group = group
+        self.log = log_fn if group is None or group.lead else _quiet
         self.device = resolve_device(device)
         self.model = RandLANet(cfg).to(self.device)
+        set_data_group(self.model, group)
         self.weights = (get_class_weights(dataset_name) if weights is None
                         else np.asarray(weights, np.float32))
         self.steps_per_epoch = cfg.train_steps
         self.train_step = make_train_step(self.model, cfg, self.weights,
-                                          knn_engine, device=self.device)
+                                          knn_engine, device=self.device,
+                                          group=group)
         self.pooled_step = make_pooled_train_step(
-            self.model, cfg, self.weights, knn_engine, device=self.device)
+            self.model, cfg, self.weights, knn_engine, device=self.device,
+            group=group)
         self.possibility_step = make_possibility_pooled_train_step(
             self.model, cfg, self.weights, knn_engine, device=self.device)
         self.eval_step = make_eval_step(self.model, cfg, knn_engine, True,
@@ -343,10 +386,19 @@ class Trainer:
         the card (`batch_size` blocks each, default cfg.batch_size), and
         batch_iter_fn is not called; a PossibilityDevicePool runs its
         schedule (cfg.batch_size blocks a step), its field kept on the pool
-        between epochs. Callers update_pseudo_gt() the pool for the round."""
+        between epochs. Callers update_pseudo_gt() the pool for the round.
+
+        Under data parallelism the pooled batch is rounded down to a
+        multiple of the world size (as JAX's mesh path does); the
+        possibility pool is single-device only (its schedule is
+        sequential over the batch), and callers train on the host
+        pipeline instead."""
         cfg = self.cfg
+        group = self.group
         state = reset_optimizer(self.train_state, cfg, self.steps_per_epoch)
         self.train_state = state
+        if group is not None:
+            group.broadcast_module(self.model)
         best_miou, best_oa = 0.0, 0.0
         snap = self.snapshot_path(round_num)
         bsz = batch_size or cfg.batch_size
@@ -354,6 +406,15 @@ class Trainer:
             raise ValueError(f"device pool on {device_pool.device}, trainer "
                              f"on {self.device}")
         poss_pool = isinstance(device_pool, PossibilityDevicePool)
+        if group is not None and poss_pool:
+            raise ValueError("the possibility pool is single-device only; "
+                             "train on the host pipeline under dp")
+        if group is not None and device_pool is not None and \
+                bsz % group.size:
+            new_bsz = max(1, bsz // group.size) * group.size
+            self.log(f"dp pooled training: batch {bsz} not divisible by "
+                     f"mesh size {group.size} — rounding to {new_bsz}")
+            bsz = new_bsz
 
         def mean(xs):
             return float(torch.stack(xs).float().mean()) if xs else 0.0
@@ -398,11 +459,23 @@ class Trainer:
                 miou, oa = evaluate_fn(self.eval_step, self.state)
                 if miou > best_miou:
                     best_miou, best_oa = miou, oa
-                    save_checkpoint(snap, self.state)
+                    self._save(snap)
                 self.log(
                     f"Round {round_num} | Best m_IoU is: {best_miou:.3f}, "
                     f"OA is: {best_oa:.3f} | val costTime="
                     f"{time.time() - t1:.1f}s")
         if evaluate_fn is None:
-            save_checkpoint(snap, self.state)
+            self._save(snap)
         return best_miou, best_oa
+
+    def _save(self, path: str):
+        """save_checkpoint on rank 0; every rank leaves once it is
+        written."""
+        if self.group is None or self.group.lead:
+            save_checkpoint(path, self.state)
+        if self.group is not None:
+            self.group.barrier()
+
+
+def _quiet(msg: str):
+    """The log of a rank other than 0."""

@@ -6,9 +6,9 @@ take the quick grid_superpoints registry
 (cli/common.write_grid_superpoints). Also: one al_loop
 round with each comparison branch and --compute_dtype bfloat16; the
 --sampler random round and the labels of cli.baseline and
-cli.max_dominant equal to the JAX samplers' on the same state; the flags
-whose path is not ported raise, and so does the default device without a
-card."""
+cli.max_dominant equal to the JAX samplers' on the same state; the
+data-parallel loop (--num_devices 2 on CPU ranks) against the one-device
+loop, and its refusals; the default device without a card raises."""
 
 import argparse
 import functools
@@ -216,11 +216,76 @@ def test_driver_labels_match_jax(workdir, driver):
                if v.is_floating_point())
 
 
-@pytest.mark.parametrize("flag,value", [("num_devices", 2)])
-def test_unported_flags_raise(workdir, flag, value):
-    args = make_args(workdir, **{flag: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def _round_files(data_path, sargs, rnd):
+    d = os.path.join(data_path, "sampling", sargs, f"round_{rnd}")
+    return {f: open(os.path.join(d, f), "rb").read()
+            for f in sorted(os.listdir(d))}
+
+
+def test_data_parallel_loop_writes_the_one_device_round_files(
+        tmp_path, monkeypatch):
+    """--num_devices 2 --device cpu: the seed round and one full-SSDR AL
+    round of test_full_al_loop's twin (grid registry) on two gloo ranks.
+    The seed round's files equal the one-device run's; rank 0 alone wrote
+    the record_round/ log. The AL round then starts from the one-device
+    snap-1 on both sides (a run's own trajectory parts at the first Adam
+    steps from a fresh σ=1e-3 init under any change of summation order,
+    tests/test_torch_parallel.py) and writes the one-device round files
+    byte for byte."""
+    runs = {}
+    for n in (1, 2):
+        root = tmp_path / f"dp{n}"
+        root.mkdir()
+        monkeypatch.chdir(root)
+        args = make_args(root, num_devices=n)
+        exp = setup_experiment(args)
+        write_grid_superpoints(exp.make_state([]), exp.train_clouds, 24)
+        miou, oa = seed.run_seed(args)
+        assert 0 <= miou <= 1 and 0 <= oa <= 1
+        runs[n] = (root, args, exp)
+    (r1, _, exp1), (r2, args2, exp2) = runs[1], runs[2]
+    assert _round_files(exp1.data_path, "seed", 1) == \
+        _round_files(exp2.data_path, "seed", 1)
+    logs = [sorted(os.listdir(r / "record_round")) for r in (r1, r2)]
+    assert logs[0] == logs[1]
+    for name in logs[0]:
+        assert len(open(r1 / "record_round" / name).readlines()) == \
+            len(open(r2 / "record_round" / name).readlines())
+    snap = os.path.join("saver", "seed", "snapshots", "snap-1")
+    state = torch.load(os.path.join(exp2.data_path, snap), map_location="cpu",
+                       weights_only=True)
+    assert all(torch.isfinite(v).all() for v in state.values()
+               if v.is_floating_point())
+    shutil.copyfile(os.path.join(exp1.data_path, snap),
+                    os.path.join(exp2.data_path, snap))
+    for n in (1, 2):
+        root, args, _ = runs[n]
+        monkeypatch.chdir(root)
+        ((miou, oa),) = al_loop.run_al_loop(args)
+        assert 0 <= miou <= 1 and 0 <= oa <= 1
+    assert _round_files(exp1.data_path, SSDR, 2) == \
+        _round_files(exp2.data_path, SSDR, 2)
+    assert os.path.exists(os.path.join(exp2.data_path, "saver", SSDR,
+                                       "snapshots", "snap-2"))
+
+
+def test_num_devices_beyond_the_cards_raises(workdir, monkeypatch):
+    """Two ranks on a machine with one card: ValueError naming both
+    numbers, before any data is made (never two ranks on one card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    args = make_args(workdir, device="cuda", num_devices=2)
+    with pytest.raises(ValueError, match="asks for 2 cards.*has 1"):
         al_loop.run_al_loop(args)
+    assert not (workdir / "data").exists()
+
+
+def test_batch_not_divisible_by_num_devices_raises(workdir):
+    """JAX's make_trainer check: the batch of 2 does not split over 3
+    ranks."""
+    args = make_args(workdir, num_devices=3)
+    with pytest.raises(ValueError, match="batch_size 2 not divisible by 3"):
+        seed.run_seed(args)
 
 
 def _entry_points(tmp_path):
@@ -228,6 +293,7 @@ def _entry_points(tmp_path):
     from ssdr_al_torch.active import fps_gcn, region_graph, samplers, state
     from ssdr_al_torch.config import ConfigS3DIS as cfg
     from ssdr_al_torch.models.randlanet import RandLANet
+    from ssdr_al_torch.parallel import dryrun
     from ssdr_al_torch.train import trainer
 
     return {
@@ -265,6 +331,10 @@ def _entry_points(tmp_path):
             None, np.zeros((0, 4), np.float32), np.zeros(0, bool), 1),
         "gcn_sampling": lambda: t_gcn.gcn_sampling(
             None, np.zeros((0, 4), np.float32), np.zeros(0, bool), 1),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(
+            2, store_dir=str(tmp_path / "dp")),
+        "train_step_result": lambda: dryrun.train_step_result(
+            None, cfg, {}, {}, None),
     }
 
 
@@ -273,7 +343,8 @@ def _entry_points(tmp_path):
     "cli.evaluate", "cli.superpoint", "cli.prepare", "compute_superpoints",
     "make_eval_step", "make_train_step", "Trainer",
     "InferenceRunner", "TSampler", "SuperpointBlockCache",
-    "build_region_graph", "gcn_fps_sampling", "gcn_sampling"])
+    "build_region_graph", "gcn_fps_sampling", "gcn_sampling",
+    "dryrun_multichip", "train_step_result"])
 def test_entry_points_default_to_the_card(workdir, entry):
     """Without device="cpu" every entry point asks for the card, and on a
     machine without one it raises before doing any work."""

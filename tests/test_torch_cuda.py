@@ -733,3 +733,58 @@ def test_farthest_superpoint_sample_on_card_equals_cpu(dev):
     got = farthest_superpoint_sample(cents.to(dev), cd_dev, 3, 60)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+def _dp_step_case():
+    """A window-engine train step at 8192 points (K1, K2 and K4 on the
+    card): config, seeded O(1) weights, batch and weights."""
+    import dataclasses
+
+    from ssdr_al_torch.config import ConfigS3DIS
+    from ssdr_al_torch.models.randlanet import init_params
+    from ssdr_al_torch.train.grad_check import spread_weights
+
+    cfg = dataclasses.replace(ConfigS3DIS, num_points=8192, batch_size=4)
+    rng = np.random.RandomState(0)
+    b, n = 4, cfg.num_points
+    xyz = (rng.rand(b, n, 3) * 6).astype(np.float32)
+    batch = {"xyz": xyz,
+             "features": np.concatenate(
+                 [xyz, rng.rand(b, n, 3).astype(np.float32)], -1),
+             "labels": rng.randint(0, cfg.num_classes, (b, n)).astype(
+                 np.int32),
+             "pseudo": rng.randint(0, cfg.num_classes, (b, n)).astype(
+                 np.int32),
+             "activation": (rng.rand(b, n) < 0.6).astype(np.float32)}
+    state = spread_weights(init_params(cfg, torch.Generator().manual_seed(0)),
+                           5)
+    return dict(cfg=cfg, state=state, batch=batch,
+                weights=np.ones(cfg.num_classes, np.float32))
+
+
+@pytest.mark.parametrize("ranks,backend", [(2, "gloo"), (1, "nccl")])
+def test_data_parallel_step_on_one_card(dev, tmp_path, ranks, backend):
+    """Two gloo ranks sharing the card, and a one-rank NCCL group: the
+    step's loss and summed gradient equal the plain step's on the card:
+    the loss to rtol 1e-5; the gradient within twice what reversing the
+    batch's rows does to the plain step's (the same gradient in exact
+    arithmetic; max-pool picks and leaky-ReLU slopes within f32 rounding
+    of a kink follow the summation order); every rank launched K1, K2
+    and K4."""
+    from ssdr_al_torch.parallel import backend_for, dryrun, launch
+
+    assert backend_for([dev] * ranks) == backend
+    case = _dp_step_case()
+    want = dryrun.train_step_result(None, device=dev, **case)
+    spread = dryrun.gradient_rel(dryrun.train_step_result(
+        None, device=dev, **dict(case, batch={
+            k: v[::-1].copy() for k, v in case["batch"].items()}))["grad"],
+        want["grad"])
+    out = launch(dryrun.run_calls, ranks, [dev] * ranks, str(tmp_path),
+                 [(dryrun.train_step_result, case)])
+    for (res, counts), in out:
+        np.testing.assert_allclose(res["loss"], want["loss"], rtol=1e-5)
+        assert dryrun.gradient_rel(res["grad"], want["grad"]) <= \
+            max(2 * spread, 1e-6)
+        for name in ("window_topk", "gather_window", "scatter_window"):
+            assert counts[name] > 0, (name, counts)

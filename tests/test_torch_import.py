@@ -1,5 +1,6 @@
-"""ssdr_al_torch imports without jax and without ssdr_al_tpu: every
-submodule, in a fresh interpreter where `import jax` fails
+"""ssdr_al_torch imports without jax, flax, optax, msgpack and
+ssdr_al_tpu (data parallelism and the JAX snapshot reader included):
+every submodule, in a fresh interpreter where `import jax` fails
 (tests/conftest.py itself imports jax, so the check runs in a subprocess).
 Nor does importing it load pandas, h5py or sklearn, which the machine
 with the card does not have."""
@@ -47,11 +48,16 @@ def test_every_submodule_is_listed():
                  "ssdr_al_torch.partition.spg",
                  "ssdr_al_torch.partition.provider",
                  "ssdr_al_torch.data.prepare", "ssdr_al_torch.cli.prepare",
-                 "ssdr_al_torch.cli.superpoint"):
+                 "ssdr_al_torch.cli.superpoint", "ssdr_al_torch.parallel",
+                 "ssdr_al_torch.parallel.mesh",
+                 "ssdr_al_torch.parallel.dryrun",
+                 "ssdr_al_torch.parallel.agreement",
+                 "ssdr_al_torch.train.flax_snapshot",
+                 "ssdr_al_torch.kernels.counts"):
         assert name in SUBMODULES
 
 
-@pytest.mark.parametrize("blocked", ["jax", "flax", "optax"])
+@pytest.mark.parametrize("blocked", ["jax", "flax", "optax", "msgpack"])
 def test_imports_without(blocked):
     code = (
         "import importlib, sys\n"
@@ -60,7 +66,7 @@ def test_imports_without(blocked):
         f"for m in {SUBMODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'ssdr_al_tpu') and "
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'ssdr_al_tpu') and "
         "sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )
