@@ -193,7 +193,7 @@ def make_pool(args, exp, trainer, log):
     return pool
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="active-learning loop")
     add_common_args(p)
     p.add_argument("--sampler", type=str, default="T", choices=["random", "T"])
@@ -228,7 +228,11 @@ def main(argv=None):
     p.add_argument("--t", type=int, default=0)
     p.add_argument("--sp_batch_size", type=int, default=0,
                    help="clicks per round (0 = dataset default)")
-    run_al_loop(p.parse_args(argv))
+    return p
+
+
+def main(argv=None):
+    run_al_loop(parser().parse_args(argv))
 
 
 if __name__ == "__main__":

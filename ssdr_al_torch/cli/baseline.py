@@ -61,10 +61,14 @@ def _run_baseline(group, args):
     return miou, oa
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="fully-supervised baseline")
     add_common_args(p)
-    run_baseline(p.parse_args(argv))
+    return p
+
+
+def main(argv=None):
+    run_baseline(parser().parse_args(argv))
 
 
 if __name__ == "__main__":

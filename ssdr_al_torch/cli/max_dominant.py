@@ -63,10 +63,14 @@ def _run_max_dominant(group, args):
     return miou, oa
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="dominant-label upper bound")
     add_common_args(p)
-    run_max_dominant(p.parse_args(argv))
+    return p
+
+
+def main(argv=None):
+    run_max_dominant(parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -72,11 +72,15 @@ def _run_seed(group, args):
     return miou, oa
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="seed round")
     add_common_args(p)
     p.add_argument("--seed_percent", type=float, default=0.01)
-    run_seed(p.parse_args(argv))
+    return p
+
+
+def main(argv=None):
+    run_seed(parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -105,3 +105,10 @@ def class_weights(name: str) -> np.ndarray:
     counts = np.asarray(CLASS_COUNTS[name], dtype=np.float64)
     freq = counts / counts.sum()
     return (1.0 / (freq + 0.02)).astype(np.float32)
+
+
+# S3DIS label names; reference s3dis_dataset.py:32-44.
+S3DIS_LABELS = (
+    "ceiling", "floor", "wall", "beam", "column", "window", "door",
+    "table", "chair", "sofa", "bookcase", "board", "clutter",
+)

@@ -146,7 +146,8 @@ def record_main_path(cfg, dev, b=8, seed=0):
     def rec_k2(path):
         def rec(values, idx, starts, window, tq=128, out_dtype=None):
             k2.append(dict(values=values, idx=idx, starts=starts,
-                           window=window, tq=tq, path=path,
+                           window=window, tq=tq,
+                           path="upsample" if idx.shape[2] == 1 else path,
                            out_dtype=out_dtype or values.dtype))
             # a tree without the bf16 output takes no out_dtype
             dt = () if out_dtype is None else (out_dtype,)

@@ -14,7 +14,10 @@ over B: engine "window" builds the curve-sorted pyramid (K1 window search,
 gathers through K2, whose backward is K4); "window_og" the original-order
 pyramid of per-layer window searches (K1, plain gathers); "xla", "approx"
 and "pallas" the exact original-order pyramid, whose searches are
-`knn_xla` or, for "pallas", kernel K6. `model.train()` switches
+`knn_xla` or, for "pallas", kernel K6. On the card every row gather's
+backward sums in a fixed order (K4, at k = 1 for the windowed upsamples,
+or ops/gather.py::scatter_rows), so a train step repeats bit for bit.
+`model.train()` switches
 BatchNorm to batch statistics (flax's arithmetic, below) and turns on the
 head's dropout, whose mask comes from the generator passed to forward;
 `model.eval()` uses the running statistics and no dropout.
@@ -45,7 +48,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssdr_al_torch.config import Config
-from ssdr_al_torch.ops.gather import gather_window, gather_window_auto
+from ssdr_al_torch.ops.gather import (
+    gather_rows_fixed,
+    gather_window,
+    gather_window_auto,
+)
 from ssdr_al_torch.ops.knn import (
     CURVES,
     QUERY_TILE,
@@ -226,11 +233,13 @@ class SharedMLP(nn.Module):
 
 
 def gather_neighbour(pc, neighbor_idx):
-    """pc [B, N, C], neighbor_idx [B, M, k] → [B, M, k, C] (row gather)."""
+    """pc [B, N, C], neighbor_idx [B, M, k] → [B, M, k, C] (row gather).
+    On the card its backward sums each row in a fixed order
+    (ops/gather.py::gather_rows_fixed), so a train step repeats bit for
+    bit."""
     b, m, k = neighbor_idx.shape
-    flat = neighbor_idx.reshape(b, m * k, 1).long().expand(b, m * k,
-                                                           pc.shape[-1])
-    return torch.gather(pc, 1, flat).reshape(b, m, k, pc.shape[-1])
+    return gather_rows_fixed(pc, neighbor_idx.reshape(b, m * k)).reshape(
+        b, m, k, pc.shape[-1])
 
 
 def relative_pos_encoding(xyz, neigh_idx, neighbor_xyz=None):
@@ -260,11 +269,18 @@ def random_sample(feature, pool_idx, window: int = 0):
     return max_pool(pooled)
 
 
-def nearest_interpolation(feature, interp_idx):
-    """feature [B, N', C]; interp_idx [B, N, 1] → [B, N, C] (row gather)."""
-    idx = interp_idx[..., 0].long()[..., None].expand(-1, -1,
-                                                      feature.shape[-1])
-    return torch.gather(feature, 1, idx)
+def nearest_interpolation(feature, interp_idx, window: int = 0):
+    """feature [B, N', C]; interp_idx [B, N, 1] → [B, N, C] (row gather,
+    ssdr_al_tpu/models/randlanet.py:160-167). window > 0: the indices came
+    from the windowed 1-NN search, every tile's inside one window of that
+    many rows, and an f32 feature is gathered by K2 at k = 1, whose
+    backward is K4's binned scatter at k = 1 (deterministic; the same rows
+    as torch.gather, bit for bit). Otherwise the row gather of
+    gather_neighbour, whose backward on the card sums in a fixed order."""
+    if window and feature.dtype == torch.float32:
+        return gather_window_auto(feature.contiguous(), interp_idx,
+                                  window)[:, :, 0]
+    return gather_neighbour(feature, interp_idx)[:, :, 0]
 
 
 class AttPooling(nn.Module):
@@ -368,6 +384,9 @@ class SortedPyramid:
     order: torch.Tensor                     # [B, N] int32
     inv: torch.Tensor                       # [B, N] int32
     windows: tuple = ()
+    # the gather window of each layer's 1-NN upsample indices (0: they came
+    # from the exact search)
+    up_windows: tuple = ()
 
 
 def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
@@ -383,6 +402,7 @@ def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
     inv = invert_permutation(order)
     cur_r = order                   # original-layer rank of each sorted row
     xyzs, neighs, starts_l, subs, interps, windows = [], [], [], [], [], []
+    up_windows = []
     for i in range(cfg.num_layers):
         n = cur_x.shape[1]
         n_sub = n // cfg.sub_sampling_ratio[i]
@@ -434,6 +454,7 @@ def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
             up = torch.clamp(torch.repeat_interleave(starts_up, QUERY_TILE, 1)
                              [..., None] + rel, max=n_sub - 1)
         else:
+            up_w = 0
             up = knn_xla(nxt_x, cur_x, 1)
         xyzs.append(cur_x)
         neighs.append(neigh.contiguous())
@@ -441,9 +462,14 @@ def _pyramid_sorted(xyz, cfg: Config) -> SortedPyramid:
         subs.append(pool_i)
         interps.append(up)
         windows.append(w)
+        # a 128-row gather tile of the upsample starts at its least index
+        # rounded down to 128 (gather_window_auto), up to 127 rows before
+        # its search window's start: 128 rows of slack keep every index
+        # inside (window_violations 0)
+        up_windows.append(up_w + 128 if up_w else 0)
         cur_x, cur_r = nxt_x, nxt_r
     return SortedPyramid(xyzs, neighs, starts_l, subs, interps, order, inv,
-                         windows=tuple(windows))
+                         windows=tuple(windows), up_windows=tuple(up_windows))
 
 
 def _pyramid_window_og(xyz, cfg: Config) -> Pyramid:
@@ -575,8 +601,11 @@ class RandLANet(nn.Module):
                 f_encoder_list.append(f_enc)
             f_encoder_list.append(f)
         f = self.decoder[0](f)
+        up_windows = pyramid.up_windows if sorted_mode else ()
         for j in range(self.cfg.num_layers):
-            f_interp = nearest_interpolation(f, pyramid.interp_idx[-j - 1])
+            f_interp = nearest_interpolation(
+                f, pyramid.interp_idx[-j - 1],
+                up_windows[-j - 1] if up_windows else 0)
             f = self.decoder[j + 1](
                 torch.cat([f_encoder_list[-j - 2], f_interp], -1))
         f = self.fc2(self.fc1(f))

@@ -24,11 +24,18 @@ the JAX sorted path can send to its kernels goes through K2 and K4 here.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
 
 from ssdr_al_torch.kernels import build as _kb
+
+# SSDR_DEBUG_WINDOW_GUARD=1 makes gather_window_auto report the indices it
+# clamps (ssdr_al_tpu/ops/gather.py:51-55): the count reads back from the
+# card at each call, so it is off unless asked for, and a too-narrow window
+# otherwise gives wrong neighbours silently.
+DEBUG_WINDOW_GUARD = os.environ.get("SSDR_DEBUG_WINDOW_GUARD", "") == "1"
 
 
 def _check_window_args(name, b, n, idx, starts, window, tq):
@@ -283,6 +290,55 @@ gather_window.launches = 0
 gather_window.launches_bf16 = 0
 
 
+def scatter_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The transpose of a row gather, summed in a fixed order: dv [B, n, C]
+    with dv[b, r] = Σ g[b, m] over the m with idx[b, m] == r, added in
+    ascending m. A stable sort of the flat targets b·n + idx, then one
+    segment sum over the sorted rows, each segment added in order: no
+    float atomics, the same bits on every run and, in f32, the bits of the
+    CPU's index_add_ (the order of torch.gather's CPU backward). g
+    [B, M, C]; idx [B, M] integer. A bf16 g is summed in f32; dv is
+    float32."""
+    b, m, c = g.shape
+    flat = (idx.long() + (torch.arange(b, device=g.device) * n)[:, None]
+            ).reshape(-1)
+    flat, order = torch.sort(flat, stable=True)
+    offsets = torch.searchsorted(
+        flat, torch.arange(b * n + 1, device=g.device))
+    rows = g.reshape(b * m, c).float()[order]
+    dv = torch.segment_reduce(rows, "sum", offsets=offsets, axis=0,
+                              unsafe=True)
+    return dv.reshape(b, n, c)
+
+
+class _GatherRows(torch.autograd.Function):
+    """torch.gather of rows forward; scatter_rows backward."""
+
+    @staticmethod
+    def forward(ctx, values, idx):
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.dtype = values.shape[1], values.dtype
+        return torch.gather(values, 1, idx.long()[..., None].expand(
+            -1, -1, values.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return scatter_rows(g, idx, ctx.n).to(ctx.dtype), None
+
+
+def gather_rows_fixed(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values [B, N, C] rows at idx [B, M] → [B, M, C], whose backward sums
+    in a fixed order on the card (scatter_rows), where torch.gather's
+    backward adds with float atomics in an order that changes from run to
+    run. On the CPU: torch.gather, whose backward is the plain version
+    (index_add_ order)."""
+    if values.device.type == "cpu":
+        return torch.gather(values, 1, idx.long()[..., None].expand(
+            -1, -1, values.shape[-1]))
+    return _GatherRows.apply(values, idx)
+
+
 def tile_min_starts(idx: torch.Tensor, n: int, window: int,
                     tq: int) -> torch.Tensor:
     """Per-tile 128-aligned starts from the indices' own minimum.
@@ -299,9 +355,10 @@ def gather_window_auto(values: torch.Tensor, idx: torch.Tensor, window: int,
     (the pool gathers of the sorted path): each tile's start comes from its
     minimum index, and indices are clamped into [start, start + window).
     A clamp fires only when a tile's index spread exceeds the window
-    (`window_violations` counts them; tests assert zero at their shapes).
-    The backward scatters through the same clamped indices. out_dtype as
-    in gather_window."""
+    (`window_violations` counts them; tests assert zero at their shapes);
+    with DEBUG_WINDOW_GUARD each call that clamps prints how many indices
+    it clamped, as JAX's guard does. The backward scatters through the
+    same clamped indices. out_dtype as in gather_window."""
     n = values.shape[1]
     window = min(window, n)
     if window % 8:
@@ -309,6 +366,12 @@ def gather_window_auto(values: torch.Tensor, idx: torch.Tensor, window: int,
     starts = tile_min_starts(idx, n, window, tq)
     lo = torch.repeat_interleave(starts, tq, dim=1)[..., None]
     idx_c = torch.minimum(torch.maximum(idx, lo), lo + (window - 1))
+    if DEBUG_WINDOW_GUARD:
+        bad = int((idx_c != idx).sum())
+        if bad > 0:
+            print(f"gather_window_auto: {bad} indices clamped (window="
+                  f"{window} too narrow for this tile spread — results use "
+                  "wrong neighbors)")
     return gather_window(values, idx_c.contiguous(), starts, window, tq,
                          out_dtype)
 

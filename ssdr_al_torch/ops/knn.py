@@ -494,9 +494,21 @@ def _window_topk_plain(support, queries, starts, k, window, tq, mxu=False):
             d2 = _sq_dist(qs[:, :, None, 0], qs[:, :, None, 1],
                           qs[:, :, None, 2], win[:, None, :, 0],
                           win[:, None, :, 1], win[:, None, :, 2])
-        _, idx = torch.sort(d2, dim=-1, stable=True)
-        out[bi] = idx[..., :k].reshape(nq, k).to(torch.int32)
+        out[bi] = _first_k(d2, k).reshape(nq, k).to(torch.int32)
     return out
+
+
+def _first_k(d2, k):
+    """The first k indices of d2 [..., W] (non-negative) in ascending
+    (d², index) order, as a stable sort gives them: a top-k of int64 keys
+    that are unique, the bits of the f32 d² (monotone in its value; +0.0
+    for -0.0) above the index."""
+    w = d2.shape[-1]
+    if w > 1 << 16:
+        return torch.sort(d2, dim=-1, stable=True)[1][..., :k]
+    bits = (d2.float() + 0.0).view(torch.int32).long()
+    key = (bits << 16) | torch.arange(w, device=d2.device)
+    return torch.topk(key, k, dim=-1, largest=False).values & 0xFFFF
 
 
 # K1/K5's launch plan (csrc/window_topk.cu): `split` threads share a query

@@ -1,21 +1,23 @@
-"""How far a data-parallel train step on the card lies from the one-rank
-step, beside how far the one-rank step moves when only the order of its
-batch rows changes (the same step in exact arithmetic).
+"""How far a data-parallel train step on the card lies from a float64
+step, beside the one-rank step, each with the float64 run's leaky-ReLU
+slopes and max-pool picks replayed.
 
     python -m ssdr_al_torch.parallel.agreement [--points 2048 8192 40960]
         [--ranks 2] [--out FILE] [--device cpu]
 
 For each block size and each of two weight sets (the model's init, and
 spread_weights' O(1) weights), one window-engine step at S3DIS width on a
-[4 × points] batch, dropout off: the loss's relative error and the summed
-gradient's relative L2 distance of the dp step (gloo ranks sharing the
-card) from the one-rank step, and of the one-rank step on the batch's
-rows in each other order of ORDERS (reversed, and rolled by 1, 2 and 3
-rows). One JSON line a case on stdout (and in FILE). These readings set
-chip_smoke.py's DP_SPREAD: max-pool picks and leaky-ReLU slopes within
-f32 rounding of a kink follow the summation order, so no fixed gradient
-tolerance holds both a dp step and the one-rank step on its rows
-reordered.
+[4 × points] batch, dropout off. train/grad_check.py::reference_step runs
+it in float64 on the CPU (on the card's pyramid), recording every leaky
+ReLU's slopes and max-pool's picks, and in float32 on the CPU with them
+replayed; the f32 run's relative L2 error to the f64 gradient sets the
+limit, GRAD_ERR_MULTIPLE times it plus GRAD_ERR_FLOOR. The one-rank step
+on the card and the dp step (gloo ranks sharing the card), each with the
+pins replayed, are held to the f64 gradient under that limit: the check
+of chip_smoke.py's data_parallel_path. Reported per case: the three
+errors to f64, the limit, whether both card steps hold it, and the dp
+step's loss and gradient distance from the one-rank step. One JSON line
+a case on stdout (and in FILE).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -32,12 +35,13 @@ from ssdr_al_torch.config import ConfigS3DIS, class_weights
 from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
 from ssdr_al_torch.models.randlanet import init_params
 from ssdr_al_torch.parallel import dryrun, launch
-from ssdr_al_torch.train.grad_check import spread_weights
+from ssdr_al_torch.train.grad_check import (
+    gradient_rel,
+    reference_step,
+    spread_weights,
+)
 
 ROWS = 4
-ORDERS = {"reversed": np.arange(ROWS)[::-1],
-          **{f"rolled_{r}": np.roll(np.arange(ROWS), r)
-             for r in range(1, ROWS)}}
 
 
 def case(points: int, weights: str) -> dict:
@@ -68,32 +72,37 @@ def measure(points, ranks: int, store_dir: str,
     """One row a (points, weights) case; the ranks share `device`."""
     dev = resolve_device(device)
     cases = [(p, w, case(p, w)) for p in points for w in ("init", "spread")]
-    ones, others = [], []
-    for _, _, c in cases:
-        ones.append(dryrun.train_step_result(None, device=dev, **c))
-        others.append({name: dryrun.train_step_result(None, device=dev, **dict(
-            c, batch={k: v[order] for k, v in c["batch"].items()}))
-            for name, order in ORDERS.items()})
-    out = launch(dryrun.run_calls, ranks, [dev] * ranks, store_dir,
-                 [(dryrun.train_step_result, c) for _, _, c in cases])
+    os.makedirs(store_dir, exist_ok=True)
+    refs, ones, calls = [], [], []
+    for i, (_, _, c) in enumerate(cases):
+        ref = reference_step(c["cfg"], c["state"], c["batch"], c["weights"],
+                             dev)
+        path = os.path.join(store_dir, f"agreement_pins_{i}.pt")
+        torch.save({"slopes": ref["slopes"], "pools": ref["pools"]}, path)
+        ones.append(dryrun.train_step_result(None, device=dev, pins=ref, **c))
+        calls.append((dryrun.train_step_result, dict(c, pins=path)))
+        refs.append({k: ref[k] for k in ("grad", "cpu_f32", "limit")})
+    try:
+        out = launch(dryrun.run_calls, ranks, [dev] * ranks, store_dir,
+                     calls)
+    finally:
+        for _, kw in calls:
+            os.remove(kw["pins"])
     rows = []
     for i, (p, w, _) in enumerate(cases):
-        one = ones[i]
+        one, ref = ones[i], refs[i]
         dp = [r[i][0] for r in out]
-
-        def loss_rel(x):
-            return abs(x["loss"] - one["loss"]) / abs(one["loss"])
-
-        row = {"points": p, "weights": w, "ranks": ranks,
-               "dp_loss_rel": max(map(loss_rel, dp)),
-               "dp_grad_rel": max(dryrun.gradient_rel(d["grad"],
-                                                      one["grad"])
-                                  for d in dp)}
-        for name, x in others[i].items():
-            row[f"{name}_loss_rel"] = loss_rel(x)
-            row[f"{name}_grad_rel"] = dryrun.gradient_rel(x["grad"],
-                                                          one["grad"])
-        rows.append(row)
+        dp_f64 = max(gradient_rel(d["grad"], ref["grad"]) for d in dp)
+        one_f64 = gradient_rel(one["grad"], ref["grad"])
+        rows.append({
+            "points": p, "weights": w, "ranks": ranks,
+            "cpu_f32_f64_rel": ref["cpu_f32"], "limit": ref["limit"],
+            "one_f64_rel": one_f64, "dp_f64_rel": dp_f64,
+            "held": max(one_f64, dp_f64) <= ref["limit"],
+            "dp_loss_rel": max(abs(d["loss"] - one["loss"]) / abs(one["loss"])
+                               for d in dp),
+            "dp_grad_rel": max(gradient_rel(d["grad"], one["grad"])
+                               for d in dp)})
     return rows
 
 

@@ -17,6 +17,7 @@ kernel launch counts it made.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence
@@ -56,13 +57,6 @@ def _model(cfg, state, device, group, dropout: bool = False):
     return model
 
 
-def gradient_rel(got: dict, want: dict) -> float:
-    """Relative L2 distance of two gradients {parameter: array}."""
-    a, b = (np.concatenate([g[k].ravel() for k in want])
-            for g in (got, want))
-    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
-
 def _step_out(ts, metrics) -> dict:
     """Loss, accuracy, the summed gradient {parameter: array} and the state
     after the step."""
@@ -75,9 +69,13 @@ def _step_out(ts, metrics) -> dict:
 
 def train_step_result(group, cfg, state: dict, batch: dict, weights,
                       knn_engine: str = "window", dropout: bool = False,
-                      device=DEFAULT_DEVICE) -> dict:
+                      pins=None, device=DEFAULT_DEVICE) -> dict:
     """One make_train_step step from `state` on the global `batch` (this
-    rank uploads its rows)."""
+    rank uploads its rows). pins: the leaky-ReLU slopes and max-pool
+    picks of a float64 run of the global batch ({"slopes", "pools"} of
+    grad_check.reference_step, or the path of a torch.save of them),
+    replayed on this rank's rows (grad_check.kink_pins)."""
+    from ssdr_al_torch.train.grad_check import kink_pins
     from ssdr_al_torch.train.trainer import create_train_state, make_train_step
 
     dev = _device(group, device)
@@ -85,7 +83,15 @@ def train_step_result(group, cfg, state: dict, batch: dict, weights,
     ts = create_train_state(model, cfg, cfg.train_steps)
     step = make_train_step(model, cfg, weights, knn_engine, device=dev,
                            group=group)
-    ts, metrics = step(ts, batch, torch.Generator(dev).manual_seed(0))
+    if pins is None:
+        ctx = contextlib.nullcontext()
+    else:
+        if isinstance(pins, str):
+            pins = torch.load(pins, weights_only=True)
+        rows = None if group is None else group.share(len(batch["xyz"]))
+        ctx = kink_pins(pins, rows)
+    with ctx:
+        ts, metrics = step(ts, batch, torch.Generator(dev).manual_seed(0))
     return _step_out(ts, metrics)
 
 

@@ -12,9 +12,9 @@ off, on the card (K1, K2, K4) and on the CPU in float32 and float64
 that hold the card's error and, per BatchNorm, where the error grows and
 which outputs lie on the other side of 0 from f64's (`bn_trace`); then
 the same with every leaky ReLU's slope and every max-pool's pick taken
-from the f64 run (`pinned`: `slope_pins`, `pool_pins`); then the f32 error of three backward ops over a layer's
-edge rows and of the backward matmuls (`backward_op_probe`), on the card
-and on the CPU. `--no-trace` skips the traces and the probes.
+from the f64 run (`pinned`: `kink_pins`); then the f32 error of three
+backward ops over a layer's edge rows and of the backward matmuls
+(`backward_op_probe`), on the card and on the CPU. `--no-trace` skips the traces and the probes.
 Prints the card's name and power limit and, as its last line, the results
 as JSON (also written to PATH). chip_smoke.py runs `gradient_errors` at
 one seed, and pinned at eight.
@@ -23,6 +23,7 @@ one seed, and pinned at eight.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -107,6 +108,116 @@ def _pins(masks, record, replay):
     return fn
 
 
+def pyramid_on(pyr, device):
+    """A pyramid with every tensor moved to `device`."""
+    moved = {}
+    for f in dataclasses.fields(pyr):
+        v = getattr(pyr, f.name)
+        if isinstance(v, list):
+            moved[f.name] = [None if t is None else t.to(device) for t in v]
+        elif torch.is_tensor(v):
+            moved[f.name] = v.to(device)
+    return dataclasses.replace(pyr, **moved)
+
+
+@contextlib.contextmanager
+def kink_pins(recorded=None, rows=None):
+    """Run the block with models.randlanet's leaky_relu and max_pool
+    pinned. recorded=None: record each call's slopes and max-pool picks
+    (slope_pins, pool_pins) into the yielded {"slopes", "pools"}. Given
+    such a record (of a float64 run): replay it, `rows` (a slice) taking
+    those rows of every recorded [B, ...] mask, a data-parallel rank's
+    share, and raise if the block made another number of calls than were
+    recorded."""
+    from ssdr_al_torch.models import randlanet as rl
+
+    if recorded is None:
+        fns = {"leaky_relu": slope_pins(), "max_pool": pool_pins()}
+    else:
+        sl, po = recorded["slopes"], recorded["pools"]
+        if rows is not None:
+            sl, po = [m[rows] for m in sl], [m[rows] for m in po]
+        fns = {"leaky_relu": slope_pins(sl), "max_pool": pool_pins(po)}
+    saved = {name: getattr(rl, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(rl, name, fn)
+    try:
+        yield {"slopes": fns["leaky_relu"].masks,
+               "pools": fns["max_pool"].masks}
+    finally:
+        for name, fn in saved.items():
+            setattr(rl, name, fn)
+    for name, fn in fns.items():
+        if recorded is not None and fn.calls[0] != len(fn.masks):
+            raise AssertionError(f"{fn.calls[0]} {name} calls against "
+                                 f"{len(fn.masks)} recorded")
+
+
+def reference_step(cfg, state, batch, weights, dev) -> dict:
+    """The float64 reference of one `window` train step (the trainer's
+    loss: the batch in sorted order, class weights, the label reduce
+    table; dropout off) on the CPU, from `state` on a global `batch`
+    (numpy, as make_train_step takes it), on the pyramid that `dev` builds
+    for the batch. The f64 run records its leaky-ReLU slopes and max-pool
+    picks; the CPU f32 run replays them, and its relative L2 error to the
+    f64 gradient sets the limit of the f32 runs on the card:
+    GRAD_ERR_MULTIPLE times it plus GRAD_ERR_FLOOR, as gradient_errors
+    derives it. Returns {"grad": {parameter: f64 array}, "slopes",
+    "pools" (the pins, on the CPU), "cpu_f32", "limit"}."""
+    from ssdr_al_torch.models.randlanet import (
+        RandLANet,
+        build_pyramid,
+        label_reduce_table,
+        masked_weighted_ce,
+    )
+
+    cpu = torch.device("cpu")
+    xyz = torch.as_tensor(np.asarray(batch["xyz"]), dtype=torch.float32)
+    with torch.no_grad():
+        pyr = build_pyramid(xyz.to(dev), cfg)
+    pyr = pyramid_on(pyr, cpu)
+    order = pyr.order.long()
+
+    def rows(key, dtype):
+        x = torch.as_tensor(np.asarray(batch[key]), dtype=dtype)
+        return torch.gather(x, 1, order) if x.dim() == 2 else x
+
+    table = (label_reduce_table(cfg.num_classes, cfg.ignored_label_inds)
+             if cfg.ignored_label_inds else None)
+
+    def grad(dt):
+        model = RandLANet(cfg).to(cpu, dt)
+        model.load_state_dict({k: v.to(cpu) for k, v in state.items()})
+        model.train()
+        model.dp1.rate = 0.0
+        p = dataclasses.replace(pyr, xyz=[t.to(dt) for t in pyr.xyz])
+        logits, _ = model(rows("features", dt), p, unsort=False)
+        loss, _ = masked_weighted_ce(
+            logits, rows("pseudo", torch.int64),
+            rows("activation", torch.float32),
+            rows("labels", torch.int64), np.asarray(weights),
+            cfg.ignored_label_inds, table)
+        loss.backward()
+        return {k: q.grad.double() for k, q in model.named_parameters()}
+
+    with kink_pins() as pins:
+        g64 = grad(torch.float64)
+    with kink_pins(pins):
+        g32 = grad(torch.float32)
+    host = gradient_rel(g32, g64)
+    return {"grad": {k: v.numpy() for k, v in g64.items()}, **pins,
+            "cpu_f32": host,
+            "limit": GRAD_ERR_MULTIPLE * host + GRAD_ERR_FLOOR}
+
+
+def gradient_rel(got: dict, want: dict) -> float:
+    """Relative L2 distance of two gradients {parameter: tensor or array},
+    in float64 over the parameters of `want`."""
+    a, b = (torch.cat([torch.as_tensor(np.asarray(g[k]), dtype=torch.float64)
+                       .reshape(-1) for k in want]) for g in (got, want))
+    return float((a - b).norm() / b.norm())
+
+
 def gradient_errors(cfg, dev, seed, trace=False, pinned=False):
     """One 40960-point block in train mode, dropout off, at a state drawn
     from a seed (the flax initialisers' weights, spread at O(1) scale):
@@ -124,7 +235,6 @@ def gradient_errors(cfg, dev, seed, trace=False, pinned=False):
     leaky-ReLU slopes (slope_pins) and max-pool picks (pool_pins), so
     that the check measures the arithmetic and not which side of a kink
     an input within f32 rounding of it lands on."""
-    from ssdr_al_torch.models import randlanet as rl
     from ssdr_al_torch.models.randlanet import (
         RandLANet,
         SortedPyramid,
@@ -150,12 +260,7 @@ def gradient_errors(cfg, dev, seed, trace=False, pinned=False):
     if not isinstance(pyr, SortedPyramid):
         raise AssertionError("the full-width block did not take the sorted "
                              "path")
-    cpu_pyr = SortedPyramid(*[[None if t is None else t.cpu() for t in f]
-                              if isinstance(f, list) else f.cpu()
-                              for f in (pyr.xyz, pyr.neigh_idx, pyr.starts,
-                                        pyr.sub_idx, pyr.interp_idx,
-                                        pyr.order, pyr.inv)],
-                            windows=pyr.windows)
+    cpu_pyr = pyramid_on(pyr, torch.device("cpu"))
     f64_pyr = dataclasses.replace(cpu_pyr, xyz=[t.double()
                                                 for t in cpu_pyr.xyz])
     grads, losses, k4_shapes = [], [], []
@@ -172,17 +277,10 @@ def gradient_errors(cfg, dev, seed, trace=False, pinned=False):
     cpu = torch.device("cpu")
     runs = [(dev, pyr, torch.float32), (cpu, cpu_pyr, torch.float32),
             (cpu, f64_pyr, torch.float64)]
-    pins_made = (("leaky_relu", slope_pins), ("max_pool", pool_pins)) \
-        if pinned else ()
     if pinned:
         runs = runs[2:] + runs[:2]
-    bn_out, bn_grad, pins = [], [], {}
+    bn_out, bn_grad, pins = [], [], None
     for d, p, dt in runs:
-        saved = {name: getattr(rl, name) for name, _ in pins_made}
-        for name, make in pins_made:
-            pins[name] = make() if dt == torch.float64 else \
-                make(pins[name].masks)
-            setattr(rl, name, pins[name])
         model = RandLANet(cfg).to(d, dt)
         model.load_state_dict({k: v.to(d) for k, v in state.items()})
         model.train()
@@ -205,20 +303,18 @@ def gradient_errors(cfg, dev, seed, trace=False, pinned=False):
         order = p.order.long()
         ga.scatter_window = recording if d == dev else kernel
         try:
-            logits, _ = model(feats.to(d, dt), p, unsort=False)
-            loss, _ = masked_weighted_ce(
-                logits, torch.gather(labels.to(d), 1, order),
-                torch.gather(act.to(d), 1, order),
-                torch.gather(labels.to(d), 1, order), weights.to(d, dt))
-            loss.backward()
+            with (kink_pins(None if dt == torch.float64 else pins)
+                  if pinned else contextlib.nullcontext()) as rec:
+                logits, _ = model(feats.to(d, dt), p, unsort=False)
+                loss, _ = masked_weighted_ce(
+                    logits, torch.gather(labels.to(d), 1, order),
+                    torch.gather(act.to(d), 1, order),
+                    torch.gather(labels.to(d), 1, order), weights.to(d, dt))
+                loss.backward()
         finally:
             ga.scatter_window = kernel
-            for name, fn in saved.items():
-                setattr(rl, name, fn)
-        for name, fn in pins.items():
-            if dt != torch.float64 and fn.calls[0] != len(fn.masks):
-                raise AssertionError(f"{fn.calls[0]} {name} calls against "
-                                     f"{len(fn.masks)} recorded")
+        if pinned and dt == torch.float64:
+            pins = rec
         losses.append(loss.item())
         grads.append({k: q.grad.cpu().double()
                       for k, q in model.named_parameters()})

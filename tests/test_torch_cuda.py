@@ -765,26 +765,117 @@ def _dp_step_case():
 @pytest.mark.parametrize("ranks,backend", [(2, "gloo"), (1, "nccl")])
 def test_data_parallel_step_on_one_card(dev, tmp_path, ranks, backend):
     """Two gloo ranks sharing the card, and a one-rank NCCL group: the
-    step's loss and summed gradient equal the plain step's on the card:
-    the loss to rtol 1e-5; the gradient within twice what reversing the
-    batch's rows does to the plain step's (the same gradient in exact
-    arithmetic; max-pool picks and leaky-ReLU slopes within f32 rounding
-    of a kink follow the summation order); every rank launched K1, K2
-    and K4."""
+    step's loss equals the plain step's on the card to rtol 1e-5; the dp
+    step's summed gradient and the plain step's are each held to a
+    float64 CPU step, every f32 run replaying the f64 run's leaky-ReLU
+    slopes and max-pool picks, within GRAD_ERR_MULTIPLE times the CPU f32
+    step's own error plus GRAD_ERR_FLOOR (grad_check.reference_step, the
+    smoke's data_parallel_path check); every rank launched K1, K2 and
+    K4."""
     from ssdr_al_torch.parallel import backend_for, dryrun, launch
+    from ssdr_al_torch.train.grad_check import gradient_rel, reference_step
 
     assert backend_for([dev] * ranks) == backend
     case = _dp_step_case()
-    want = dryrun.train_step_result(None, device=dev, **case)
-    spread = dryrun.gradient_rel(dryrun.train_step_result(
-        None, device=dev, **dict(case, batch={
-            k: v[::-1].copy() for k, v in case["batch"].items()}))["grad"],
-        want["grad"])
+    ref = reference_step(case["cfg"], case["state"], case["batch"],
+                         case["weights"], dev)
+    pins = str(tmp_path / "pins.pt")
+    torch.save({"slopes": ref["slopes"], "pools": ref["pools"]}, pins)
+    want = dryrun.train_step_result(None, device=dev, pins=ref, **case)
+    assert gradient_rel(want["grad"], ref["grad"]) <= ref["limit"]
     out = launch(dryrun.run_calls, ranks, [dev] * ranks, str(tmp_path),
-                 [(dryrun.train_step_result, case)])
+                 [(dryrun.train_step_result, dict(case, pins=pins))])
     for (res, counts), in out:
         np.testing.assert_allclose(res["loss"], want["loss"], rtol=1e-5)
-        assert dryrun.gradient_rel(res["grad"], want["grad"]) <= \
-            max(2 * spread, 1e-6)
+        assert gradient_rel(res["grad"], ref["grad"]) <= ref["limit"]
         for name in ("window_topk", "gather_window", "scatter_window"):
             assert counts[name] > 0, (name, counts)
+
+
+def _upsample_case(rng, b, n, n_sub, c, up_w=1024):
+    """interp_idx [b, n, 1] as the sorted pyramid's windowed 1-NN upsample
+    gives them (every 256-query tile inside [start, start + up_w) of the
+    kept rows, starts 128-aligned) and a coarse feature [b, n_sub, c]."""
+    tiles = n // kn.QUERY_TILE
+    centre = (np.arange(tiles) * kn.QUERY_TILE + kn.QUERY_TILE // 2) \
+        * n_sub // n
+    starts = np.clip(centre - up_w // 2, 0, n_sub - up_w) // 128 * 128
+    rel = rng.randint(0, up_w, (b, n))
+    idx = np.repeat(starts, kn.QUERY_TILE)[None] + rel
+    feat = rng.randn(b, n_sub, c).astype(np.float32)
+    return (torch.from_numpy(feat),
+            torch.from_numpy(idx[..., None].astype(np.int32)))
+
+
+@pytest.mark.parametrize("n,n_sub,c", [(40960, 10240, 32),
+                                       (10240, 2560, 128)])
+def test_scatter_window_k1_upsample_matches_plain(dev, n, n_sub, c):
+    """K4 at k = 1, the decoder's upsample backward (the sorted pyramid's
+    two windowed upsamples at S3DIS width), through gather_window_auto:
+    bitwise equal to its plain version (index_add_ on the CPU), run to
+    run, and no index clamped (window_violations 0)."""
+    from ssdr_al_torch.models.randlanet import nearest_interpolation
+
+    feat, idx = _upsample_case(np.random.RandomState(8), 2, n, n_sub, c)
+    assert ga.window_violations(idx, 1024 + 128) == 0
+    g = torch.randn(2, n, c, generator=torch.Generator().manual_seed(9))
+
+    def grad(d):
+        f = feat.detach().to(d).requires_grad_()
+        out = nearest_interpolation(f, idx.to(d), 1024 + 128)
+        out.backward(g.to(d))
+        return out.detach().cpu(), f.grad.cpu()
+
+    want = grad("cpu")
+    before = (ga.gather_window.launches, ga.scatter_window.launches)
+    got = grad(dev)
+    torch.cuda.synchronize()
+    assert (ga.gather_window.launches, ga.scatter_window.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(grad(dev)[1], got[1])
+
+
+@pytest.mark.parametrize("b,n,m,c", [(6, 160, 2560, 512), (2, 640, 160, 7),
+                                     (4, 4096, 65536, 32)])
+def test_scatter_rows_fixed_order_on_the_card(dev, b, n, m, c):
+    """The row gather's fixed-order backward (scatter_rows: a stable sort
+    of the targets, then a segment sum) on the card equals the CPU's
+    index_add_ bit for bit, run to run, where torch.gather's CUDA backward
+    adds with float atomics; rows no index reaches are zero."""
+    rng = np.random.RandomState(10)
+    g = torch.from_numpy(rng.randn(b, m, c).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, n - 3, (b, m)).astype(np.int32))
+    flat = (idx.long() + torch.arange(b)[:, None] * n).reshape(-1)
+    want = torch.zeros(b * n, c).index_add_(0, flat, g.reshape(-1, c))
+    got = ga.scatter_rows(g.to(dev), idx.to(dev), n)
+    assert torch.equal(got.cpu(), want.reshape(b, n, c))
+    assert torch.equal(ga.scatter_rows(g.to(dev), idx.to(dev), n), got)
+    v = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev)
+    v.requires_grad_()
+    ga.gather_rows_fixed(v, idx.to(dev)).backward(g.to(dev))
+    assert torch.equal(v.grad.cpu(), want.reshape(b, n, c))
+
+
+def test_train_steps_repeat_bitwise(dev, tmp_path):
+    """Two identical train steps from one state and one batch on the host
+    pipeline, the device pool and the possibility pool, at 16384 points
+    (five layers, both windowed upsamples): loss, every gradient, the
+    BatchNorm statistics and the updated parameters bitwise equal
+    (train/repeat_check.py)."""
+    import dataclasses
+
+    from ssdr_al_torch.config import ConfigS3DIS, ConfigSemantic3D
+    from ssdr_al_torch.data.synthetic import make_dataset
+    from ssdr_al_torch.train.repeat_check import repeat_paths
+
+    rooms = make_dataset(num_train=2, num_val=0, num_points=30000, seed=0,
+                         hard=True)[0]
+    s3dis = dataclasses.replace(ConfigS3DIS, num_points=16384, batch_size=2)
+    s3d = dataclasses.replace(ConfigSemantic3D, num_points=16384,
+                              batch_size=2)
+    res = repeat_paths(dev, s3dis=(s3dis, rooms), semantic3d=(s3d, rooms),
+                       work=str(tmp_path))
+    assert set(res) == {"host", "pool", "possibility"}
+    for name, r in res.items():
+        assert r["equal"], (name, r)

@@ -4,6 +4,7 @@ replayed in the float32 runs, so an input that f32 rounding puts on the
 other side of a kink still takes the f64 side."""
 
 import numpy as np
+import pytest
 import torch
 
 from ssdr_al_torch.train import grad_check as gc
@@ -77,3 +78,61 @@ def test_gradient_errors_pins_pools_on_the_cpu():
     r = gc.gradient_errors(cfg, torch.device("cpu"), 5, pinned=True)
     assert r["pinned"] and r["card_vs_cpu"] == 0.0 and r["passed"]
     assert (rl.leaky_relu, rl.max_pool) == own
+
+
+def test_kink_pins_replay_a_rank_share_of_the_rows():
+    """kink_pins records every leaky-ReLU and max-pool call of a block;
+    replayed with `rows`, each call takes those rows of the recorded masks
+    (a data-parallel rank's share): the second row alone, sign-flipped,
+    takes the recorded slopes and picks, so the block gives the negated
+    recorded row; a block
+    with a call fewer raises; the model's functions come back."""
+    from ssdr_al_torch.models import randlanet as rl
+
+    own = (rl.leaky_relu, rl.max_pool)
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(2, 40, 16, 5))
+
+    def block(v):
+        return rl.max_pool(rl.leaky_relu(v))
+
+    with gc.kink_pins() as rec:
+        want = block(x)
+    assert len(rec["slopes"]) == len(rec["pools"]) == 1
+    with gc.kink_pins(rec, slice(1, 2)):
+        got = block(-x[1:])
+    assert torch.equal(got, -want[1:])
+    with pytest.raises(AssertionError, match="0 leaky_relu calls"):
+        with gc.kink_pins(rec):
+            pass
+    assert (rl.leaky_relu, rl.max_pool) == own
+
+
+def test_reference_step_holds_a_pinned_cpu_step():
+    """reference_step's f64 gradient of the trainer's loss, and the CPU
+    f32 step with its pins replayed: the port's train step on the CPU,
+    given the same pins, is that f32 run (the same error to f64, bit for
+    bit) and within the limit; every layer's pins were recorded."""
+    from ssdr_al_torch.config import class_weights
+    from ssdr_al_torch.models.randlanet import init_params
+    from ssdr_al_torch.parallel import dryrun
+
+    cfg = small_cfg(num_points=2048, batch_size=2)
+    rng = np.random.RandomState(3)
+    xyz = (rng.rand(2, 2048, 3) * 6).astype(np.float32)
+    batch = {"xyz": xyz,
+             "features": np.concatenate(
+                 [xyz, rng.rand(2, 2048, 3).astype(np.float32)], -1),
+             "labels": rng.randint(0, 13, (2, 2048)).astype(np.int32),
+             "pseudo": rng.randint(0, 13, (2, 2048)).astype(np.int32),
+             "activation": (rng.rand(2, 2048) < 0.6).astype(np.float32)}
+    state = gc.spread_weights(init_params(
+        cfg, torch.Generator().manual_seed(0)), 5)
+    case = dict(cfg=cfg, state=state, batch=batch,
+                weights=class_weights("S3DIS"))
+    cpu = torch.device("cpu")
+    ref = gc.reference_step(cfg, state, batch, case["weights"], cpu)
+    one = dryrun.train_step_result(None, device=cpu, pins=ref, **case)
+    err = gc.gradient_rel(one["grad"], ref["grad"])
+    assert err == ref["cpu_f32"] and 0 < err <= ref["limit"]
+    assert len(ref["slopes"]) > 10 and len(ref["pools"]) == cfg.num_layers

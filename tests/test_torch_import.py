@@ -53,7 +53,11 @@ def test_every_submodule_is_listed():
                  "ssdr_al_torch.parallel.dryrun",
                  "ssdr_al_torch.parallel.agreement",
                  "ssdr_al_torch.train.flax_snapshot",
-                 "ssdr_al_torch.kernels.counts"):
+                 "ssdr_al_torch.kernels.counts",
+                 "ssdr_al_torch.utils.logging",
+                 "ssdr_al_torch.train.repeat_check",
+                 "ssdr_al_torch.scripts",
+                 "ssdr_al_torch.scripts.ablation"):
         assert name in SUBMODULES
 
 
