@@ -5,7 +5,11 @@ both K2 sources, K6 at every call of one exact pyramid, tie-heavy inputs,
 K4 at every call of one train step, bitwise, each at S3DIS, Semantic3D
 [4 × 65536] and SemanticKITTI [6 × 45056] width, and K3 at a fixed
 dispatch and the selection round's shape: ssdr_al_torch/kernels/
-measure.py), then drive the closed active-learning loop at RandLA-Net
+measure.py), then ops.knn.knn_window at [6 x 40960] (K1 a probe; k = 16
+at W = 2048 with probes 1 and 2 on both curves, the k = 1 upsample at
+W = 1024), each call equal to K1's plain version in the kernel's place
+and printed with its time and its recall against K6, then drive the
+closed active-learning loop at RandLA-Net
 S3DIS width through the kernels: seed labels, round-1 training with
 evaluation to snap-1, the card's train-mode gradient against float32 and
 float64 CPU gradients at a seeded state, and at eight seeded states with
@@ -18,8 +22,9 @@ default) from its pseudo-GT to snap-2. Then the exact-KNN engine at the
 same width: a training round
 with --knn_engine pallas (K6) from the seed labels, the standalone
 evaluation (cli.evaluate) of its snapshot on the validation room, and one
-eval step each on the window_og (K1), approx and window-with-K5
-(MXU_DISTANCE_DEFAULT) engines. Then the Semantic3D loop at
+eval step each on the window_og (K1), approx (K6, timed beside pallas)
+and window-with-K5 (MXU_DISTANCE_DEFAULT) engines. Then the Semantic3D
+loop at
 ConfigSemantic3D width ([4 × 65536]): seed labels,
 round-1 training on the PossibilityDevicePool with evaluation, a
 full-SSDR selection round (K3) and round-2 training on the pool; one
@@ -34,7 +39,8 @@ snap-1, a bf16 training round on the device pool, bf16 and f32 eval steps
 [8 × 40960] timed in turns and their class agreement on the validation
 room. Then the paper's comparison branches from the same snap-1: one
 selection round each with --sampler random, --edcd 1 (K3 per candidate
-cloud) and --gcn 1 (K3, the 20 000-step coreGCN fit and k-center), and
+cloud) and --gcn 1 (K3, the 20 000-step coreGCN fit as CUDA-graph
+replays, its wall time and replays printed, and k-center), and
 one round each of cli.baseline and cli.max_dominant at the smoke's
 depth. Then data parallelism on the one card (data_parallel_path, ranks
 spawned from ssdr_al_torch/parallel/ after the kernels are built): two
@@ -135,9 +141,6 @@ BRANCH_ARGS = {
     "gcn": ["t0", "sb", "clsbal", "gcn", "WetSU", "NAIL", "0.9", "1", "1",
             "0"],
 }
-# the --gcn 1 branch's coreGCN fit, cut from its 20 000 steps to keep the
-# smoke's growth small (the fit is launch-bound: each step is alike)
-GCN_STEPS = 5000
 # cli.baseline and cli.max_dominant: synthetic rooms, one round
 DRIVER_ROOMS, DRIVER_EPOCHS, DRIVER_STEPS = 2, 1, 4
 # the partition path: raw rooms to train and to validate, the seed round's
@@ -371,6 +374,45 @@ def check_upsample_windows(dev):
     if any(not v or any(x[2] for x in v) for v in out.values()):
         raise AssertionError(f"upsample windows: {out}")
     return out
+
+
+def knn_window_phase(dev):
+    """ops.knn.knn_window, the window search on clouds in their own order,
+    at S3DIS L0 width [6 x 40960] on six synthetic rooms (measure.
+    knn_window_calls): k = 16, W = 2048, probes 1 and 2 on the morton
+    and Hilbert curves, and the k = 1 upsample from the L1 subsample at
+    W = 1024, launches counted from 0 (K1 once a probe). Then each call's
+    result index for index against K1's plain version in the kernel's
+    place, its time by CUDA events, the plain run's, the bound and its
+    recall against K6's exact answer."""
+    from ssdr_al_torch.kernels import measure
+    from ssdr_al_torch.ops import knn as kn
+
+    calls = measure.knn_window_calls(dev)
+    reset_counts()
+    got = [kn.knn_window(s, q, **kw) for _, s, q, kw in calls]
+    torch.cuda.synchronize()
+    paths = {"knn_window": read_counts()}
+    print("launches knn_window " + json.dumps(paths["knn_window"]))
+    require_launched("knn_window", paths["knn_window"], ("window_topk",))
+    want = sum(kw["probes"] for *_, kw in calls)
+    if paths["knn_window"]["window_topk"] != want:
+        raise AssertionError(f"knn_window: {paths['knn_window']} K1 "
+                             f"launches, not {want}")
+    rows = []
+    for (name, s, q, kw), g in zip(calls, got):
+        if g.shape != q.shape[:2] + (kw["k"],) or g.min() < 0 or \
+                g.max() >= s.shape[1]:
+            raise AssertionError(f"knn_window {name}: {tuple(g.shape)}")
+        r = measure.check_knn_window(name, s, q, kw, g)
+        rows.append(r)
+        print(f"knn_window {r['shape']}: equal to the plain version, "
+              f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}; exact K6 "
+              f"{r['exact_ms']:.3f} ms), recall {r['recall']:.4f}")
+    if min(r["recall"] for r in rows) < 0.9:
+        raise AssertionError(f"knn_window recall {rows}")
+    return paths
 
 
 def check_forward_reference(cfg, state, dev):
@@ -889,8 +931,9 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
     (EXACT_EPOCHS x EXACT_STEPS at B=6, with an evaluation) to its snap-1;
     cli.evaluate of that snapshot on the validation room, written as an
     S3DIS Area_5 room; then one eval step [8x40960] each on window_og
-    (K1), approx (exact knn_xla) and window with MXU_DISTANCE_DEFAULT (K5),
-    printing each engine's class agreement with pallas (K6)."""
+    (K1), approx (K6, the pallas engine's search: its classes equal
+    pallas') and window with MXU_DISTANCE_DEFAULT (K5), printing each
+    engine's class agreement with pallas (K6)."""
     from ssdr_al_torch.active.state import sampler_args_str
     from ssdr_al_torch.cli import evaluate
     from ssdr_al_torch.data.dataset import PossibilityEvalPipeline
@@ -956,11 +999,11 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
     batch = PossibilityEvalPipeline(val, cfg, seed=0).get_batch(8)
     state = spread_weights(trainer.state, seed=0)
     model = RandLANet(cfg).to(dev)
-    classes = {}
+    classes, step_ms = {}, {}
     for name, engine, mxu, needs in (
             ("pallas_eval_step", "pallas", False, "knn_tiled"),
             ("window_og_eval_step", "window_og", False, "window_topk"),
-            ("approx_eval_step", "approx", False, None),
+            ("approx_eval_step", "approx", False, "knn_tiled"),
             ("window_eval_step", "window", False, "window_topk"),
             ("mxu_eval_step", "window", True, "window_topk_mxu")):
         step = make_eval_step(model, cfg, engine, False, device=dev)
@@ -970,7 +1013,7 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
             p, f = step(state, batch)
             torch.cuda.synchronize()
             paths[name] = read_counts()
-            ms = cuda_ms(lambda: step(state, batch), 3)
+            ms = step_ms[name] = cuda_ms(lambda: step(state, batch), 3)
         finally:
             kn.MXU_DISTANCE_DEFAULT = False
         if not (torch.isfinite(p).all() and torch.isfinite(f).all()) or \
@@ -985,6 +1028,12 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
               f"(host upload included), {len(classes[name].unique())} "
               f"classes predicted, class agreement {json.dumps(agree)}; "
               f"launches " + json.dumps(paths[name]))
+    print(f"approx_eval_step {step_ms['approx_eval_step']:.3f} ms beside "
+          f"pallas_eval_step {step_ms['pallas_eval_step']:.3f} ms (both K6)")
+    same = (classes["approx_eval_step"] == classes["pallas_eval_step"]
+            ).float().mean().item()
+    if same < 0.999:
+        raise AssertionError(f"approx and pallas classes agree on {same}")
     return paths
 
 
@@ -1065,9 +1114,11 @@ def bf16_paths(cfg, dev, work, train, val, pseudo):
 def selection_branches(cfg, dev, work, train, total):
     """One selection round from snap-1 with each comparison branch
     (BRANCH_ARGS), each path's launches counted from 0: --sampler random
-    (the dominant oracle, no forward), --edcd 1 and --gcn 1 (the fit cut
-    to GCN_STEPS steps). Each labels exactly BUDGET superpoints, all
-    unlabeled before the round; K3 launches on edcd and gcn."""
+    (the dominant oracle, no forward), --edcd 1 and --gcn 1 (the coreGCN
+    fit's 20 000 steps as CUDA-graph replays, its wall time and replays
+    printed). Each labels exactly BUDGET superpoints, all unlabeled before
+    the round; K3 launches on edcd and gcn."""
+    from ssdr_al_torch.active import gcn
     from ssdr_al_torch.active.samplers import (
         RandomSampler,
         TSampler,
@@ -1096,11 +1147,32 @@ def selection_branches(cfg, dev, work, train, total):
                 seed_save_dir=seed_saver, device=dev)
             trainer.restore_model(1)
             sampler = TSampler(state, train, cfg,
-                               TSamplerArgs(diversity=branch,
-                                            gcn_steps=GCN_STEPS),
+                               TSamplerArgs(diversity=branch),
                                total["sp_num"], device=dev)
-            sampler.sampling(trainer.eval_step, trainer.state, BUDGET, 1,
-                             stats)
+            fits = []
+            fit_gcn = gcn.fit_gcn
+
+            def timed_fit(params, adj, *args, **kw):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                losses = fit_gcn(params, adj, *args, **kw)
+                torch.cuda.synchronize()
+                fits.append(dict(
+                    steps=losses.numel(), blocks=list(adj.shape),
+                    wall_s=time.perf_counter() - t1,
+                    replays=timed_fit.replays,
+                    loss_first_last=[losses[0].item(), losses[-1].item()]))
+                return losses
+
+            # fit_gcn counts its replays on whatever its module calls
+            # fit_gcn: this wrapper, while it stands there
+            timed_fit.replays = 0
+            gcn.fit_gcn = timed_fit
+            try:
+                sampler.sampling(trainer.eval_step, trainer.state, BUDGET,
+                                 1, stats)
+            finally:
+                gcn.fit_gcn = fit_gcn
             phase_times = sampler.phase_times
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1113,6 +1185,12 @@ def selection_branches(cfg, dev, work, train, total):
               f"{len(picked)} superpoints labelled, stats: {stats}")
         print(f"phase_times {branch} " + json.dumps(phase_times))
         print(f"launches {name} " + json.dumps(paths[name]))
+        if branch == "gcn":
+            print("coreGCN fit as CUDA graphs " + json.dumps(fits))
+            if len(fits) != 1 or fits[0]["steps"] != 20000 or \
+                    fits[0]["replays"] != 20000 - gcn.GRAPH_WARMUP or \
+                    not np.isfinite(fits[0]["loss_first_last"]).all():
+                raise AssertionError(f"gcn branch: the fit ran {fits}")
         if branch == "random":
             ok = len(picked) == BUDGET
         else:
@@ -1744,12 +1822,14 @@ def main() -> int:
                               train_steps=TRAIN_STEPS, val_steps=VAL_STEPS)
     checks = check_kernels(cfg, dev)
     check_upsample_windows(dev)
+    window_paths = knn_window_phase(dev)
 
     work = os.path.join(root, "build", "smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     try:
         paths, checks["knn_tiled_k64"] = partition_path(
             dev, os.path.join(work, "partition"))
+        paths.update(window_paths)
         paths.update(al_loop(cfg, dev, work, args.profile))
         paths.update(semantic3d_loop(dev, os.path.join(work, "semantic3d")))
         warm_steps(dev, work)

@@ -11,10 +11,13 @@
 Everything after the host bookkeeping runs on one device, the block
 products in full f32 (JAX's Precision.HIGHEST). torch.optim.AdamW and
 optax.adamw are both decoupled weight decay with bias-corrected moments.
-The fit is a Python loop of small steps on the device. The initial
-weights and the dropout masks come from a torch.Generator where JAX draws
-them from PRNGKey(seed): the same distributions, other bits
-(`gcn_params_from_jax` carries JAX's weights across).
+On the card the fit is one device program, as JAX's jit of a lax.scan
+is: GRAPH_WARMUP eager steps, then one step captured in a CUDA graph and
+replayed for the rest. On the CPU it is a Python loop of the same steps,
+the plain version. The initial weights and the dropout masks come from a
+torch.Generator where JAX draws them from PRNGKey(seed): the same
+distributions, other bits (`gcn_params_from_jax` carries JAX's weights
+across).
 """
 
 from __future__ import annotations
@@ -30,6 +33,13 @@ from ssdr_al_torch.ops.kcenter import kcenter_greedy
 
 NHID = 128  # gcn.py:208
 PARAMS = ("gc1_w", "gc1_b", "gc3_w", "gc3_b", "lin_w", "lin_b")
+# the fit on the card: eager steps on a side stream before the capture
+# (they allocate the gradients and AdamW's state), then a graph of one
+# step replayed. `python3 ssdr_al_torch/train/step_times.py --gcn-fit`
+# times it against graphs of more steps and the eager steps: on an H100
+# at [4, 512-2048, 32] a graph of 10 steps saved at most 12 % a step,
+# graphs of 50 and 250 lost time, the eager steps took 5-10× as long
+GRAPH_WARMUP = 3
 
 
 def _latent_adjacency(ed_cd: torch.Tensor, mask: torch.Tensor,
@@ -104,27 +114,90 @@ def bce_adjacency_loss(scores, labeled, valid, n_lbl, n_unl, lam=1.2):
     return -lnl - lam * lnu
 
 
-def fit_gcn(params, adj, vhat, mask, labeled, *, num_steps: int,
-            lr: float = 1e-3, weight_decay: float = 5e-4, lam: float = 1.2,
-            dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """num_steps AdamW steps on the BCE-adjacency loss, updating `params`
-    in place; dropout masks from dropout_gen (None: dropout off). Returns
-    the losses [num_steps] on the device."""
+def fit_steps(params, adj, vhat, mask, labeled, *, num_steps: int,
+              lr: float = 1e-3, weight_decay: float = 5e-4,
+              lam: float = 1.2, dropout_gen: Optional[torch.Generator] = None):
+    """(step, losses): step() is one AdamW step of the fit on the
+    BCE-adjacency loss, updating `params` in place, with dropout masks from
+    dropout_gen (None: dropout off); it writes its loss to losses
+    [num_steps] at a device-side position that it then advances, so that a
+    CUDA graph of it can be replayed. AdamW is capturable on CUDA tensors;
+    the gradients are zeroed in place (set_to_none=False), as a graph
+    needs them."""
     valid = mask.float()
     n_lbl = torch.clamp((labeled * valid).sum(), min=1.0)
     n_unl = torch.clamp(((1 - labeled) * valid).sum(), min=1.0)
     opt = torch.optim.AdamW([params[k] for k in PARAMS], lr=lr,
                             betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay,
+                            capturable=adj.device.type == "cuda")
     losses = torch.empty(num_steps, device=adj.device)
-    for i in range(num_steps):
+    pos = torch.zeros(1, dtype=torch.int64, device=adj.device)
+
+    def step():
+        opt.zero_grad(set_to_none=False)
         scores, _ = _gcn_forward(params, adj, vhat, mask, dropout_gen)
         loss = bce_adjacency_loss(scores, labeled, valid, n_lbl, n_unl, lam)
-        opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
-        losses[i] = loss.detach()
+        losses.index_copy_(0, pos, loss.detach().reshape(1))
+        pos.add_(1)
+
+    return step, losses
+
+
+def capture_steps(step, n: int, warmup: int,
+                  dropout_gen: Optional[torch.Generator], device):
+    """torch's capture recipe for `step` on the card: `warmup` eager steps
+    on a side stream (they allocate the gradients and the optimiser state
+    that the graph then updates in place), then n steps captured in one
+    CUDA graph, not run; the dropout generator is registered with it, so
+    that each replay draws the next masks of its stream. A failed capture
+    raises."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            step()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    if dropout_gen is not None:
+        graph.register_generator_state(dropout_gen)
+    # thread_local: another thread's CUDA calls (a pipeline's prefetch) do
+    # not break this capture; this thread's still do
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(n):
+            step()
+    return graph
+
+
+def fit_gcn(params, adj, vhat, mask, labeled, *, num_steps: int,
+            lr: float = 1e-3, weight_decay: float = 5e-4, lam: float = 1.2,
+            dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """num_steps AdamW steps on the BCE-adjacency loss (fit_steps),
+    updating `params` in place; dropout masks from dropout_gen (None:
+    dropout off). Returns the losses [num_steps] on the device.
+
+    CPU tensors take a Python loop of the steps. On CUDA tensors the
+    first GRAPH_WARMUP steps run eagerly and the rest as replays of one
+    captured step (capture_steps); a capture that fails raises. Each
+    replay adds one to `fit_gcn.replays`."""
+    step, losses = fit_steps(params, adj, vhat, mask, labeled,
+                             num_steps=num_steps, lr=lr,
+                             weight_decay=weight_decay, lam=lam,
+                             dropout_gen=dropout_gen)
+    if adj.device.type != "cuda" or num_steps <= GRAPH_WARMUP:
+        for _ in range(num_steps):
+            step()
+        return losses
+    graph = capture_steps(step, 1, GRAPH_WARMUP, dropout_gen, adj.device)
+    for _ in range(num_steps - GRAPH_WARMUP):
+        graph.replay()
+        fit_gcn.replays += 1
     return losses
+
+
+fit_gcn.replays = 0
 
 
 def gcn_sampling(

@@ -545,6 +545,75 @@ def check_k1(call, mxu=False, reps=20, plain_reps=3):
     return out
 
 
+def knn_window_calls(dev, b=6, n=40960, seed=0):
+    """The knn_window calls of the smoke's phase on b synthetic rooms of n
+    points (data/synthetic.py::make_room): the self-search at k = 16,
+    W = 2048 with probes 1 and 2 on the morton and Hilbert curves, and
+    the 1-NN upsample from the first n/4 points (the L1 subsample) at
+    W = 1024. [(name, support, query, keywords)]."""
+    from ssdr_al_torch.data.synthetic import make_room
+
+    rng = np.random.RandomState(seed)
+    xyz = torch.from_numpy(np.stack([
+        make_room(rng, f"r{i}", num_points=n).xyz for i in range(b)])
+        .astype(np.float32)).to(dev)
+    calls = [(f"self k=16 W=2048 probes={p} {c}", xyz, xyz,
+              dict(k=16, window=2048, probes=p, curve=c))
+             for c in ("morton", "hilbert") for p in (1, 2)]
+    sub = xyz[:, :n // 4].contiguous()
+    calls.append(("upsample k=1 W=1024 probes=1 morton", sub, xyz,
+                  dict(k=1, window=1024, probes=1, curve="morton")))
+    return calls
+
+
+def recall(got, exact):
+    """Mean share of each row's exact neighbours [B, nq, k] that got
+    [B, nq, k] holds."""
+    hit = (got[..., :, None] == exact[..., None, :]).any(-1)
+    return hit.float().mean().item()
+
+
+def check_knn_window(name, support, query, kw, got, reps=5, plain_reps=1):
+    """knn_window's result `got` of one call on the card, index for index
+    against the same call with K1's plain version in the kernel's place
+    (on the card); its time and the plain run's by CUDA events, the bound
+    of its K1 work (both clouds read, the indices written; 9 operations a
+    (query, window point) pair a probe) and its recall against K6's exact
+    answer."""
+    from ssdr_al_torch.ops import knn as kn
+
+    kernel = kn.window_topk
+
+    def plain(s, q, st, k, window, tq=kn.QUERY_TILE, mxu=None):
+        mxu = kn.MXU_DISTANCE_DEFAULT if mxu is None else mxu
+        return kn._window_topk_plain(s, q, st, k, window, tq, mxu)
+
+    def run_plain():
+        kn.window_topk = plain
+        try:
+            return kn.knn_window(support, query, **kw)
+        finally:
+            kn.window_topk = kernel
+
+    want = run_plain()
+    if not torch.equal(got, want):
+        raise AssertionError(f"knn_window {name}: {(got != want).sum().item()}"
+                             " indices differ from the plain version's")
+    b, nq = query.shape[:2]
+    k = kw["k"]
+    bd = bound(nbytes(support, query, got),
+               9 * b * nq * kw["window"] * kw["probes"])
+    exact = kn.knn_tiled(support, query, k)
+    return dict(shape=f"[{b}x{nq}] {name}", max_abs_err=0,
+                ms=device_ms(lambda: kn.knn_window(support, query, **kw),
+                             reps),
+                plain_ms=device_ms(run_plain, plain_reps),
+                bound_ms=bd[0], bound_by=bd[1],
+                recall=recall(got, exact),
+                exact_ms=device_ms(lambda: kn.knn_tiled(support, query, k),
+                                   reps))
+
+
 def _same_bits(a, b):
     """Bit for bit: bf16 tensors by their 16-bit patterns."""
     if a.dtype == torch.bfloat16:

@@ -14,7 +14,7 @@ over B: engine "window" builds the curve-sorted pyramid (K1 window search,
 gathers through K2, whose backward is K4); "window_og" the original-order
 pyramid of per-layer window searches (K1, plain gathers); "xla", "approx"
 and "pallas" the exact original-order pyramid, whose searches are
-`knn_xla` or, for "pallas", kernel K6. On the card every row gather's
+`knn_xla` or, for "approx" and "pallas", kernel K6. On the card every row gather's
 backward sums in a fixed order (K4, at k = 1 for the windowed upsamples,
 or ops/gather.py::scatter_rows), so a train step repeats bit for bit.
 `model.train()` switches
@@ -539,7 +539,8 @@ def build_pyramid(xyz: torch.Tensor, cfg: Config, *, engine: str = "window"):
     engine "window": SortedPyramid through the window search (K1 on CUDA,
     its plain version on CPU). "window_og": Pyramid in original order from
     per-layer window searches. "xla", "approx", "pallas": exact Pyramid in
-    original order ("approx" is served exactly; "pallas" searches with K6)."""
+    original order ("approx" is served exactly: it and "pallas" search
+    with K6)."""
     xyz = xyz.float().contiguous()
     if engine == "window":
         return _pyramid_sorted(xyz, cfg)

@@ -8,13 +8,18 @@ distance:
                `sort_cloud`: each 256-query tile searches one window of the
                sorted support through the window kernel (K1, or K5 with the
                centred-product distance).
+  knn_window — the same window search on clouds in their own order
+               (approximate): sort both along the curve, search with K1
+               (impl "pallas", the default) or an exact top-k over unaligned
+               windows (impl "xla"), map back; probes=2 merges a second
+               search on a shifted grid by exact distance.
   knn_tiled  — exact, the counterpart of knn_pallas: kernel K6 sorts both
                clouds along the morton curve and walks blocks of the
                sorted support, skipping every block whose bounding box
                lies beyond the k-th best of each of a warp's queries.
   knn_xla    — exact, in the matmul form of the JAX engine (dense products
                and torch.topk), for the small pyramid layers.
-  knn_approx — the TPU's approx_min_k path; served with exact knn_xla here.
+  knn_approx — the TPU's approx_min_k path; served by the exact K6 here.
 
 The exact searches take support [B, Ns, 3] and query [B, Nq, 3] f32.
 The sorted-space helpers let the model pyramid search, pool and upsample
@@ -97,13 +102,16 @@ def _hilbert_transpose(q: torch.Tensor, bits: int):
 
 
 def hilbert_codes(xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                  bits: int = 10) -> torch.Tensor:
+                  shift: int = 0, bits: int = 10) -> torch.Tensor:
     """30-bit Hilbert-curve codes over the [lo, hi] box, bit for bit those
     of ssdr_al_tpu's hilbert_codes (an alternative to morton_codes for the
-    window engines, Config.curve="hilbert")."""
+    window engines, Config.curve="hilbert"); shift moves the grid as
+    morton_codes' does (knn_window's second probe)."""
     span = torch.clamp(hi - lo, min=1e-9)
     top = (1 << bits) - 1
     q = torch.clamp(((xyz - lo) / span * top).to(torch.int32), 0, top)
+    if shift:
+        q = (q + shift) % (top + 1)
     x0, x1, x2 = _hilbert_transpose(q, bits)
     return (_part1by2(x0) << 2) | (_part1by2(x1) << 1) | _part1by2(x2)
 
@@ -141,14 +149,17 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def knn_xla(support: torch.Tensor, query: torch.Tensor, k: int, *,
-            query_chunk: int = 1024) -> torch.Tensor:
+            query_chunk: int = 1024, support_chunk: int = 4096
+            ) -> torch.Tensor:
     """Exact KNN, ascending by distance, ties to the lower support index.
 
     support [B, Ns, 3], query [B, Nq, 3] → int32 [B, Nq, k]. The distance
     is the matmul form of the JAX engine, 2 q·s − |q|² − |s|², in full f32
     (TF32 off: torch's default, pinned in models/randlanet.py). With fewer
     than k support points the missing slots hold index 0, as in the JAX
-    engine (a tiny top layer of a small block)."""
+    engine (a tiny top layer of a small block). support_chunk, JAX's tile
+    of the support, is accepted and ignored: each chunk of queries takes
+    the whole support in one product."""
     support = support.float()
     query = query.float()
     sq_s = (support * support).sum(-1)                            # [B, Ns]
@@ -170,12 +181,16 @@ def knn_xla(support: torch.Tensor, query: torch.Tensor, k: int, *,
     return out
 
 
-def knn_approx(support: torch.Tensor, query: torch.Tensor,
-               k: int) -> torch.Tensor:
+def knn_approx(support: torch.Tensor, query: torch.Tensor, k: int, *,
+               query_chunk: int = 1024,
+               recall_target: float = 0.99) -> torch.Tensor:
     """The "approx" engine name. JAX serves it with the TPU's approx_min_k
     (≥ 0.99 recall); there is no such hardware path here, so the port
-    answers it exactly with knn_xla."""
-    return knn_xla(support, query, k)
+    answers it exactly with knn_tiled (K6 on CUDA tensors, its plain
+    version on CPU tensors): "approx" and "pallas" are one search.
+    JAX's query_chunk and recall_target are accepted and ignored (the
+    answer is exact)."""
+    return knn_tiled(support, query, k)
 
 
 def _sq_dist(qx, qy, qz, sx, sy, sz):
@@ -332,8 +347,8 @@ def _knn_layout(support, s_order):
     return groups, torch.nn.functional.pad(s_order, (0, pad)).contiguous()
 
 
-def knn_tiled(support: torch.Tensor, query: torch.Tensor,
-              k: int) -> torch.Tensor:
+def knn_tiled(support: torch.Tensor, query: torch.Tensor, k: int, *,
+              tile_q: int = 256, tile_s: int = 512) -> torch.Tensor:
     """K6: exact KNN, the counterpart of ssdr_al_tpu's knn_pallas.
 
     support [B, Ns, 3] f32, query [B, Nq, 3] f32 → int32 [B, Nq, k],
@@ -346,7 +361,9 @@ def knn_tiled(support: torch.Tensor, query: torch.Tensor,
     thread per query over every support point (knn_tiled_route). Any
     1 <= k <= 64 runs on both (the width knn_kernel_k(k) of the kernel,
     its first k columns); a larger k raises on both. A launch counts in
-    knn_tiled.launches (widths 1 and 16) or knn_tiled.launches_k64."""
+    knn_tiled.launches (widths 1 and 16) or knn_tiled.launches_k64.
+    tile_q and tile_s, the TPU kernel's tiles (JAX's knn_pallas), are
+    accepted and ignored: K6 takes its own (knn_tiled_plan)."""
     return _knn_tiled(support, query, k)[0]
 
 
@@ -635,10 +652,12 @@ def pad_rows(xyz: torch.Tensor, n_pad: int) -> torch.Tensor:
 
 
 def sort_cloud(xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-               pad_to: int = 128, curve: str = "morton") -> SortedCloud:
-    """Sort xyz [B, N, 3] along the curve (a key of CURVES) over the
-    [lo, hi] box ([B, 1, 3]) and pad to a multiple of pad_to rows."""
-    codes = CURVES[curve](xyz, lo, hi)
+               pad_to: int = 128, curve: str = "morton",
+               shift: int = 0) -> SortedCloud:
+    """Sort xyz [B, N, 3] along the curve (a key of CURVES, its grid
+    shifted by `shift`) over the [lo, hi] box ([B, 1, 3]) and pad to a
+    multiple of pad_to rows."""
+    codes = CURVES[curve](xyz, lo, hi, shift)
     codes_s, order, xyz_s = sort_by_codes(codes, xyz)
     n = xyz.shape[1]
     return SortedCloud(pad_rows(xyz_s, _round_up(n, pad_to)).contiguous(),
@@ -673,6 +692,21 @@ def _pad_last(x: torch.Tensor, n_pad: int) -> torch.Tensor:
     return torch.cat([x, tail], dim=1)
 
 
+def tile_starts(sup: SortedCloud, q_codes: torch.Tensor, tq: int,
+                window: int, limit: int, align: int) -> torch.Tensor:
+    """Window starts [B, T] of query tiles of tq sorted queries (q_codes
+    [B, T·tq], padded): each query's rank is its searchsorted position in
+    the support's codes, a tile centres on the median of its ranks
+    (jnp.median's: the truncated mean of the two middle values), and
+    starts there − window/2, clipped to [0, limit] and aligned down to
+    `align`."""
+    pos = torch.searchsorted(sup.codes_sorted.contiguous(),
+                             q_codes.contiguous())
+    med = median_floor(pos.reshape(pos.shape[0], -1, tq))
+    starts = torch.clamp(med - window // 2, 0, limit)
+    return (starts // align) * align
+
+
 def knn_window_sorted_raw(sup: SortedCloud, qry: SortedCloud, k: int, *,
                           query_chunk: int = QUERY_TILE, window: int = 2048,
                           self_query: bool = False,
@@ -683,11 +717,9 @@ def knn_window_sorted_raw(sup: SortedCloud, qry: SortedCloud, k: int, *,
     query's sorted order; starts [B, nq_pad / query_chunk]) with
     idx[tile t] ∈ [starts[t], starts[t] + window): the invariant
     ops.gather.gather_window relies on. A self-search (support IS the
-    query cloud) centres tile t on its own ranks; otherwise each query's
-    rank is its searchsorted position in the support's codes and a tile
-    centres on the median of its ranks (jnp.median's: the truncated mean
-    of the two middle values). Starts are clipped to [0, ns_pad − window]
-    and aligned down to 128."""
+    query cloud) centres tile t on its own ranks; otherwise a tile centres
+    on the median of its queries' ranks in the support (tile_starts).
+    Starts are clipped to [0, ns_pad − window] and aligned down to 128."""
     b, ns_pad, _ = sup.xyz_sorted.shape
     ns, nq = sup.n_real, qry.n_real
     nq_pad = _round_up(nq, query_chunk)
@@ -697,12 +729,9 @@ def knn_window_sorted_raw(sup: SortedCloud, qry: SortedCloud, k: int, *,
         starts = self_query_starts(nq_pad, ns_pad, window, query_chunk, dev)
         starts = starts.expand(b, -1).contiguous()
     else:
-        q_codes = _pad_last(qry.codes_sorted, nq_pad)
-        pos = torch.searchsorted(sup.codes_sorted.contiguous(),
-                                 q_codes.contiguous())
-        pos_med = median_floor(pos.reshape(b, -1, query_chunk))
-        starts = torch.clamp(pos_med - window // 2, 0, ns_pad - window)
-        starts = ((starts // 128) * 128).to(torch.int32).contiguous()
+        starts = tile_starts(sup, _pad_last(qry.codes_sorted, nq_pad),
+                             query_chunk, window, ns_pad - window, 128)
+        starts = starts.to(torch.int32).contiguous()
     rel = window_topk(sup.xyz_sorted.contiguous(), q, starts, k, window,
                       query_chunk, mxu)
     out = torch.repeat_interleave(starts, query_chunk, dim=1)[..., None] + rel
@@ -720,21 +749,159 @@ def knn_window_sorted(sup: SortedCloud, qry: SortedCloud, k: int, *,
     out_sorted, _ = knn_window_sorted_raw(
         sup, qry, k, query_chunk=query_chunk, window=window,
         self_query=self_query)
-    b, nq, _ = out_sorted.shape
+    return _to_original(sup, qry, out_sorted)
+
+
+def _to_original(sup: SortedCloud, qry: SortedCloud,
+                 out_sorted: torch.Tensor) -> torch.Tensor:
+    """Indices [B, nq, k] into the support's sorted rows, rows in the
+    query's sorted order → support indices, rows in the query's order."""
+    b, nq, k = out_sorted.shape
     out = torch.gather(sup.order.long(), 1,
                        out_sorted.reshape(b, -1).long()).reshape(b, nq, k)
     return gather_rows(out, invert_permutation(qry.order)).to(torch.int32)
 
 
-def knn(support: torch.Tensor, query: torch.Tensor, k: int, *,
-        engine: str = "xla") -> torch.Tensor:
-    """KNN by the name of an exact engine: "xla", "approx" (served exact)
-    or "pallas" (kernel K6). The window engines search sorted clouds and
-    are built into the pyramid (models/randlanet.py::build_pyramid)."""
-    if engine == "xla":
-        return knn_xla(support, query, k)
-    if engine == "approx":
+# --------------------------------------- window search in original order ---
+
+# knn_window's widths: K1 is built for KERNEL_K, so 1 < k < 16 runs the
+# width 16 and keeps its first k columns; JAX's Pallas impl takes k ≤
+# WINDOW_MAX_K and window ≤ WINDOW_MAX (ssdr_al_tpu/ops/knn.py:619-620)
+WINDOW_MAX_K, WINDOW_MAX = 16, 4096
+PROBE_SHIFT = 512          # the second probe's grid shift (half the range)
+XLA_TILE_ELEMS = 1 << 22   # d² elements of one pass of the XLA form
+
+
+def _window_k1(sup: SortedCloud, qry: SortedCloud, k, tq, window):
+    """_knn_window_single_pallas (ssdr_al_tpu/ops/knn.py:426-462):
+    knn_window_sorted_raw without the self-query shortcut (each tile's
+    window from the median of its searchsorted ranks, as JAX's), at K1's
+    width for k, its first k columns."""
+    width = KERNEL_K[0] if k == 1 else KERNEL_K[1]
+    out, _ = knn_window_sorted_raw(sup, qry, width, query_chunk=tq,
+                                   window=window)
+    return out[..., :k]
+
+
+def _window_xla(sup: SortedCloud, qry: SortedCloud, k, tq, window):
+    """_knn_window_single (ssdr_al_tpu/ops/knn.py:210-264), JAX's XLA form,
+    in plain torch ops on any device: window = min(window, ns); each tile's
+    window starts at the median of its ranks − window/2, clipped to
+    [0, ns − window] and not aligned; an exact top-k over the window in
+    ascending (d², rank) order, XLA_TILE_ELEMS d² at a time. Indices into
+    the support's sorted rows, rows in the query's sorted order."""
+    b, ns, nq = sup.xyz_sorted.shape[0], sup.n_real, qry.n_real
+    window = min(window, ns)
+    nq_pad = _round_up(nq, tq)
+    q_pad = _pad_last(qry.xyz_sorted[:, :nq], nq_pad)
+    starts = tile_starts(sup, _pad_last(qry.codes_sorted, nq_pad), tq,
+                         window, ns - window, 1)                  # [B, T]
+    ar = torch.arange(window, device=q_pad.device)
+    tiles = nq_pad // tq
+    step = max(1, XLA_TILE_ELEMS // (tq * window))
+    out = torch.empty((b, nq_pad, k), dtype=torch.int64, device=q_pad.device)
+    for bi in range(b):
+        for t0 in range(0, tiles, step):
+            st = starts[bi, t0:t0 + step]
+            win = sup.xyz_sorted[bi][st[:, None] + ar]            # [T, W, 3]
+            rows = slice(t0 * tq, (t0 + len(st)) * tq)
+            qs = q_pad[bi, rows].reshape(-1, tq, 3)
+            d2 = _sq_dist(qs[:, :, None, 0], qs[:, :, None, 1],
+                          qs[:, :, None, 2], win[:, None, :, 0],
+                          win[:, None, :, 1], win[:, None, :, 2])
+            out[bi, rows] = (st[:, None, None] + _first_k(d2, k)).reshape(
+                -1, k)
+    return out[:, :nq]
+
+
+def merge_probes(support, query, idx1, idx2, k):
+    """_merge_probes (ssdr_al_tpu/ops/knn.py:579-596): the 2k candidates
+    of two searches [B, nq, k] sorted by id, duplicates set to +inf, the k
+    nearest by exact d² (ties to the lower position, as lax.top_k)."""
+    both = torch.cat([idx1, idx2], dim=-1).long()                 # [B, nq, 2k]
+    b, nq, kk = both.shape
+    cand = gather_rows(support, both.reshape(b, -1)).reshape(b, nq, kk, 3)
+    q = query[:, :, None, :]
+    d2 = _sq_dist(q[..., 0], q[..., 1], q[..., 2],
+                  cand[..., 0], cand[..., 1], cand[..., 2])
+    ids, ordr = torch.sort(both, dim=-1, stable=True)
+    d2s = torch.gather(d2, -1, ordr)
+    dup = torch.cat([torch.zeros_like(ids[..., :1], dtype=torch.bool),
+                     ids[..., 1:] == ids[..., :-1]], dim=-1)
+    d2s = torch.where(dup, torch.inf, d2s)
+    sel = torch.sort(d2s, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(ids, -1, sel).to(torch.int32)
+
+
+def knn_window(support: torch.Tensor, query: torch.Tensor, k: int, *,
+               query_chunk: int = QUERY_TILE, window: int = 2048,
+               impl: str = "auto", probes: int = 1,
+               curve: Optional[str] = None) -> torch.Tensor:
+    """Space-filling-curve window KNN on clouds in their own order, the
+    counterpart of ssdr_al_tpu's knn_window (approximate).
+
+    support [B, Ns, 3], query [B, Nq, 3] f32 → int32 [B, Nq, k], support
+    indices ascending by d², rows in the query's order. A cloud of at most
+    `window` points or fewer than 2k is answered exactly by knn_approx
+    (K6). impl "pallas" searches each tile's window with K1 (K5 where
+    MXU_DISTANCE_DEFAULT is set, as JAX's; k ≤ 16, window ≤ 4096, else
+    ValueError); "xla" is JAX's XLA form
+    (_window_xla: tiles of at least 512 queries, unaligned windows, any
+    k); "auto" is "pallas" on every device (JAX's auto takes "xla" off
+    the TPU). CPU tensors take K1's and K6's plain versions, CUDA tensors
+    launch the kernels. probes=2 adds a search on the grid shifted by
+    PROBE_SHIFT and merges both by exact d² (merge_probes: no id twice in
+    a row). curve: a key of CURVES, default "morton"."""
+    b, ns, _ = support.shape
+    nq = query.shape[1]
+    if query.shape[0] != b or support.shape[-1] != 3 or query.shape[-1] != 3:
+        raise ValueError(f"knn_window: bad shapes {tuple(support.shape)} "
+                         f"{tuple(query.shape)}")
+    if probes not in (1, 2):
+        raise ValueError(f"knn_window: probes={probes}, not 1 or 2")
+    if ns <= window or ns < 2 * k:
         return knn_approx(support, query, k)
+    if impl == "auto":
+        impl = "pallas"
+    qc = min(query_chunk, _round_up(nq, 128))
+    if impl == "pallas":
+        if k > WINDOW_MAX_K or window > WINDOW_MAX:
+            raise ValueError(f"knn_window: the K1 form takes k ≤ "
+                             f"{WINDOW_MAX_K} and window ≤ {WINDOW_MAX}, "
+                             f"not k={k} window={window}")
+        single = _window_k1
+    elif impl == "xla":
+        single, qc = _window_xla, max(qc, 512)
+    else:
+        raise ValueError(f"knn_window: unknown impl {impl!r}")
+    support, query = support.float(), query.float()
+    lo = torch.minimum(support.amin(1, keepdim=True),
+                       query.amin(1, keepdim=True))
+    hi = torch.maximum(support.amax(1, keepdim=True),
+                       query.amax(1, keepdim=True))
+    outs = []
+    for shift in (0, PROBE_SHIFT)[:probes]:
+        sup = sort_cloud(support, lo, hi, curve=curve or "morton",
+                         shift=shift)
+        qry = sort_cloud(query, lo, hi, pad_to=1, curve=curve or "morton",
+                         shift=shift)
+        outs.append(_to_original(sup, qry, single(sup, qry, k, qc, window)))
+    return outs[0] if probes == 1 else merge_probes(support, query, *outs, k)
+
+
+def knn(support: torch.Tensor, query: torch.Tensor, k: int, *,
+        engine: str = "xla", **kw) -> torch.Tensor:
+    """KNN by engine name, each engine's keywords passed through as JAX's
+    knn passes them: "xla" (exact, matmul form), "approx" (served exact by
+    K6), "pallas" (exact, K6) or "window" (knn_window, approximate). The
+    model pyramid builds its window engines on sorted clouds
+    (models/randlanet.py::build_pyramid)."""
+    if engine == "xla":
+        return knn_xla(support, query, k, **kw)
+    if engine == "approx":
+        return knn_approx(support, query, k, **kw)
+    if engine == "window":
+        return knn_window(support, query, k, **kw)
     if engine == "pallas":
-        return knn_tiled(support, query, k)
+        return knn_tiled(support, query, k, **kw)
     raise ValueError(f"unknown knn engine {engine!r}")

@@ -1,7 +1,7 @@
 """Median wall time of warm train steps on the card, per training path.
 
     python3 ssdr_al_torch/train/step_times.py [--tree DIR] [--out PATH]
-        [--extract-sweep | --eval-steps | --dtype bfloat16]
+        [--extract-sweep | --eval-steps | --dtype bfloat16 | --gcn-fit]
 
 Paths, each on a fresh Trainer (`window` engine, random weights) over
 synthetic rooms (seed 0):
@@ -30,7 +30,8 @@ the torch.sort inside each, and the peak device memory each takes beyond
 its inputs, per block row (the pool's memory gate counts
 EXTRACT_BYTES_PER_ROW). `--eval-steps` measures only eval steps
 (`make_eval_step`) at ConfigS3DIS width [8 × 40960] on the exact engine
-(`pallas`, K6), on `window` (K1) and on `window` with K5
+(`pallas`, K6), on `approx` (served by the same search), on `window`
+(K1) and on `window` with K5
 (`MXU_DISTANCE_DEFAULT`), random weights (`init_params`, seed 0) on one
 random batch: each step by the host clock from its call to a
 synchronize, its numpy batch's upload included, the median and the
@@ -42,7 +43,12 @@ dtypes in turns of 5 steps after 3 warm-up steps each, 20 timed steps a
 dtype (median and range as above); then, for each, the device time of
 its kernels a step under torch.profiler (kernels/measure.py::
 device_breakdown, 3 steps): their sum, the launches a step and the six
-largest kernels. Prints one line per path and, as its
+largest kernels. `--gcn-fit` measures only the coreGCN fit
+(active/gcn.py) on gcn_fit_inputs at [4, S, 32] blocks, S = 512, 1024
+and 2048: the s a step of GCN_FIT_STEPS steps by the host clock to a
+synchronize, as fit_gcn runs them (one captured step replayed), as
+graphs of GCN_GRAPH_SIZES steps, and eagerly (fit_steps' step in a
+loop), each twice in turns. Prints one line per path and, as its
 last line, the results as JSON (also written to PATH). chip_smoke.py runs
 `measure` and `dtype_steps`.
 """
@@ -62,6 +68,8 @@ import torch
 S3DIS_ROOMS, S3DIS_ROOM_POINTS = 4, 150_000
 S3D_CLOUDS, S3D_CLOUD_POINTS = 3, 300_000
 EXTRACT_SWEEP_POINTS = (1 << 20, 1 << 22, 1 << 24, 1 << 26)
+GCN_FIT_SLOTS, GCN_FIT_STEPS = (512, 1024, 2048), 2000
+GCN_GRAPH_SIZES = (10, 50, 250)
 
 
 def timed_steps(step, steps, warmup):
@@ -236,6 +244,7 @@ def eval_steps(dev, steps=20, warmup=3, log=print):
     model = RandLANet(cfg).to(dev)
     out = {}
     for name, engine, mxu in (("pallas", "pallas", False),
+                              ("approx", "approx", False),
                               ("window", "window", False),
                               ("window_k5", "window", True)):
         step = make_eval_step(model, cfg, engine, False, device=dev)
@@ -380,6 +389,81 @@ def extraction_sweep(dev, sizes=EXTRACT_SWEEP_POINTS, log=print):
     return out
 
 
+def gcn_fit_inputs(device, blocks: int, slots: int, nfeat: int,
+                   seed: int = 0):
+    """(params, adj, vhat, mask, labeled) of a coreGCN fit on `blocks`
+    blocks of `slots` regions with random features of width nfeat,
+    symmetric ED + CD in [0, 4), 90 % of the slots valid and 20 % labeled
+    (numpy draws from `seed`); the port's initial weights from `seed`."""
+    import numpy as np
+
+    from ssdr_al_torch.active import gcn
+
+    rng = np.random.RandomState(seed)
+    mask = torch.from_numpy(rng.rand(blocks, slots) < 0.9).to(device)
+    ed_cd = torch.from_numpy(rng.rand(blocks, slots, slots).astype(
+        np.float32) * 4).to(device)
+    feats = torch.from_numpy(rng.randn(blocks, slots, nfeat).astype(
+        np.float32)).to(device)
+    adj, vhat = gcn._latent_adjacency((ed_cd + ed_cd.transpose(1, 2)) / 2,
+                                      mask, feats)
+    labeled = torch.from_numpy((rng.rand(blocks, slots) < 0.2).astype(
+        np.float32)).to(device)
+    params = gcn._init_gcn_params(torch.Generator().manual_seed(seed),
+                                  nfeat, device)
+    return params, adj, vhat, mask, labeled
+
+
+def gcn_fit_times(dev, slots=GCN_FIT_SLOTS, num_steps=GCN_FIT_STEPS,
+                  sizes=GCN_GRAPH_SIZES, blocks=4, nfeat=32, log=print):
+    """{"[blocks, S, nfeat]": {"fit" | "graph_<n>" | "eager": [s a step,
+    s a step]}}: the fit as fit_gcn runs it, graphs of n steps
+    (gcn.capture_steps, (num_steps − GRAPH_WARMUP) // n replays after the
+    warm-up steps) and the eager steps, each from fresh weights with
+    dropout on, twice in turns."""
+    from ssdr_al_torch.active import gcn
+
+    def run(kind, inputs):
+        params, adj, vhat, mask, labeled = inputs
+        drop = torch.Generator(dev).manual_seed(0)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if kind == "fit":
+            gcn.fit_gcn(params, adj, vhat, mask, labeled,
+                        num_steps=num_steps, dropout_gen=drop)
+            done = num_steps
+        else:
+            step, _ = gcn.fit_steps(params, adj, vhat, mask, labeled,
+                                    num_steps=num_steps, dropout_gen=drop)
+            if kind == "eager":
+                for _ in range(num_steps):
+                    step()
+                done = num_steps
+            else:
+                n = int(kind.split("_")[1])
+                graph = gcn.capture_steps(step, n, gcn.GRAPH_WARMUP, drop,
+                                          dev)
+                replays = (num_steps - gcn.GRAPH_WARMUP) // n
+                for _ in range(replays):
+                    graph.replay()
+                done = gcn.GRAPH_WARMUP + replays * n
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / done
+
+    kinds = ["fit"] + [f"graph_{n}" for n in sizes] + ["eager"]
+    out = {}
+    for s in slots:
+        inputs = gcn_fit_inputs(dev, blocks, s, nfeat)
+        res = {}
+        for kind in kinds + kinds[::-1]:
+            res.setdefault(kind, []).append(run(kind, inputs))
+        out[f"[{blocks}, {s}, {nfeat}]"] = res
+        log(f"gcn fit [{blocks}, {s}, {nfeat}] s a step: {res}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", help="root of the ssdr_al_torch tree to "
@@ -390,11 +474,15 @@ def main() -> int:
                          "EXTRACT_SWEEP_POINTS")
     ap.add_argument("--eval-steps", action="store_true",
                     help="measure only the eval steps [8 x 40960] on the "
-                         "pallas, window and window + K5 engines")
+                         "pallas, approx, window and window + K5 engines")
     ap.add_argument("--dtype", choices=["bfloat16"],
                     help="measure only the pooled train step [6 x 40960] "
                          "and the window eval step [8 x 40960] in this "
                          "dtype and in float32, in turns")
+    ap.add_argument("--gcn-fit", action="store_true",
+                    help="measure only the coreGCN fit: one captured step "
+                         "replayed, graphs of GCN_GRAPH_SIZES steps and "
+                         "the eager steps")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -415,6 +503,8 @@ def main() -> int:
         res = {"extraction": extraction_sweep(dev)}
     elif args.eval_steps:
         res = {"eval_steps": eval_steps(dev)}
+    elif args.gcn_fit:
+        res = {"gcn_fit": gcn_fit_times(dev)}
     elif args.dtype:
         res = {"dtypes": dtype_steps(dev, work=os.path.join(
             tree, "build", "step_times"))}

@@ -879,3 +879,148 @@ def test_train_steps_repeat_bitwise(dev, tmp_path):
     assert set(res) == {"host", "pool", "possibility"}
     for name, r in res.items():
         assert r["equal"], (name, r)
+
+
+@pytest.mark.parametrize("probes", [1, 2])
+@pytest.mark.parametrize("k", [1, 8, 16])
+def test_knn_window_matches_plain(dev, k, probes):
+    """knn_window on the card (K1, widths 1 and 16) index for index equal
+    to the same call on CPU copies (K1's plain version): the curve codes,
+    sorts, starts and the probe merge are the same torch ops on both."""
+    rng = np.random.RandomState(11)
+    sup = torch.from_numpy((rng.rand(2, 20000, 3) * 6).astype(np.float32))
+    qry = sup if k > 1 else sup[:, ::4].contiguous()
+    window = 2048 if k > 1 else 1024
+    want = kn.knn_window(sup, qry, k, window=window, probes=probes)
+    before = kn.window_topk.launches
+    got = kn.knn_window(sup.to(dev), qry.to(dev), k, window=window,
+                        probes=probes)
+    torch.cuda.synchronize()
+    assert kn.window_topk.launches == before + probes
+    assert torch.equal(got.cpu(), want)
+
+
+def test_approx_pyramid_is_the_pallas_pyramid(dev):
+    """The "approx" engine searches with K6: its pyramid equals the
+    "pallas" one bit for bit, and each layer launches K6 twice."""
+    from ssdr_al_torch.config import ConfigS3DIS
+    from ssdr_al_torch.models.randlanet import build_pyramid
+
+    rng = np.random.RandomState(12)
+    xyz = torch.from_numpy((rng.rand(2, ConfigS3DIS.num_points, 3) * 6)
+                           .astype(np.float32)).to(dev)
+    before = kn.knn_tiled.launches
+    got = build_pyramid(xyz, ConfigS3DIS, engine="approx")
+    torch.cuda.synchronize()
+    assert kn.knn_tiled.launches == before + 2 * ConfigS3DIS.num_layers
+    want = build_pyramid(xyz, ConfigS3DIS, engine="pallas")
+    for f in ("neigh_idx", "sub_idx", "interp_idx"):
+        for a, b in zip(getattr(got, f), getattr(want, f)):
+            assert torch.equal(a, b)
+
+
+def _gcn_problem(dev, blocks=3, slots=300, nfeat=16, seed=0):
+    from ssdr_al_torch.train.step_times import gcn_fit_inputs
+
+    return gcn_fit_inputs(dev, blocks, slots, nfeat, seed)
+
+
+def test_gcn_fit_graphs_match_eager_steps(dev):
+    """The fit as a CUDA graph (3 warm-up steps, 197 replays of one
+    captured step) against the same capturable-AdamW steps run eagerly,
+    200 steps with dropout from the same generator seed: losses and
+    parameters bitwise equal (the same kernels on the same inputs, the
+    same Philox offsets for every mask)."""
+    from ssdr_al_torch.active import gcn
+
+    params, adj, vhat, mask, labeled = _gcn_problem(dev)
+    ref = {k: v.detach().clone().requires_grad_(True)
+           for k, v in params.items()}
+    replays = gcn.fit_gcn.replays
+    losses = gcn.fit_gcn(params, adj, vhat, mask, labeled, num_steps=200,
+                         dropout_gen=torch.Generator(dev).manual_seed(3))
+    assert gcn.fit_gcn.replays == replays + 200 - gcn.GRAPH_WARMUP
+    valid = mask.float()
+    n_lbl = torch.clamp((labeled * valid).sum(), min=1.0)
+    n_unl = torch.clamp(((1 - labeled) * valid).sum(), min=1.0)
+    opt = torch.optim.AdamW([ref[k] for k in gcn.PARAMS], lr=1e-3,
+                            weight_decay=5e-4, capturable=True)
+    drop = torch.Generator(dev).manual_seed(3)
+    want = []
+    for _ in range(200):
+        opt.zero_grad(set_to_none=False)
+        scores, _ = gcn._gcn_forward(ref, adj, vhat, mask, drop)
+        loss = gcn.bce_adjacency_loss(scores, labeled, valid, n_lbl, n_unl)
+        loss.backward()
+        opt.step()
+        want.append(loss.detach())
+    torch.cuda.synchronize()
+    assert torch.equal(losses, torch.stack(want))
+    for k in gcn.PARAMS:
+        assert torch.equal(params[k], ref[k]), k
+
+
+# the card's fit against the CPU fit: f32 on both sides, other summation
+# orders in the block products. The CPU fit is held to optax.adamw over
+# JAX's loss with this tolerance (tests/test_torch_diversity.py::FIT_TOL,
+# test_gcn_adamw_steps_match_optax), which cannot run here: the card's
+# machine has no jax. Each step moves a parameter by at most lr
+GCN_CARD_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def test_gcn_card_fit_matches_cpu_fit(dev):
+    """24 steps of the fit (dropout off) from the same weights, at the
+    size of test_gcn_adamw_steps_match_optax (3 blocks of 20 regions, 32
+    features): the card's (3 eager steps, 21 replays of the captured
+    step, capturable AdamW) against the CPU loop; losses and the weights
+    that the loss reaches within GCN_CARD_TOL."""
+    from ssdr_al_torch.active import gcn
+
+    cpu = _gcn_problem("cpu", blocks=3, slots=20, nfeat=32, seed=5)
+    card = [{k: v.detach().to(dev).requires_grad_(True)
+             for k, v in cpu[0].items()}] + [x.to(dev) for x in cpu[1:]]
+    want = gcn.fit_gcn(*cpu, num_steps=24)
+    replays = gcn.fit_gcn.replays
+    got = gcn.fit_gcn(*card, num_steps=24)
+    assert gcn.fit_gcn.replays == replays + 24 - gcn.GRAPH_WARMUP
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               **GCN_CARD_TOL)
+    for k in ("gc1_w", "gc1_b", "gc3_w", "gc3_b"):
+        np.testing.assert_allclose(card[0][k].detach().cpu().numpy(),
+                                   cpu[0][k].detach().numpy(),
+                                   **GCN_CARD_TOL, err_msg=k)
+
+
+_CAPTURE_FAILS = """
+import sys
+import torch
+from ssdr_al_torch.active import gcn
+sys.path.insert(0, "tests")
+import test_torch_cuda as tc
+
+def syncing_loss(*args, **kw):
+    loss = bce(*args, **kw)
+    loss.item()     # a host sync, which a stream capture refuses
+    return loss
+
+bce, gcn.bce_adjacency_loss = gcn.bce_adjacency_loss, syncing_loss
+dev = torch.device("cuda", 0)
+params, adj, vhat, mask, labeled = tc._gcn_problem(dev)
+gcn.fit_gcn(params, adj, vhat, mask, labeled, num_steps=50)
+print("RAN")
+"""
+
+
+def test_gcn_fit_capture_failure_raises(dev):
+    """A step that a capture cannot record (a host sync) makes the fit
+    raise; nothing runs the steps eagerly instead. In a child process: a
+    failed capture may leave the process's CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _CAPTURE_FAILS], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "RAN" not in r.stdout, r.stdout
+    assert "capture" in r.stderr.lower(), r.stderr[-2000:]

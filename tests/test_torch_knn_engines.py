@@ -3,7 +3,7 @@ codes, sorted clouds and the hilbert-sorted pyramids, the exact tiled
 search (K6's plain version against knn_pallas), the centred-product window
 search (K5's plain version against _knn_window_kernel_mxu), non-self-query
 window starts (the jnp.median trap), the "window_og", "pallas" and
-"approx" pyramids and one eval step on the "pallas" engine. JAX runs its
+"approx" (K6) pyramids and one eval step on the "pallas" engine. JAX runs its
 Pallas kernels in interpret mode."""
 
 import dataclasses
@@ -265,16 +265,38 @@ def test_knn_window_sorted_non_self_query_matches_jax(clustered):
 
 
 def test_knn_dispatcher():
+    """"approx" is K6's search (equal to "pallas"), which equals the
+    matmul-form "xla" up to its ties; "window" is knn_window
+    (tests/test_torch_knn_window.py); "kd" is no engine."""
     s, q = t(_cloud(13, 700, b=2)), t(_cloud(14, 300, b=2))
     exact = tk.knn(s, q, 16)
-    assert torch.equal(tk.knn(s, q, 16, engine="approx"), exact)
-    assert_near_ties(q[0].numpy(), s[0].numpy(),
-                     tk.knn(s, q, 16, engine="pallas")[0].numpy(),
-                     exact[0].numpy(), rel=EXACT_TIE_REL, max_frac=1e-3)
-    # the window engines live in the pyramid, not behind knn()
-    for engine in ("window", "kd"):
-        with pytest.raises(ValueError, match="unknown knn engine"):
-            tk.knn(s, q, 16, engine=engine)
+    pallas = tk.knn(s, q, 16, engine="pallas")
+    assert torch.equal(tk.knn(s, q, 16, engine="approx"), pallas)
+    for b in range(2):
+        assert_near_ties(q[b].numpy(), s[b].numpy(), pallas[b].numpy(),
+                         exact[b].numpy(), rel=EXACT_TIE_REL, max_frac=1e-3)
+    assert torch.equal(tk.knn(s, q, 16, engine="window", window=512),
+                       tk.knn_window(s, q, 16, window=512))
+    with pytest.raises(ValueError, match="unknown knn engine"):
+        tk.knn(s, q, 16, engine="kd")
+
+
+@pytest.mark.parametrize("engine,kw", [
+    ("xla", dict(query_chunk=128, support_chunk=256)),
+    ("approx", dict(query_chunk=128, recall_target=0.9)),
+    ("pallas", dict(tile_q=128, tile_s=256))])
+def test_knn_engine_takes_jax_keywords(engine, kw):
+    """Each engine takes the keywords JAX's takes (its TPU tiles and
+    recall target, which the port ignores): the answer equals the call
+    without them, and JAX's knn with the same keywords up to ties."""
+    s, q = _cloud(16, 700), _cloud(17, 300)
+    got = tk.knn(t(s), t(q), 16, engine=engine, **kw)
+    assert torch.equal(got, tk.knn(t(s), t(q), 16, engine=engine))
+    with interpret():
+        want = np.asarray(jk.knn(jnp.asarray(s), jnp.asarray(q), 16,
+                                 engine=engine, **kw))
+    assert_near_ties(q[0], s[0], got[0].numpy(), want[0],
+                     rel=EXACT_TIE_REL, max_frac=1e-3)
 
 
 # ----------------------------------------------------------- pyramids ---
@@ -332,7 +354,7 @@ def test_window_og_pyramid_follows_curve(monkeypatch):
 def test_exact_engine_pyramids_match_jax(engine):
     """The generic pyramid: "pallas" (knn_pallas in interpret mode against
     K6's plain version, equal) and "approx" (JAX's approx_min_k, exact on
-    the CPU, against the port's exact knn_xla)."""
+    the CPU, against the port's K6, whose plain version runs here)."""
     cfg = small_cfg(num_points=1024)
     xyz = _cloud(16, 1024, b=2, scale=4.0)
     with interpret():
