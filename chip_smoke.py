@@ -30,9 +30,14 @@ round-1 training on the PossibilityDevicePool with evaluation, a
 full-SSDR selection round (K3) and round-2 training on the pool; one
 SemanticKITTI train step and eval step at its width ([6 × 45056], 4
 layers); and the median of 20 warm steps of the host-pipeline and pooled
-S3DIS steps and the possibility-pooled Semantic3D step
-(ssdr_al_torch/train/step_times.py). Then --compute_dtype bfloat16:
-K2's bf16-output and K4's bf16-cotangent instantiations at every K2 call
+S3DIS steps, the possibility-pooled Semantic3D step and the bf16 pooled
+step, each eager and as CUDA-graph replays in turns, with the
+device-busy share, launches and capture cost
+(ssdr_al_torch/train/step_times.py).
+Every training round of the loops runs its steps as one captured
+program (Trainer.train_round: 3 eager steps, then replays of one CUDA
+graph, train/graphs.py), its K1, K2 and K4 launches counted per
+replay. Then --compute_dtype bfloat16: K2's bf16-output and K4's bf16-cotangent instantiations at every K2 call
 of a bf16 forward [8 × 40960] and every K4 call of a bf16 train step
 [6 × 40960], bitwise against their plain versions; from round 1's f32
 snap-1, a bf16 training round on the device pool, bf16 and f32 eval steps
@@ -54,7 +59,11 @@ with its leaky-ReLU slopes and max-pool picks replayed
 (train/grad_check.py::reference_step). After the warm steps: the repeat
 phase (two identical train steps from one state and one batch on the
 host, device-pool and possibility-pool paths, bitwise equal:
-train/repeat_check.py), one warm train step under
+train/repeat_check.py), the replay phase (20 CUDA-graph replays
+against 20 eager steps from one state on each path, bitwise equal, the
+last replay's device trace holding K1's, K2's and K4's kernels as often
+as the replay's launch counts say: repeat_check.replay_paths), one warm
+train step under
 utils/logging.py::device_trace (its Chrome trace under build/ must name
 K2's and K4's kernels), and the sampler ablation twin
 (ssdr_al_torch/scripts/ablation.py) at ABLATION.md's headline setting cut
@@ -741,47 +750,45 @@ def train_round(trainer, round_num, clouds, val, pseudo, seed, pool=None):
     """Trainer.train_round with evaluation, on the host pipeline or on
     `pool` (a DeviceTrainPool or PossibilityDevicePool, its planes and
     streams set for the round here); returns the host pipeline and the
-    round's wall clock after checking every step's loss (device scalars)."""
+    round's wall clock after checking every step's loss (device scalars,
+    trainer.round_losses) and that the steps after the warm-up were
+    replays of one captured step (trainer.graph_stats)."""
     from ssdr_al_torch.data.dataset import TrainingPipeline
     from ssdr_al_torch.train.evaluator import Evaluator
+    from ssdr_al_torch.train.graphs import GRAPH_WARMUP
     from ssdr_al_torch.train.possibility_pool import PossibilityDevicePool
 
     cfg = trainer.cfg
     pipe = TrainingPipeline(clouds, cfg, pseudo_gt=pseudo, seed=seed)
-    attr = ("train_step" if pool is None else "possibility_step"
-            if isinstance(pool, PossibilityDevicePool) else "pooled_step")
+    kind = ("host pipeline" if pool is None else "possibility pool"
+            if isinstance(pool, PossibilityDevicePool) else "device pool")
     if pool is not None:
         pool.update_pseudo_gt(pseudo)
         pool.reseed(seed)
         if isinstance(pool, PossibilityDevicePool):
             pool.reset_possibility(seed)
-    losses, step = [], getattr(trainer, attr)
-
-    def recording(*args):
-        out = step(*args)
-        losses.append(out[-1]["loss"])
-        return out
-
-    setattr(trainer, attr, recording)
     t0 = time.perf_counter()
-    try:
-        miou, oa = trainer.train_round(
-            round_num, lambda epoch: pipe.batches(cfg.train_steps,
-                                                  cfg.batch_size),
-            Evaluator(cfg, val, max_epochs=1), device_pool=pool)
-    finally:
-        setattr(trainer, attr, step)
+    miou, oa = trainer.train_round(
+        round_num, lambda epoch: pipe.batches(cfg.train_steps,
+                                              cfg.batch_size),
+        Evaluator(cfg, val, max_epochs=1), device_pool=pool)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    engine = f"{trainer.knn_engine}, {attr}"
-    loss = torch.stack(losses).cpu()
-    if len(losses) != cfg.max_epoch * cfg.train_steps or \
-            not torch.isfinite(loss).all():
+    steps = cfg.max_epoch * cfg.train_steps
+    loss = torch.stack(trainer.round_losses).cpu()
+    if len(loss) != steps or not torch.isfinite(loss).all():
         raise AssertionError(f"round {round_num}: losses {loss.tolist()}")
+    g = trainer.graph_stats
+    if g["eager_steps"] != GRAPH_WARMUP or \
+            g["replays"] != steps - GRAPH_WARMUP:
+        raise AssertionError(f"round {round_num}: not replayed: {g}")
     if not os.path.exists(trainer.snapshot_path(round_num)):
         raise AssertionError(f"round {round_num}: no snap-{round_num}")
-    print(f"round {round_num} training ({engine}): {len(losses)} steps of "
-          f"[{cfg.batch_size}x{cfg.num_points}], {wall:.3f} s wall with "
+    print(f"round {round_num} training ({trainer.knn_engine}, {kind}): "
+          f"{steps} steps of [{cfg.batch_size}x{cfg.num_points}], "
+          f"{g['eager_steps']} eager and {g['replays']} replays of one "
+          f"captured step (capture {g['capture_s']:.3f} s, graph pool "
+          f"{g['capture_bytes'] / 2**30:.2f} GiB), {wall:.3f} s wall with "
           f"evaluation, loss {loss[0]:.4f} -> {loss[-1]:.4f}, best mIoU "
           f"{miou:.4f} OA {oa:.4f}, snap-{round_num} written")
     return pipe, wall
@@ -1556,14 +1563,27 @@ def semantickitti_steps(dev, work, rooms):
 
 
 def warm_steps(dev, work):
-    """The median of 20 warm steps per training path
-    (step_times.measure)."""
+    """The median of 20 warm steps per training path, the eager step and
+    its CUDA graph in turns, with each one's device-busy share (profiled),
+    launches and the graph's capture cost (step_times.measure)."""
     from ssdr_al_torch.train import step_times
 
     res = step_times.measure(dev, work=os.path.join(work, "step_times"))
     print("warm steps " + json.dumps(res))
+    for path, r in res.items():
+        print(f"warm steps {path}: " + ", ".join(
+            f"{mode} median {r[mode]['median_ms']:.3f} ms ("
+            f"{r[mode]['min_ms']:.3f}-{r[mode]['max_ms']:.3f}), busy "
+            f"{100 * r[mode]['busy_share']:.1f} %, "
+            f"{r[mode]['kernels']:.0f} kernels and "
+            f"{r[mode]['host_launches']:.0f} host launches a step"
+            for mode in ("eager", "graph"))
+            + f"; capture {r['graph']['capture_s']:.3f} s, graph pool "
+            f"{r['graph']['capture_bytes'] / 2**30:.2f} GiB, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; a replay's top device ms "
+            + json.dumps({k[:60]: round(v, 3)
+                          for k, v in r["graph"]["top_ms"].items()}))
     return res
-
 
 
 def repeat_phase(dev, work):
@@ -1584,6 +1604,40 @@ def repeat_phase(dev, work):
     if differ or set(res) != {"host", "pool", "possibility"}:
         raise AssertionError(f"two identical train steps differ: {differ}")
     require_launched("repeat_steps", paths["repeat_steps"],
+                     ("window_topk", "gather_window", "scatter_window"))
+    return paths
+
+
+def replay_phase(dev, work):
+    """20 CUDA-graph replays against 20 eager steps, after the warm-up
+    steps, from one state on the host S3DIS step [6 x 40960], the
+    device-pool step and the Semantic3D possibility-pool step [4 x 65536]
+    (train/repeat_check.py::replay_paths): every step's loss, the
+    gradients, BatchNorm statistics, parameters and Adam moments must be
+    bitwise equal; the launches counted from 0, the replays' included.
+    The last replay of each path runs under torch.profiler: its trace
+    must hold K1's, K2's and K4's device kernels (window_topk_kernel,
+    gather_window_kernel, scatter_fill_kernel, scatter_sum_kernel) as
+    often as the counts that each replay adds."""
+    from ssdr_al_torch.train.repeat_check import replay_paths
+
+    t0 = time.perf_counter()
+    reset_counts()
+    res = replay_paths(dev, work=os.path.join(work, "replay"))
+    paths = {"replay_steps": read_counts()}
+    print(f"replay phase {time.perf_counter() - t0:.1f} s; launches "
+          f"replay_steps " + json.dumps(paths["replay_steps"]))
+    differ = {k: r["differing"][:4] for k, r in res.items() if not r["equal"]}
+    if differ or set(res) != {"host", "pool", "possibility"} or any(
+            r["replays"] != 20 for r in res.values()):
+        raise AssertionError(f"graph replays differ from eager steps: "
+                             f"{differ} {res}")
+    untraced = {k: (r["traced"], r["counted"]) for k, r in res.items()
+                if not r["traced_ok"]}
+    if untraced:
+        raise AssertionError(f"a replay's device trace does not hold the "
+                             f"kernels its counts add: {untraced}")
+    require_launched("replay_steps", paths["replay_steps"],
                      ("window_topk", "gather_window", "scatter_window"))
     return paths
 
@@ -1834,6 +1888,7 @@ def main() -> int:
         paths.update(semantic3d_loop(dev, os.path.join(work, "semantic3d")))
         warm_steps(dev, work)
         paths.update(repeat_phase(dev, work))
+        paths.update(replay_phase(dev, work))
         paths.update(trace_phase(dev, root))
         paths.update(ablation_phase(dev, work))
     finally:

@@ -30,16 +30,14 @@ import torch
 from ssdr_al_torch.active.region_graph import RegionGraph, flat_to_blocks
 from ssdr_al_torch.device import DEFAULT_DEVICE, full_f32_matmul, resolve_device
 from ssdr_al_torch.ops.kcenter import kcenter_greedy
+# the fit on the card: GRAPH_WARMUP eager steps (they allocate the
+# gradients and AdamW's state), then a graph of one step replayed
+# (`python3 ssdr_al_torch/train/step_times.py --gcn-fit` times it against
+# graphs of more steps and the eager steps)
+from ssdr_al_torch.train.graphs import GRAPH_WARMUP, capture_steps
 
 NHID = 128  # gcn.py:208
 PARAMS = ("gc1_w", "gc1_b", "gc3_w", "gc3_b", "lin_w", "lin_b")
-# the fit on the card: eager steps on a side stream before the capture
-# (they allocate the gradients and AdamW's state), then a graph of one
-# step replayed. `python3 ssdr_al_torch/train/step_times.py --gcn-fit`
-# times it against graphs of more steps and the eager steps: on an H100
-# at [4, 512-2048, 32] a graph of 10 steps saved at most 12 % a step,
-# graphs of 50 and 250 lost time, the eager steps took 5-10× as long
-GRAPH_WARMUP = 3
 
 
 def _latent_adjacency(ed_cd: torch.Tensor, mask: torch.Tensor,
@@ -146,31 +144,6 @@ def fit_steps(params, adj, vhat, mask, labeled, *, num_steps: int,
     return step, losses
 
 
-def capture_steps(step, n: int, warmup: int,
-                  dropout_gen: Optional[torch.Generator], device):
-    """torch's capture recipe for `step` on the card: `warmup` eager steps
-    on a side stream (they allocate the gradients and the optimiser state
-    that the graph then updates in place), then n steps captured in one
-    CUDA graph, not run; the dropout generator is registered with it, so
-    that each replay draws the next masks of its stream. A failed capture
-    raises."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            step()
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    if dropout_gen is not None:
-        graph.register_generator_state(dropout_gen)
-    # thread_local: another thread's CUDA calls (a pipeline's prefetch) do
-    # not break this capture; this thread's still do
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        for _ in range(n):
-            step()
-    return graph
-
-
 def fit_gcn(params, adj, vhat, mask, labeled, *, num_steps: int,
             lr: float = 1e-3, weight_decay: float = 5e-4, lam: float = 1.2,
             dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -180,7 +153,8 @@ def fit_gcn(params, adj, vhat, mask, labeled, *, num_steps: int,
 
     CPU tensors take a Python loop of the steps. On CUDA tensors the
     first GRAPH_WARMUP steps run eagerly and the rest as replays of one
-    captured step (capture_steps); a capture that fails raises. Each
+    captured step (train/graphs.py::capture_steps); a capture that fails
+    raises. Each
     replay adds one to `fit_gcn.replays`."""
     step, losses = fit_steps(params, adj, vhat, mask, labeled,
                              num_steps=num_steps, lr=lr,
@@ -190,7 +164,9 @@ def fit_gcn(params, adj, vhat, mask, labeled, *, num_steps: int,
         for _ in range(num_steps):
             step()
         return losses
-    graph = capture_steps(step, 1, GRAPH_WARMUP, dropout_gen, adj.device)
+    graph = capture_steps(step, 1, GRAPH_WARMUP,
+                          [dropout_gen] if dropout_gen is not None else [],
+                          adj.device)
     for _ in range(num_steps - GRAPH_WARMUP):
         graph.replay()
         fit_gcn.replays += 1

@@ -116,10 +116,15 @@ cudaError_t launch(const float* values, const int* idx, const int* starts,
                    unsigned magic, cudaStream_t cs) {
   if (slab) {
     const size_t smem = (size_t)window * c * sizeof(float);
-    cudaError_t e = cudaFuncSetAttribute(
-        gather_window_kernel<true, Out, U>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+    // the opt-in only grows: a CUDA graph holds launches of several sizes
+    static size_t opted = 0;
+    if (smem > opted) {
+      cudaError_t e = cudaFuncSetAttribute(
+          gather_window_kernel<true, Out, U>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      opted = smem;
+    }
     gather_window_kernel<true, Out, U><<<grid, threads, smem, cs>>>(
         values, idx, starts, (Out*)out, n, nq, k, c, window, tq, rows, magic);
   } else {

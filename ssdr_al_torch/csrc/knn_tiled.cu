@@ -447,12 +447,15 @@ cudaError_t launch_walk(const float* groups, const int* order,
                         int boxes_in_smem, int self_search, size_t smem,
                         cudaStream_t stream) {
   // the kernel has no static shared memory: a dynamic size above 48 KiB
-  // needs the opt-in
-  if (smem > 48 * 1024) {
+  // needs the opt-in; it only grows: a CUDA graph holds launches of
+  // several sizes
+  static size_t opted = 0;
+  if (smem > 48 * 1024 && smem > opted) {
     cudaError_t e = cudaFuncSetAttribute(
         knn_walk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
+    opted = smem;
   }
   const dim3 grid((nq + kThreads - 1) / kThreads, B);
   knn_walk_kernel<K><<<grid, kThreads, smem, stream>>>(

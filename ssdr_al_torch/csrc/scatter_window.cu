@@ -457,11 +457,15 @@ extern "C" int scatter_window_launch(const void* g, const void* idx,
                ? a.sharedSizeBytes
                : (size_t)48 * 1024;
   }();
-  if (fill_smem > 0 && fill_smem + fill_static > 48 * 1024) {
+  // the opt-in only grows: a CUDA graph holds launches of several sizes
+  static size_t opted = 0;
+  if (fill_smem > 0 && fill_smem + fill_static > 48 * 1024 &&
+      fill_smem > opted) {
     e = cudaFuncSetAttribute(scatter_fill_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)fill_smem);
     if (e != cudaSuccess) return (int)e;
+    opted = fill_smem;
   }
   scatter_fill_kernel<<<dim3(nq / tq, B), FILL_THREADS, fill_smem, s>>>(
       (const int*)idx, (const int*)starts, cnt, (int*)bins, (int2*)ovf, ovf_n,

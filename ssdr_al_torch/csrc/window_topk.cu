@@ -379,12 +379,15 @@ cudaError_t launch_k(const float* support, const float* queries,
   const int wpad = (window + 4 * split - 1) / (4 * split) * (4 * split);
   static_assert(K == 1 || K <= kBuf, "the merge stages a list in the buffer");
   // the kernel has no static shared memory, so only a dynamic size above
-  // 48 KiB needs the opt-in
-  if (smem > 48 * 1024) {
+  // 48 KiB needs the opt-in; it only grows: a CUDA graph holds launches of
+  // several sizes
+  static size_t opted = 0;
+  if (smem > 48 * 1024 && smem > opted) {
     cudaError_t e = cudaFuncSetAttribute(
         window_topk_kernel<K, CENTERED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
+    opted = smem;
   }
   const int parts = (tq + qpc - 1) / qpc;
   const dim3 grid((nq / tq) * parts, B);

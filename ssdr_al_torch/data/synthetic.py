@@ -154,6 +154,11 @@ def make_dataset(num_train=4, num_val=1, num_points=20000, seed=0,
     return train, val
 
 
+def synth_class_weights() -> np.ndarray:
+    """Flat inverse-frequency weights for the synthetic label space."""
+    return np.ones(NUM_SYNTH_CLASSES, np.float32)
+
+
 def grid_superpoints(xyz, target_sp: int = 256):
     """O(N) voxel partition sized by bisection on the voxel edge to land
     near `target_sp` occupied voxels. Returns (components, in_component),

@@ -1,6 +1,9 @@
 """The launch counts of the port's kernels: each wrapper adds one to its
 count where it launches its kernel (CUDA tensors only), so a run can show
-that its path went through the kernels."""
+that its path went through the kernels. A CUDA graph's capture calls the
+wrappers but launches nothing; train/graphs.py takes those counts back
+after the capture and adds them again at every replay (`since`, `add`),
+so that the counts stay the kernels' real launches."""
 
 from __future__ import annotations
 
@@ -32,3 +35,16 @@ def reset():
 def read() -> Dict[str, int]:
     return {name: getattr(fn, attr)
             for name, (fn, attr) in counters().items()}
+
+
+def since(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches counted since `before` (a read())."""
+    now = read()
+    return {name: now[name] - before.get(name, 0) for name in now}
+
+
+def add(launches: Dict[str, int], times: int = 1):
+    """Add `times` × launches to the counts (negative: take them back)."""
+    for name, (fn, attr) in counters().items():
+        if launches.get(name):
+            setattr(fn, attr, getattr(fn, attr) + times * launches[name])

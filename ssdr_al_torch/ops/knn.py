@@ -849,16 +849,15 @@ def knn_window(support: torch.Tensor, query: torch.Tensor, k: int, *,
     (_window_xla: tiles of at least 512 queries, unaligned windows, any
     k); "auto" is "pallas" on every device (JAX's auto takes "xla" off
     the TPU). CPU tensors take K1's and K6's plain versions, CUDA tensors
-    launch the kernels. probes=2 adds a search on the grid shifted by
-    PROBE_SHIFT and merges both by exact d² (merge_probes: no id twice in
-    a row). curve: a key of CURVES, default "morton"."""
+    launch the kernels. probes other than 1 (JAX's test is probes == 1)
+    add a search on the grid shifted by PROBE_SHIFT and merge both by
+    exact d² (merge_probes: no id twice in a row). curve: a key of CURVES,
+    default "morton"."""
     b, ns, _ = support.shape
     nq = query.shape[1]
     if query.shape[0] != b or support.shape[-1] != 3 or query.shape[-1] != 3:
         raise ValueError(f"knn_window: bad shapes {tuple(support.shape)} "
                          f"{tuple(query.shape)}")
-    if probes not in (1, 2):
-        raise ValueError(f"knn_window: probes={probes}, not 1 or 2")
     if ns <= window or ns < 2 * k:
         return knn_approx(support, query, k)
     if impl == "auto":
@@ -880,7 +879,7 @@ def knn_window(support: torch.Tensor, query: torch.Tensor, k: int, *,
     hi = torch.maximum(support.amax(1, keepdim=True),
                        query.amax(1, keepdim=True))
     outs = []
-    for shift in (0, PROBE_SHIFT)[:probes]:
+    for shift in (0,) if probes == 1 else (0, PROBE_SHIFT):
         sup = sort_cloud(support, lo, hi, curve=curve or "morton",
                          shift=shift)
         qry = sort_cloud(query, lo, hi, pad_to=1, curve=curve or "morton",

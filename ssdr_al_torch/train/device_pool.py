@@ -234,16 +234,23 @@ class DeviceTrainPool:
     def device_args(self):
         return self.xyz, self.planes, self.offsets, self.n
 
-    def extract(self, cloud_ids, picks, group=None):
-        """extract_blocks of host ids [B] and picks [B, 3], uploaded here
-        (the only upload of a pooled step); each block reads as many rows
-        as the batch's largest cloud has. With a data-parallel group,
-        this rank's rows of the global batch's blocks."""
-        cloud_ids = np.asarray(cloud_ids)
-        window = max(int(self.sizes[cloud_ids].max()), self.cfg.num_points)
+    def extract(self, cloud_ids, picks, group=None, window=None):
+        """extract_blocks of ids [B] and picks [B, 3]: host arrays,
+        uploaded here (the only upload of a pooled step), or tensors on
+        the pool's device. window: the rows a block reads; None reads as
+        many as the batch's largest cloud has (host ids). The trainer's
+        captured step (trainer.make_static_step) passes its static device
+        ids and picks and `self.window`, the pool's largest cloud, for
+        every batch, as JAX's jitted step does: the same blocks, since rows
+        past a cloud's size sort last (d² inf) and the duplicates index
+        below its size. With a data-parallel group, this rank's rows of
+        the global batch's blocks."""
+        if window is None:
+            window = max(int(self.sizes[np.asarray(cloud_ids)].max()),
+                         self.cfg.num_points)
         ids = torch.as_tensor(cloud_ids, dtype=torch.long,
                               device=self.device)
-        picks = torch.as_tensor(np.asarray(picks), dtype=torch.float32,
+        picks = torch.as_tensor(picks, dtype=torch.float32,
                                 device=self.device)
         return extract_blocks(*self.device_args(), ids, picks,
                               self.cfg.num_points, window, self.generator,

@@ -33,22 +33,25 @@ import torch
 
 from ssdr_al_torch.data.cloud import Cloud
 from ssdr_al_torch.device import DEFAULT_DEVICE
-from ssdr_al_torch.ops.segment import segment_min
 from ssdr_al_torch.train.device_pool import (
     DeviceTrainPool,
     _block_payload,
     block_d2,
 )
 
-# the field [T] f32 and each row's cloud id [T] int64
-FIELD_BYTES_PER_POINT = 12
+# the field [T] f32, its static buffer [T] f32 and each row's cloud id
+# [T] int64
+FIELD_BYTES_PER_POINT = 16
 
 
 class PossibilityDevicePool(DeviceTrainPool):
     """DeviceTrainPool plus a possibility field on the card and the class
     frequencies of the training labels. The field is the trainer's state:
     `init_possibility` starts a round, `poss_state` holds it between
-    epochs (the trainer stores it there)."""
+    epochs (the trainer stores a copy there). `field` is the static buffer
+    that the trainer's steps update in place (a captured step reads and
+    writes the same tensor at every replay): the trainer fills it from
+    poss_state, or init_possibility, at a round's start."""
 
     def __init__(self, clouds: List[Cloud], cfg, *,
                  pseudo_gt: Optional[Dict[str, np.ndarray]] = None,
@@ -68,6 +71,7 @@ class PossibilityDevicePool(DeviceTrainPool):
         self.cloud_of_row = torch.repeat_interleave(
             torch.arange(len(clouds), device=self.device), self.n)
         self.reset_possibility(seed)
+        self.field = torch.empty_like(self.init_possibility)
 
     def footprint(self, total_points: int) -> int:
         return super().footprint(total_points) + \
@@ -109,8 +113,11 @@ def possibility_extract(xyz, planes, offsets, n, cloud_of_row, class_weight,
     iota = torch.arange(window, device=dev)
     pos = torch.arange(num_points, device=dev)
     # each cloud's least value, kept up to date below (the per-step
-    # segment min of the JAX scan, without a pass over the whole field)
-    cloud_min = segment_min(poss, cloud_of_row, c)
+    # segment min of the JAX scan, without a pass over the whole field);
+    # every row's cloud id is in range, so no mask (a masked select would
+    # sync with the host)
+    cloud_min = torch.full((c,), torch.inf, device=dev).scatter_reduce_(
+        0, cloud_of_row, poss, "amin")
     poss = poss.clone()
     jitter = torch.randn((batch_size, 3), generator=generator,
                          device=dev) * noise_sigma

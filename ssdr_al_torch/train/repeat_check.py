@@ -1,6 +1,7 @@
 """Two identical train steps from one state and one batch, compared bit
-for bit, on each training path; optionally the backward kernels that
-scatter or use atomics.
+for bit, on each training path; then, on the card, a round's steps as
+CUDA-graph replays against the same steps run eagerly; optionally the
+backward kernels that scatter or use atomics.
 
     python -m ssdr_al_torch.train.repeat_check [--paths host,pool,possibility]
         [--profile] [--out PATH] [--device cpu]
@@ -18,13 +19,25 @@ generator and the pool's generator are restored, so the two steps are the
 same computation. The loss, every parameter's gradient, every BatchNorm
 statistic and every parameter after the Adam update must be bitwise equal
 (`torch.equal`); the count of tensors that differ and the largest
-difference are reported. `--profile` runs the two host steps under
+difference are reported. The replay check (`replay_paths`, CUDA only):
+GRAPH_WARMUP + 20 steps (20 replays) of the path's static-buffer
+step (trainer.make_static_step) on pre-drawn batches or pool draws, once
+eagerly and once through a StepGraph (train/graphs.py: the warm-up steps
+eager, then one capture replayed), each from the same state with a
+fresh Adam, the generators and the possibility field restored: every
+step's loss and, after the last, the gradients, BatchNorm statistics,
+parameters and Adam moments must be bitwise equal; the learning rate
+decays after the warm-up (steps_per_epoch = GRAPH_WARMUP + 1), so the
+replays cross an epoch boundary; the last replay runs under
+torch.profiler, and its trace must hold K1's, K2's and K4's device
+kernels (TRACED) as often as the graph's launch counts say. `--profile` runs the two host steps under
 torch.profiler and lists every device kernel launched inside the
 backward (under an `autograd::engine::evaluate_function` op) whose name
 holds "atomic" or "scatter", with the backward op that launched it and
 its count. Prints the card's name and power limit and, as its last line,
 the results as JSON (also written to PATH); exits 1 if a path's two
-steps differ. chip_smoke.py runs `repeat_paths`.
+steps or its replays differ, or a replay's trace and counts disagree. chip_smoke.py runs `repeat_paths` and
+`replay_paths`.
 """
 
 from __future__ import annotations
@@ -36,13 +49,24 @@ import sys
 import torch
 
 PATHS = ("host", "pool", "possibility")
+# the device kernels of K1, K2 and K4 that a trace of a replay must hold,
+# each with the launch counts (kernels/counts.py) of its launches: one K1
+# or K2 launch is one kernel, one K4 launch a fill and a sum
+TRACED = {"window_topk_kernel": ("window_topk", "window_topk_mxu"),
+          "gather_window_kernel": ("gather_window", "gather_window_bf16"),
+          "scatter_fill_kernel": ("scatter_window", "scatter_window_bf16"),
+          "scatter_sum_kernel": ("scatter_window", "scatter_window_bf16")}
 S3DIS_ROOMS, S3DIS_ROOM_POINTS = 4, 150_000
 S3D_CLOUDS, S3D_CLOUD_POINTS = 3, 300_000
 
 
-def _snapshot(trainer, metrics) -> dict:
+def _snapshot(trainer, loss) -> dict:
     model = trainer.model
-    return {"loss": metrics["loss"].detach().clone(),
+    opt = trainer.train_state.optimizer
+    return {"loss": loss.detach().clone(),
+            "adam": {f"{k}.{m}": opt.state[p][m].detach().clone()
+                     for k, p in model.named_parameters() if p in opt.state
+                     for m in ("exp_avg", "exp_avg_sq")},
             "grad": {k: p.grad.detach().clone()
                      for k, p in model.named_parameters()
                      if p.grad is not None},
@@ -52,37 +76,48 @@ def _snapshot(trainer, metrics) -> dict:
                        for k, p in model.named_parameters()}}
 
 
-def repeat_step(trainer, step, generators=()) -> dict:
-    """step(train_state) → metrics, run twice from the trainer's present
-    state with its Adam reset and the dropout generator and `generators`
-    restored before each; {"equal", "differing", "max_abs_diff",
-    "tensors", "loss"}."""
+def compare_runs(trainer, runs, generators=(), restore=None) -> dict:
+    """run(train_state) → loss for each of `runs`, each from the trainer's
+    present state with its Adam reset, the dropout generator and
+    `generators` restored, and restore() called, before it; every run
+    against the first: {"equal", "differing", "n_differing", "tensors",
+    "max_abs_diff", "loss"} over the loss, the gradients, the BatchNorm
+    statistics, the parameters and Adam's moments after the run."""
     from ssdr_al_torch.train.trainer import reset_optimizer
 
     state0 = {k: v.detach().clone()
               for k, v in trainer.model.state_dict().items()}
     gens = (trainer.dropout_gen,) + tuple(generators)
     gen0 = [g.get_state() for g in gens]
-    runs = []
-    for _ in range(2):
+    snaps = []
+    for run in runs:
         trainer.model.load_state_dict(state0)
         trainer.train_state = reset_optimizer(trainer.train_state,
                                               trainer.cfg,
                                               trainer.steps_per_epoch)
         for g, s in zip(gens, gen0):
             g.set_state(s)
-        runs.append(_snapshot(trainer, step(trainer.train_state)))
+        if restore is not None:
+            restore()
+        snaps.append(_snapshot(trainer, run(trainer.train_state)))
     trainer.model.load_state_dict(state0)
-    a, b = runs
-    pairs = [("loss", a["loss"], b["loss"])] + [
-        (f"{kind}:{k}", a[kind][k], b[kind][k])
-        for kind in ("grad", "bn", "params") for k in a[kind]]
+    a = snaps[0]
+    pairs = [("loss", a["loss"], b["loss"]) for b in snaps[1:]] + [
+        (f"{kind}:{k}", a[kind][k], b[kind][k]) for b in snaps[1:]
+        for kind in ("grad", "bn", "params", "adam") for k in a[kind]]
     differing = [name for name, x, y in pairs if not torch.equal(x, y)]
     worst = max((float((x.double() - y.double()).abs().max())
                  for _, x, y in pairs), default=0.0)
     return {"equal": not differing, "differing": differing[:20],
             "n_differing": len(differing), "tensors": len(pairs),
-            "max_abs_diff": worst, "loss": float(a["loss"])}
+            "max_abs_diff": worst, "loss": float(a["loss"].reshape(-1)[-1])}
+
+
+def repeat_step(trainer, step, generators=()) -> dict:
+    """step(train_state) → metrics, run twice from the trainer's present
+    state (compare_runs)."""
+    return compare_runs(trainer, [lambda ts: step(ts)["loss"]] * 2,
+                        generators)
 
 
 def _trainer(cfg, dev, name, work):
@@ -93,13 +128,13 @@ def _trainer(cfg, dev, name, work):
     return trainer
 
 
-def path_steps(dev, paths=PATHS, work="build/repeat_check", s3dis=None,
-               semantic3d=None):
-    """{path: (trainer, step(train_state) → metrics, generators)} of the
-    paths asked for. s3dis / semantic3d: (cfg, clouds) to use in place of
-    the module's full-width workloads (tests pass small ones)."""
+def path_setups(dev, paths=PATHS, work="build/repeat_check", s3dis=None,
+                semantic3d=None):
+    """{path: (trainer, pool or None, rooms)} of the paths asked for: a
+    fresh Trainer each, the pool of the pooled paths. s3dis / semantic3d:
+    (cfg, clouds) to use in place of the module's full-width workloads
+    (tests pass small ones)."""
     from ssdr_al_torch import config
-    from ssdr_al_torch.data.dataset import TrainingPipeline
     from ssdr_al_torch.data.synthetic import make_dataset
     from ssdr_al_torch.train.device_pool import DeviceTrainPool
     from ssdr_al_torch.train.possibility_pool import PossibilityDevicePool
@@ -111,18 +146,12 @@ def path_steps(dev, paths=PATHS, work="build/repeat_check", s3dis=None,
             seed=0, hard=True)[0])
         trainer = _trainer(cfg, dev, "S3DIS", work)
         if "host" in paths:
-            batch = TrainingPipeline(rooms, cfg, seed=1).sample_batch(
-                cfg.batch_size)
-            out["host"] = (trainer, lambda ts, t=trainer, b=batch:
-                           t.train_step(ts, b, t.dropout_gen)[1], ())
+            out["host"] = (trainer, None, rooms)
         if "pool" in paths:
             pool = DeviceTrainPool(rooms, cfg, seed=1, device=dev)
             if not pool.available:
                 raise AssertionError("the S3DIS pool is over its memory gate")
-            ids, picks = pool.sample_indices(cfg.batch_size)
-            out["pool"] = (trainer, lambda ts, t=trainer, p=pool:
-                           t.pooled_step(ts, p, ids, picks,
-                                         t.dropout_gen)[1], (pool.generator,))
+            out["pool"] = (trainer, pool, rooms)
     if "possibility" in paths:
         cfg3, clouds = semantic3d or (config.ConfigSemantic3D, make_dataset(
             num_train=S3D_CLOUDS, num_val=0, num_points=S3D_CLOUD_POINTS,
@@ -131,11 +160,146 @@ def path_steps(dev, paths=PATHS, work="build/repeat_check", s3dis=None,
         pool = PossibilityDevicePool(clouds, cfg3, seed=1, device=dev)
         if not pool.available:
             raise AssertionError("the Semantic3D pool is over its memory gate")
-        poss = pool.init_possibility
-        out["possibility"] = (trainer, lambda ts, t=trainer, p=pool:
-                              t.possibility_step(ts, p, poss,
-                                                 t.dropout_gen)[2],
-                              (pool.generator,))
+        out["possibility"] = (trainer, pool, clouds)
+    return out
+
+
+def _draws(path, trainer, pool, rooms, n):
+    """n steps' host inputs of `path`: host batches, the pool's draws, or
+    Nones."""
+    from ssdr_al_torch.data.dataset import TrainingPipeline
+    from ssdr_al_torch.train.trainer import POOL_INPUTS
+
+    b = trainer.cfg.batch_size
+    if path == "host":
+        pipe = TrainingPipeline(rooms, trainer.cfg, seed=1)
+        return [pipe.sample_batch(b) for _ in range(n)]
+    if path == "pool":
+        return [dict(zip(POOL_INPUTS, pool.sample_indices(b)))
+                for _ in range(n)]
+    return [None] * n
+
+
+def path_steps(dev, paths=PATHS, **kw):
+    """{path: (trainer, step(train_state) → metrics, generators)}: the
+    path's eager step on one batch or one pool draw (path_setups)."""
+    out = {}
+    for path, (trainer, pool, rooms) in path_setups(dev, paths, **kw).items():
+        d = _draws(path, trainer, pool, rooms, 1)[0]
+        if path == "host":
+            out[path] = (trainer, lambda ts, t=trainer, b=d:
+                         t.train_step(ts, b, t.dropout_gen)[1], ())
+        elif path == "pool":
+            out[path] = (trainer, lambda ts, t=trainer, p=pool, d=d:
+                         t.pooled_step(ts, p, d["cloud_ids"], d["picks"],
+                                       t.dropout_gen)[1], (pool.generator,))
+        else:
+            out[path] = (trainer, lambda ts, t=trainer, p=pool:
+                         t.possibility_step(ts, p, p.init_possibility,
+                                            t.dropout_gen)[2],
+                         (pool.generator,))
+    return out
+
+
+def traced_kernels(fn) -> dict:
+    """{kernel: device launches} of TRACED's kernels in a torch.profiler
+    trace of fn() on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = dict.fromkeys(TRACED, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in TRACED:
+                found[name] += name in e.name
+    return found
+
+
+def counted_kernels(launches: dict) -> dict:
+    """{kernel of TRACED: the device launches that `launches` (kernel
+    launch counts) stand for}."""
+    return {name: sum(launches.get(k, 0) for k in keys)
+            for name, keys in TRACED.items()}
+
+
+def replay_check(trainer, path, pool, draws) -> dict:
+    """len(draws) steps of the path's static-buffer step from the
+    trainer's present state, eagerly and through a StepGraph
+    (GRAPH_WARMUP eager steps, then replays of one capture), compared by
+    compare_runs with every step's loss; adds the graph's stats(), and
+    the last replay's trace: "traced" (traced_kernels), "counted" (what
+    the graph's launch counts stand for, counted_kernels) and "traced_ok"
+    (the two equal, each kernel launched)."""
+    from ssdr_al_torch.train.graphs import GRAPH_WARMUP, StepGraph
+    from ssdr_al_torch.train.trainer import make_static_step, set_lr
+
+    # the rate decays after the warm-up: the replays cross an epoch
+    trainer.steps_per_epoch = GRAPH_WARMUP + 1
+    inputs, step = make_static_step(trainer.model, trainer.cfg,
+                                    trainer.weights,
+                                    trainer.knn_engine, path, pool=pool,
+                                    device=trainer.device)
+    gens = () if pool is None else (pool.generator,)
+    graphs, traced = [], {}
+
+    def run(ts, graphed):
+        fn = lambda: step(ts, trainer.dropout_gen)      # noqa: E731
+        if graphed:
+            fn = StepGraph(fn, (trainer.dropout_gen,) + gens, trainer.device)
+            graphs.append(fn)
+        losses = []
+
+        def one():
+            losses.append(fn()["loss"].clone())
+
+        for i, d in enumerate(draws):
+            if inputs is not None:
+                inputs.stage(d)
+            set_lr(ts)
+            if graphed and i == len(draws) - 1:
+                traced.update(traced_kernels(one))
+            else:
+                one()
+            ts.step += 1
+        return torch.stack(losses)
+
+    def restore():
+        if path == "possibility":
+            pool.field.copy_(pool.init_possibility)
+
+    res = compare_runs(trainer, [lambda ts: run(ts, False),
+                                 lambda ts: run(ts, True)], gens, restore)
+    res.update(graphs[0].stats(), steps=len(draws), traced=traced)
+    res["counted"] = counted_kernels(res["launches"])
+    res["traced_ok"] = traced == res["counted"] and all(traced.values())
+    trainer.steps_per_epoch = trainer.cfg.train_steps
+    return res
+
+
+def replay_paths(dev, paths=PATHS, replays=20, log=print, **kw) -> dict:
+    """replay_check on each path of path_setups with GRAPH_WARMUP +
+    `replays` steps; {path: result}."""
+    from ssdr_al_torch.train.graphs import GRAPH_WARMUP
+
+    out = {}
+    for path, (trainer, pool, rooms) in path_setups(dev, paths, **kw).items():
+        draws = _draws(path, trainer, pool, rooms, GRAPH_WARMUP + replays)
+        r = out[path] = replay_check(trainer, path, pool, draws)
+        log(f"replays {path} [{trainer.cfg.batch_size}x"
+            f"{trainer.cfg.num_points}]: {r['replays']} replays after "
+            f"{r['eager_steps']} eager steps "
+            + ("bitwise equal to the eager steps" if r["equal"] else
+               f"DIFFER from the eager steps in {r['n_differing']} of "
+               f"{r['tensors']} tensors (largest difference "
+               f"{r['max_abs_diff']:.3e}; {r['differing'][:6]})")
+            + f", capture {r['capture_s']:.3f} s, graph pool "
+            f"{r['capture_bytes'] / 2**30:.2f} GiB, launches a replay "
+            f"{r['launches']}; the last replay's trace "
+            + ("holds" if r["traced_ok"] else "DOES NOT hold")
+            + f" them: {r['traced']}")
     return out
 
 
@@ -214,7 +378,10 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip())
-    out = {"paths": repeat_paths(dev, tuple(a.paths.split(",")))}
+    paths = tuple(a.paths.split(","))
+    out = {"paths": repeat_paths(dev, paths)}
+    if dev.type == "cuda":
+        out["replays"] = replay_paths(dev, paths)
     if a.profile:
         out["backward_kernels"] = profile_host(dev)
     line = json.dumps(out)
@@ -223,7 +390,9 @@ def main() -> int:
         with open(a.out, "w") as f:
             f.write(line + "\n")
     print(line)
-    return 0 if all(r["equal"] for r in out["paths"].values()) else 1
+    return 0 if all(r["equal"] and r.get("traced_ok", True)
+                    for group in ("paths", "replays")
+                    for r in out.get(group, {}).values()) else 1
 
 
 if __name__ == "__main__":

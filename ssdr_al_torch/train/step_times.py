@@ -1,28 +1,47 @@
-"""Median wall time of warm train steps on the card, per training path.
+"""Median wall time of warm train steps on the card, per training path,
+eager against CUDA-graph replays.
 
     python3 ssdr_al_torch/train/step_times.py [--tree DIR] [--out PATH]
-        [--extract-sweep | --eval-steps | --dtype bfloat16 | --gcn-fit]
+        [--extract-sweep | --eval-steps | --dtype bfloat16 | --gcn-fit |
+         --eager]
 
 Paths, each on a fresh Trainer (`window` engine, random weights) over
 synthetic rooms (seed 0):
-- host: Trainer.train_step at ConfigS3DIS width [6 × 40960] on batches the
-  host TrainingPipeline sampled beforehand; the step's upload counts.
+- host: ConfigS3DIS width [6 × 40960] on 8 batches the host
+  TrainingPipeline sampled beforehand, cycled; the step's upload counts.
 - pool: the same width on a DeviceTrainPool: the host's draw of cloud ids
   and picks, their upload, extraction on the card and the step.
 - possibility: ConfigSemantic3D width [4 × 65536] on a
   PossibilityDevicePool, the field threaded through the steps.
-Each step is timed by the host clock from its call to the
-torch.cuda.synchronize() after it, 3 warm-up steps first; the median and
-the range of 20 steps. The extraction alone (extract_blocks,
-possibility_extract) and the sort inside it (torch.sort of the largest
-cloud's d²) are timed by CUDA events. For each path the K4 launches a
-step (each allocates three scratch tensors: counts, bins and the overflow
-list) and the caching allocator's device allocations (cudaMalloc) during
-the timed steps are counted.
+- pool_bf16: the pool path with --compute_dtype bfloat16.
+Each path's eager step (Trainer.train_step, pooled_step,
+possibility_step) and its graph step (trainer.make_static_step replayed
+by a train/graphs.py::StepGraph, its warm-up steps and capture run
+first, untimed) are timed in turns of 5 (in_turns): each step by the
+host clock from its call to the torch.cuda.synchronize() after it, 3
+warm-up steps first; the median and the range of 20 steps. For each
+mode: the device-busy share of a step under torch.profiler (busy_share:
+the union of its kernels' intervals over the profiled wall, 3 steps),
+the device kernels and the host's launch calls a step, the six kernel
+names of most device time; the graph's
+capture time, its pool's bytes and its kernels' launches a replay; for
+the path, the K4 launches a step, the caching allocator's device
+allocations (cudaMalloc) during the timed steps and the peak device
+memory. The extraction alone (extract_blocks at the batch's and at the
+pool's static window, possibility_extract) and the sort inside it
+(torch.sort of the largest cloud's d²) are timed by CUDA events.
+Then one pooled round ([6 × 40960], 2 epochs × 25 steps, no
+evaluation) through Trainer.train_round with the graphs and eagerly
+(eager_round), in turns, its wall-clock and peak memory (round_walls).
 
 `--tree DIR` measures the ssdr_al_torch package under DIR (for example a
-`git archive` of another commit); a tree without the pools measures the
-host path only. `--extract-sweep` measures only the extraction at
+`git archive` of another commit); a tree without the graphs measures the
+eager steps only. `--eager` measures only each path's eager step, and,
+where the trainer's Adam is capturable, the same step on Adam's plain
+form (a float rate) in turns with it, each with its busy share; then the
+data-parallel step [6 × 40960] on one rank and on two gloo ranks sharing
+the card (dp_step_times). Run it on two trees in alternate processes to
+compare their eager and dp steps. `--extract-sweep` measures only the extraction at
 ConfigSemantic3D width (B=4 blocks of 65536 points) on one synthetic
 cloud of each size in EXTRACT_SWEEP_POINTS (uniform in 200 × 200 × 20 m,
 made on the card): extract_blocks and possibility_extract by CUDA events,
@@ -50,7 +69,7 @@ synchronize, as fit_gcn runs them (one captured step replayed), as
 graphs of GCN_GRAPH_SIZES steps, and eagerly (fit_steps' step in a
 loop), each twice in turns. Prints one line per path and, as its
 last line, the results as JSON (also written to PATH). chip_smoke.py runs
-`measure` and `dtype_steps`.
+`measure` and `in_turns`.
 """
 
 from __future__ import annotations
@@ -124,20 +143,6 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _counted(run, dev, steps):
-    """run() of `steps` steps, with its K4 launches a step and the
-    cudaMalloc calls it made."""
-    from ssdr_al_torch.ops import gather as ga
-
-    k4 = ga.scatter_window.launches
-    segs = torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
-    out = run()
-    out["k4_launches_per_step"] = (ga.scatter_window.launches - k4) / steps
-    out["cuda_mallocs"] = torch.cuda.memory_stats(dev).get(
-        "segment.all.allocated", 0) - segs
-    return out
-
-
 def _trainer(cfg, dev, name, work):
     from ssdr_al_torch.train.trainer import Trainer
 
@@ -146,81 +151,328 @@ def _trainer(cfg, dev, name, work):
     return trainer
 
 
-def measure(dev, steps=20, warmup=3, work="build/step_times", log=print):
-    """The warm-step medians of every path the tree has (module
-    docstring); returns {path: {...}}."""
+def busy_share(fn, reps=3):
+    """fn() `reps` times under torch.profiler (CPU and CUDA), each to a
+    synchronize: {wall_ms a call profiled, busy_ms (the union of the
+    device kernels' intervals) a call, busy_share, kernels (device
+    kernels a call), host_launches (kernel and graph launch calls from the
+    host a call), top_ms (the 6 kernel names of most device ms a call,
+    names cut to 90 characters)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    spans, launches, by_name = [], 0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            name = e.name[:90]
+            by_name[name] = by_name.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                        "cudaLaunchKernelExC", "cuLaunchKernelEx",
+                        "cudaGraphLaunch"):
+            launches += 1
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms = busy / 1e3 / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_ms=1e3 * wall, busy_ms=busy_ms,
+                busy_share=busy_ms / (1e3 * wall), kernels=len(spans) / reps,
+                host_launches=launches / reps, top_ms=dict(top))
+
+
+WARM_PATHS = ("host", "pool", "possibility", "pool_bf16")
+
+
+def _path_steps(path, dev, work, rooms, clouds, steps, warmup, graph=True):
+    """(label, trainer, pool, eager, {"eager": step(i), "graph": step(i)
+    or absent}, graph) of a warm-step path: eager(train_state) → step(i)
+    is the path's eager step (Trainer.train_step / pooled_step /
+    possibility_step) on a train state, "eager" it on the trainer's; the
+    graph step the path's make_static_step through a StepGraph, captured
+    here (its warm-up and capture untimed), unless graph=False."""
     import dataclasses
 
     from ssdr_al_torch import config
     from ssdr_al_torch.data.dataset import TrainingPipeline
-    from ssdr_al_torch.data.synthetic import make_dataset
+    from ssdr_al_torch.train import device_pool as dp
+    from ssdr_al_torch.train import possibility_pool as pp
 
+    kind = "pool" if path == "pool_bf16" else path
+    base = config.ConfigSemantic3D if kind == "possibility" \
+        else config.ConfigS3DIS
+    cfg = dataclasses.replace(base, train_steps=steps, compute_dtype=(
+        "bfloat16" if path == "pool_bf16" else "float32"))
+    trainer = _trainer(cfg, dev, "Semantic3D" if kind == "possibility"
+                       else "S3DIS", work)
+    ts, b = trainer.train_state, cfg.batch_size
+    pool = None
+    if kind == "host":
+        pipe = TrainingPipeline(rooms, cfg, seed=1)
+        batches = [pipe.sample_batch(b) for _ in range(8)]
+
+        def draw(i):
+            return batches[i % len(batches)]
+
+        def eager(st):
+            return lambda i: trainer.train_step(st, draw(i),
+                                                trainer.dropout_gen)
+    elif kind == "pool":
+        pool = dp.DeviceTrainPool(rooms, cfg, seed=1, device=dev)
+        if not pool.available:
+            raise AssertionError("the S3DIS pool is over its memory gate")
+
+        def draw(i):
+            return dict(zip(("cloud_ids", "picks"), pool.sample_indices(b)))
+
+        def eager(st):
+            return lambda i: trainer.pooled_step(
+                st, pool, *draw(i).values(), trainer.dropout_gen)
+    else:
+        pool = pp.PossibilityDevicePool(clouds, cfg, seed=1, device=dev)
+        if not pool.available:
+            raise AssertionError("the Semantic3D pool is over its memory "
+                                 "gate")
+        field = {"poss": pool.init_possibility}
+        draw = None
+
+        def eager(st):
+            def poss_step(i):
+                _, field["poss"], _ = trainer.possibility_step(
+                    st, pool, field["poss"], trainer.dropout_gen)
+            return poss_step
+
+    fns = {"eager": eager(ts)}
+    label = f"[{b}x{cfg.num_points}] {cfg.compute_dtype}"
+    try:
+        from ssdr_al_torch.train.graphs import GRAPH_WARMUP, StepGraph
+        from ssdr_al_torch.train.trainer import make_static_step, set_lr
+    except ImportError:
+        graph = False                           # a tree without graphs
+    if not graph:
+        return label, trainer, pool, eager, fns, None
+    inputs, step = make_static_step(trainer.model, cfg, trainer.weights,
+                                    "window", kind, pool=pool, device=dev)
+    graph = StepGraph(lambda: step(ts, trainer.dropout_gen),
+                      [trainer.dropout_gen] + ([] if pool is None
+                                               else [pool.generator]), dev)
+    if kind == "possibility":
+        pool.field.copy_(pool.init_possibility)
+
+    def graph_step(i):
+        if inputs is not None:
+            inputs.stage(draw(i))
+        set_lr(ts)
+        graph()
+        ts.step += 1
+
+    for i in range(GRAPH_WARMUP + 1):
+        graph_step(i)
+    torch.cuda.synchronize(dev)
+    fns["graph"] = graph_step
+    return label, trainer, pool, eager, fns, graph
+
+
+def measure(dev, steps=20, warmup=3, work="build/step_times", log=print):
+    """The warm-step medians of every path the tree has (module
+    docstring), the eager step and the graph step in turns; returns
+    {path: {...}}."""
+    from ssdr_al_torch.data.synthetic import make_dataset
+    from ssdr_al_torch.ops import gather as ga
+    from ssdr_al_torch.train import device_pool as dp
+    from ssdr_al_torch.train import possibility_pool as pp
+
+    torch.cuda.init()       # the allocator's statistics need it
+    rooms, _ = make_dataset(num_train=S3DIS_ROOMS, num_val=0,
+                            num_points=S3DIS_ROOM_POINTS, seed=0, hard=True)
+    clouds = None
     out = {}
-    cfg = dataclasses.replace(config.ConfigS3DIS, train_steps=steps)
+    for path in WARM_PATHS:
+        if path == "possibility" and clouds is None:
+            clouds, _ = make_dataset(num_train=S3D_CLOUDS, num_val=0,
+                                     num_points=S3D_CLOUD_POINTS, seed=0,
+                                     hard=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        label, trainer, pool, _, fns, graph = _path_steps(
+            path, dev, work, rooms, clouds, steps, warmup)
+        k4 = ga.scatter_window.launches + ga.scatter_window.launches_bf16
+        segs = torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
+        r = in_turns(fns, steps, warmup)
+        r["k4_launches_per_step"] = (ga.scatter_window.launches
+                                     + ga.scatter_window.launches_bf16
+                                     - k4) / (len(fns) * (warmup + steps))
+        r["cuda_mallocs"] = torch.cuda.memory_stats(dev).get(
+            "segment.all.allocated", 0) - segs
+        for name, fn in fns.items():
+            r[name].update(busy_share(lambda: fn(0)))
+        if graph is not None:
+            r["graph"].update(graph.stats())
+        r["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if path == "pool":
+            ids, picks = pool.sample_indices(trainer.cfg.batch_size)
+            pick_t = torch.from_numpy(picks).to(dev)
+            d2 = dp.block_d2(pool.xyz[:pool.window].expand(
+                len(ids), -1, -1), pick_t[:, None])
+            r.update(
+                extract_ms=event_ms(lambda: pool.extract(ids, picks), 10),
+                extract_static_ms=event_ms(lambda: pool.extract(
+                    ids, picks, None, pool.window), 10),
+                sort_ms=event_ms(lambda: torch.sort(d2, dim=1, stable=True),
+                                 10),
+                sort_shape=list(d2.shape), window=pool.window)
+            del d2
+        elif path == "possibility":
+            cfg = trainer.cfg
+            d2 = dp.block_d2(pool.xyz[:pool.window], pool.xyz[:1])
+            r.update(
+                extract_ms=event_ms(lambda: pp.possibility_extract(
+                    *pool.device_args(), pool.class_weight,
+                    pool.init_possibility, pool.generator, cfg.batch_size,
+                    cfg.num_points, cfg.noise_init / 10, pool.window,
+                    pool.augment), 5),
+                sort_ms=event_ms(lambda: torch.sort(d2, stable=True), 10),
+                sort_shape=list(d2.shape))
+            del d2
+        out[path] = r
+        log(f"{path} step {label}, eager and graph in turns: "
+            + json.dumps(r))
+        del trainer, pool, fns, graph
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_step_times(dev, rooms, work, reps=10):
+    """Host ms of `reps` warm train steps [6 x 40960] (ConfigS3DIS, init
+    weights of seed 0, dropout off, one batch of the host pipeline) by
+    parallel/dryrun.py::train_step_times: on one rank in this process and
+    on two gloo ranks sharing the card (rank 0's times); {"one_rank",
+    "two_ranks": {median_ms, min_ms, max_ms, steps}}."""
+    from ssdr_al_torch import config
+    from ssdr_al_torch.data.dataset import TrainingPipeline
+    from ssdr_al_torch.models.randlanet import init_params
+    from ssdr_al_torch.parallel import dryrun, launch
+
+    cfg = config.ConfigS3DIS
+    case = dict(cfg=cfg, weights=config.class_weights("S3DIS"),
+                batch=TrainingPipeline(rooms, cfg, seed=11).sample_batch(
+                    cfg.batch_size),
+                state=init_params(cfg, torch.Generator().manual_seed(0)),
+                reps=reps)
+
+    def summary(v):
+        return dict(median_ms=statistics.median(v), min_ms=min(v),
+                    max_ms=max(v), steps=len(v))
+
+    one = dryrun.train_step_times(None, device=dev, **case)
+    ranks = launch(dryrun.run_calls, 2, [dev, dev],
+                   os.path.join(work, "dp_runs"),
+                   [(dryrun.train_step_times, case)])
+    return {"one_rank": summary(one), "two_ranks": summary(ranks[0][0][0])}
+
+
+def eager_steps(dev, steps=20, warmup=3, work="build/step_times",
+                log=print):
+    """The `--eager` readings (module docstring): {path: {"eager": {...},
+    "eager_plain": {...} where the trainer's Adam is capturable}, "dp":
+    dp_step_times}."""
+    from ssdr_al_torch.data.synthetic import make_dataset
+    from ssdr_al_torch.train.trainer import create_train_state
+
+    torch.cuda.init()
+    rooms, _ = make_dataset(num_train=S3DIS_ROOMS, num_val=0,
+                            num_points=S3DIS_ROOM_POINTS, seed=0, hard=True)
+    clouds = None
+    out = {}
+    for path in WARM_PATHS:
+        if path == "possibility" and clouds is None:
+            clouds, _ = make_dataset(num_train=S3D_CLOUDS, num_val=0,
+                                     num_points=S3D_CLOUD_POINTS, seed=0,
+                                     hard=True)
+        label, trainer, pool, eager, fns, _ = _path_steps(
+            path, dev, work, rooms, clouds, steps, warmup, graph=False)
+        if trainer.train_state.optimizer.defaults["capturable"]:
+            fns["eager_plain"] = eager(create_train_state(
+                trainer.model, trainer.cfg, trainer.steps_per_epoch))
+        r = in_turns(fns, steps, warmup)
+        for name, fn in fns.items():
+            r[name].update(busy_share(lambda: fn(0)))
+        out[path] = r
+        log(f"{path} step {label}, eager: " + json.dumps(r))
+        del trainer, pool, eager, fns
+        torch.cuda.empty_cache()
+    out["dp"] = dp_step_times(dev, rooms, work)
+    log("dp step [6x40960]: " + json.dumps(out["dp"]))
+    return out
+
+
+def eager_round(trainer, pool, round_num):
+    """Trainer.train_round's pooled round without evaluation, its steps
+    make_static_step's run eagerly: a fresh Adam, each epoch's steps and
+    mean loss read back, the snapshot saved."""
+    from ssdr_al_torch.train import trainer as tr
+
+    cfg = trainer.cfg
+    state = trainer.train_state = tr.reset_optimizer(
+        trainer.train_state, cfg, trainer.steps_per_epoch)
+    inputs, step = tr.make_static_step(
+        trainer.model, cfg, trainer.weights, trainer.knn_engine, "pool",
+        pool=pool, device=trainer.device)
+    for _ in range(cfg.max_epoch):
+        losses = []
+        for _ in range(trainer.steps_per_epoch):
+            inputs.stage(dict(zip(tr.POOL_INPUTS,
+                                  pool.sample_indices(cfg.batch_size))))
+            losses.append(tr._advance(state, lambda: step(
+                state, trainer.dropout_gen))["loss"].clone())
+        float(torch.stack(losses).mean())
+    trainer._save(trainer.snapshot_path(round_num))
+
+
+def round_walls(dev, epochs=2, steps=25, work="build/step_times", log=print):
+    """One pooled round's training wall-clock ([6 x 40960], `epochs` x
+    `steps` steps, no evaluation) through the graphs (Trainer.train_round)
+    and eagerly (eager_round), in turns graph, eager, eager, graph, each
+    to a synchronize, with its peak device memory; returns {"graph":
+    [{wall_s, peak_bytes, ...graph_stats}], "eager": [...]}."""
+    import dataclasses
+
+    from ssdr_al_torch import config
+    from ssdr_al_torch.data.synthetic import make_dataset
+    from ssdr_al_torch.train.device_pool import DeviceTrainPool
+
+    cfg = dataclasses.replace(config.ConfigS3DIS, max_epoch=epochs,
+                              train_steps=steps)
     rooms, _ = make_dataset(num_train=S3DIS_ROOMS, num_val=0,
                             num_points=S3DIS_ROOM_POINTS, seed=0, hard=True)
     trainer = _trainer(cfg, dev, "S3DIS", work)
-    pipe = TrainingPipeline(rooms, cfg, seed=1)
-    batches = [pipe.sample_batch(cfg.batch_size)
-               for _ in range(warmup + steps)]
-    out["host"] = _counted(lambda: timed_steps(
-        lambda i: trainer.train_step(trainer.train_state, batches[i],
-                                     trainer.dropout_gen),
-        steps, warmup), dev, warmup + steps)
-    log(f"host-pipeline step [{cfg.batch_size}x{cfg.num_points}]: "
-        + json.dumps(out["host"]))
-    del batches
-    try:
-        from ssdr_al_torch.train import device_pool as dp
-        from ssdr_al_torch.train import possibility_pool as pp
-    except ImportError:
-        return out                       # a tree without the pools
-
-    pool = dp.DeviceTrainPool(rooms, cfg, seed=1, device=dev)
-    if not pool.available:
-        raise AssertionError("the S3DIS pool is over its memory gate")
-    out["pool"] = _counted(lambda: timed_steps(
-        lambda i: trainer.pooled_step(
-            trainer.train_state, pool, *pool.sample_indices(cfg.batch_size),
-            trainer.dropout_gen), steps, warmup), dev, warmup + steps)
-    ids, picks = pool.sample_indices(cfg.batch_size)
-    pick_t = torch.from_numpy(picks).to(dev)
-    d2 = dp.block_d2(pool.xyz[:pool.window].expand(cfg.batch_size, -1, -1),
-                     pick_t[:, None])
-    out["pool"].update(
-        extract_ms=event_ms(lambda: pool.extract(ids, picks), 10),
-        sort_ms=event_ms(lambda: torch.sort(d2, dim=1, stable=True), 10),
-        sort_shape=list(d2.shape))
-    log(f"pooled step [{cfg.batch_size}x{cfg.num_points}]: "
-        + json.dumps(out["pool"]))
-    del trainer, pool, d2
-
-    cfg3 = dataclasses.replace(config.ConfigSemantic3D, train_steps=steps)
-    clouds, _ = make_dataset(num_train=S3D_CLOUDS, num_val=0,
-                             num_points=S3D_CLOUD_POINTS, seed=0, hard=True)
-    trainer = _trainer(cfg3, dev, "Semantic3D", work)
-    pool = pp.PossibilityDevicePool(clouds, cfg3, seed=1, device=dev)
-    if not pool.available:
-        raise AssertionError("the Semantic3D pool is over its memory gate")
-    state = {"poss": pool.init_possibility}
-
-    def poss_step(i):
-        _, state["poss"], _ = trainer.possibility_step(
-            trainer.train_state, pool, state["poss"], trainer.dropout_gen)
-
-    out["possibility"] = _counted(
-        lambda: timed_steps(poss_step, steps, warmup), dev, warmup + steps)
-    args = pool.device_args()
-    d2 = dp.block_d2(pool.xyz[:pool.window], pool.xyz[:1])
-    out["possibility"].update(
-        extract_ms=event_ms(lambda: pp.possibility_extract(
-            *args, pool.class_weight, state["poss"], pool.generator,
-            cfg3.batch_size, cfg3.num_points, cfg3.noise_init / 10,
-            pool.window, pool.augment), 5),
-        sort_ms=event_ms(lambda: torch.sort(d2, stable=True), 10),
-        sort_shape=list(d2.shape))
-    log(f"possibility-pooled step [{cfg3.batch_size}x{cfg3.num_points}]: "
-        + json.dumps(out["possibility"]))
+    trainer.log = lambda m: None
+    pool = DeviceTrainPool(rooms, cfg, seed=1, device=dev)
+    out = {"graph": [], "eager": []}
+    for n, kind in enumerate(("graph", "eager", "eager", "graph")):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if kind == "graph":
+            trainer.train_round(n + 1, None, device_pool=pool)
+        else:
+            eager_round(trainer, pool, n + 1)
+        torch.cuda.synchronize(dev)
+        r = dict(wall_s=time.perf_counter() - t0,
+                 peak_bytes=torch.cuda.max_memory_allocated(dev))
+        if kind == "graph":
+            r.update(trainer.graph_stats)
+        out[kind].append(r)
+    log(f"pooled round [{cfg.batch_size}x{cfg.num_points}], {epochs} x "
+        f"{steps} steps, graph and eager in turns: " + json.dumps(out))
     return out
 
 
@@ -443,7 +695,7 @@ def gcn_fit_times(dev, slots=GCN_FIT_SLOTS, num_steps=GCN_FIT_STEPS,
                 done = num_steps
             else:
                 n = int(kind.split("_")[1])
-                graph = gcn.capture_steps(step, n, gcn.GRAPH_WARMUP, drop,
+                graph = gcn.capture_steps(step, n, gcn.GRAPH_WARMUP, [drop],
                                           dev)
                 replays = (num_steps - gcn.GRAPH_WARMUP) // n
                 for _ in range(replays):
@@ -479,6 +731,10 @@ def main() -> int:
                     help="measure only the pooled train step [6 x 40960] "
                          "and the window eval step [8 x 40960] in this "
                          "dtype and in float32, in turns")
+    ap.add_argument("--eager", action="store_true",
+                    help="measure only each path's eager step (with "
+                         "Adam's capturable and plain forms where the "
+                         "trainer's is capturable) and the dp step")
     ap.add_argument("--gcn-fit", action="store_true",
                     help="measure only the coreGCN fit: one captured step "
                          "replayed, graphs of GCN_GRAPH_SIZES steps and "
@@ -505,11 +761,17 @@ def main() -> int:
         res = {"eval_steps": eval_steps(dev)}
     elif args.gcn_fit:
         res = {"gcn_fit": gcn_fit_times(dev)}
+    elif args.eager:
+        res = {"eager": eager_steps(dev, work=os.path.join(
+            tree, "build", "step_times"))}
     elif args.dtype:
         res = {"dtypes": dtype_steps(dev, work=os.path.join(
             tree, "build", "step_times"))}
     else:
-        res = measure(dev, work=os.path.join(tree, "build", "step_times"))
+        work = os.path.join(tree, "build", "step_times")
+        res = measure(dev, work=work)
+        if "graph" in res["host"]:
+            res["round"] = round_walls(dev, work=work)
     res.update(tree=tree, card=card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,16 +1,29 @@
 """Training and the eval step (counterpart of ssdr_al_tpu/train/trainer.py).
 
 One train step is pyramid → forward (train mode) → activation-masked
-weighted CE → backward → Adam step. Its blocks come from the host
-pipeline (make_train_step), from a DeviceTrainPool on the card
-(make_pooled_train_step: the step uploads [B] cloud ids and [B, 3] picks
-and extracts and shuffles the blocks there), or from a PossibilityDevicePool
-(make_possibility_pooled_train_step: the Semantic3D schedule runs on the
-card and the field threads through the steps). The round loop evaluates from
-`eval_start_frac` of its epochs on and keeps the best-mIoU `snap-<round>`
-(reference RandLANet.py:217-282). Adam runs at lr0 · decay^epoch with a
-fresh optimizer and step count each round (reset_lr, RandLANet.py:
-213-215), as optax.adam over `make_lr_schedule` does in the JAX package.
+weighted CE → backward → Adam step, and `make_static_step` is that step
+for each path on static device tensors: blocks from the host pipeline
+(the batch staged through pinned buffers), from a DeviceTrainPool on the
+card (the [B] cloud ids and [B, 3] picks staged, the blocks extracted and
+shuffled there), or from a PossibilityDevicePool (the Semantic3D
+schedule on the card, its field a static buffer of the pool).
+make_train_step, make_pooled_train_step and
+make_possibility_pooled_train_step wrap it as functions of one step. The
+round loop evaluates from `eval_start_frac` of its epochs on and keeps
+the best-mIoU `snap-<round>` (reference RandLANet.py:217-282). Adam runs
+at lr0 · decay^epoch with a fresh optimizer and step count each round
+(reset_lr, RandLANet.py:213-215), as optax.adam over `make_lr_schedule`
+does in the JAX package.
+
+On the card a round's steps run as one captured program, as JAX jits its
+step (ssdr_al_tpu/train/trainer.py:135, :166, :197): Trainer.train_round
+runs the static step through train/graphs.py::StepGraph, GRAPH_WARMUP
+eager steps, then one capture replayed for the rest of the round. The
+Trainer's Adam on one card is capturable with a device learning rate
+(set_lr fills it before each step), so the eager steps and the replays
+are the same arithmetic. The CPU and data-parallel steps stay eager,
+with a float rate: the CPU has no graphs, and a dp step's collectives
+run over gloo or NCCL process groups outside any graph (ROADMAP.md §3).
 
 A model state is the RandLANet module itself (parameters and BatchNorm
 statistics) on the device; checkpoints are its `state_dict` saved with
@@ -24,6 +37,7 @@ Entry points run on the card unless the caller passes device="cpu".
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Optional
@@ -44,8 +58,10 @@ from ssdr_al_torch.models.randlanet import (
     masked_weighted_ce,
     set_data_group,
 )
+from ssdr_al_torch.ops import gather as gather_ops
 from ssdr_al_torch.train.device_pool import shuffle_blocks
 from ssdr_al_torch.train.flax_snapshot import load_flax_snapshot
+from ssdr_al_torch.train.graphs import StepGraph
 from ssdr_al_torch.train.possibility_pool import (
     PossibilityDevicePool,
     possibility_extract,
@@ -53,11 +69,18 @@ from ssdr_al_torch.train.possibility_pool import (
 
 __all__ = ["init_params", "make_eval_step", "make_train_step",
            "make_pooled_train_step", "make_possibility_pooled_train_step",
-           "make_lr_schedule", "TrainState", "create_train_state",
-           "reset_optimizer", "apply_gradients", "save_checkpoint",
+           "make_static_step", "StagedInputs", "make_lr_schedule",
+           "TrainState", "create_train_state", "reset_optimizer", "set_lr",
+           "apply_gradients", "save_checkpoint",
            "restore_checkpoint", "Trainer"]
 
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8     # optax.adam's defaults
+STEP_PATHS = ("host", "pool", "possibility")
+# the host pipeline's batch as the step takes it
+HOST_INPUTS = {"xyz": torch.float32, "features": torch.float32,
+               "labels": torch.int64, "activation": torch.float32,
+               "pseudo": torch.int64}
+POOL_INPUTS = {"cloud_ids": torch.int64, "picks": torch.float32}
 
 
 def make_lr_schedule(cfg: Config, steps_per_epoch: int):
@@ -82,27 +105,60 @@ class TrainState:
 
 
 def create_train_state(model: RandLANet, cfg: Config,
-                       steps_per_epoch: int) -> TrainState:
+                       steps_per_epoch: int, *,
+                       capturable: bool = False) -> TrainState:
+    """A fresh Adam over the model's parameters at step 0. capturable (on
+    the card only): Adam's capturable form with its learning rate a device
+    tensor (set_lr fills it), so that a CUDA graph of the step updates in
+    place; the Trainer takes it for its single-device steps on the card,
+    eager and replayed alike. Otherwise the rate is a float."""
     schedule = make_lr_schedule(cfg, steps_per_epoch)
-    opt = torch.optim.Adam(model.parameters(), lr=schedule(0),
-                           betas=ADAM_BETAS, eps=ADAM_EPS)
+    dev = next(model.parameters()).device
+    capturable = capturable and dev.type == "cuda"
+    lr = torch.tensor(schedule(0), dtype=torch.float32, device=dev) \
+        if capturable else schedule(0)
+    opt = torch.optim.Adam(model.parameters(), lr=lr, betas=ADAM_BETAS,
+                           eps=ADAM_EPS, capturable=capturable)
     return TrainState(model, opt, schedule)
 
 
 def reset_optimizer(state: TrainState, cfg: Config,
                     steps_per_epoch: int) -> TrainState:
-    """Per-round lr reset: a fresh Adam and step counter, same model."""
-    return create_train_state(state.model, cfg, steps_per_epoch)
+    """Per-round lr reset: a fresh Adam (of the same form) and step
+    counter, same model."""
+    return create_train_state(
+        state.model, cfg, steps_per_epoch,
+        capturable=state.optimizer.defaults["capturable"])
+
+
+def set_lr(state: TrainState):
+    """The learning rate of the next update, schedule(step) at the step
+    count before it (optax's order): on the card a fill of Adam's device
+    rate (no host sync; a graph of the step reads it), else the float."""
+    lr = state.schedule(state.step)
+    for group in state.optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def apply_gradients(state: TrainState) -> TrainState:
     """One Adam update from the parameters' .grad, at the learning rate of
     the step count before it (optax's order); the count then advances."""
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.schedule(state.step)
+    set_lr(state)
     state.optimizer.step()
     state.step += 1
     return state
+
+
+def _advance(state: TrainState, run: Callable):
+    """run() one update (a step whose last act is optimizer.step()) at
+    state.step's learning rate, then count it; run()'s result."""
+    set_lr(state)
+    out = run()
+    state.step += 1
+    return out
 
 
 def _tensor(x, dtype, device):
@@ -112,8 +168,9 @@ def _tensor(x, dtype, device):
 def _make_step_body(model: RandLANet, cfg: Config, weights: np.ndarray,
                     knn_engine: str, device: torch.device, group=None):
     """body(state, xyz, features, labels, activation, pseudo, generator)
-    → (state, metrics) on [B, N, ...] tensors on `device`: the part of a
-    train step after its blocks are on the card.
+    → metrics on [B, N, ...] tensors on `device`: the part of a train
+    step after its blocks are on the card, up to the Adam update at the
+    rate the caller set (_advance).
 
     With a data-parallel group the tensors are this rank's rows of the
     global batch; the model's BatchNorms take the global statistics
@@ -149,40 +206,148 @@ def _make_step_body(model: RandLANet, cfg: Config, weights: np.ndarray,
                                     if p.grad is not None])
             loss, act_sum = group.all_reduce_sum(torch.stack([loss,
                                                               act_sum]))
-        apply_gradients(state)
-        metrics = {"loss": loss, "accuracy": acc, "activation_sum": act_sum}
-        return state, metrics
+        state.optimizer.step()
+        return {"loss": loss, "accuracy": acc, "activation_sum": act_sum}
 
     return body
+
+
+class StagedInputs:
+    """The static device tensors of a step's host inputs ({name: dtype}),
+    and the host's way into them. stage(arrays) takes a step's numpy
+    arrays by name (with a data-parallel group, the global batch's, of
+    which this rank keeps its rows): on the card it writes them into one
+    of two pinned buffers and copies that into the static tensors without
+    blocking the host, in stream order after the steps before it; a pinned
+    buffer is written again only once its last copy has ended (an event
+    wait). On the CPU the arrays are copied straight in. The first call
+    fixes the shapes; another shape raises (a captured step reads fixed
+    shapes)."""
+
+    def __init__(self, device: torch.device, dtypes: dict, group=None):
+        self.device = device
+        self.dtypes = dict(dtypes)
+        self.group = group
+        self.static = None
+        self._slot = 0
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.static[name]
+
+    def _allocate(self, arrays):
+        shapes = {k: tuple(arrays[k].shape) for k in self.dtypes}
+        self.static = {k: torch.empty(shapes[k], dtype=dt, device=self.device)
+                       for k, dt in self.dtypes.items()}
+        if self.device.type == "cuda":
+            self._pinned = [{k: torch.empty(shapes[k], dtype=dt,
+                                            pin_memory=True)
+                             for k, dt in self.dtypes.items()}
+                            for _ in range(2)]
+            self._copied = [torch.cuda.Event() for _ in range(2)]
+
+    def stage(self, arrays: dict):
+        arrays = {k: np.asarray(arrays[k]) for k in self.dtypes}
+        if self.group is not None:
+            arrays = {k: self.group.shard_rows(a) for k, a in arrays.items()}
+        if self.static is None:
+            self._allocate(arrays)
+        for k, a in arrays.items():
+            if tuple(a.shape) != tuple(self.static[k].shape):
+                raise ValueError(f"staged {k} of shape {a.shape}, the step "
+                                 f"takes {tuple(self.static[k].shape)}")
+        if self.device.type != "cuda":
+            for k, a in arrays.items():
+                self.static[k].copy_(torch.from_numpy(a))
+            return
+        slot, self._slot = self._slot, 1 - self._slot
+        self._copied[slot].synchronize()
+        for k, a in arrays.items():
+            pinned = self._pinned[slot][k]
+            pinned.copy_(torch.from_numpy(a))
+            self.static[k].copy_(pinned, non_blocking=True)
+        self._copied[slot].record()
+
+
+def make_static_step(model: RandLANet, cfg: Config, weights: np.ndarray,
+                     knn_engine: str = "window", path: str = "host", *,
+                     pool=None, device: torch.device | str = DEFAULT_DEVICE,
+                     group=None):
+    """(inputs, step): the train step of `path` on static device tensors,
+    the one step of every path, and the form a CUDA graph captures
+    (train/graphs.py::StepGraph).
+
+    inputs: a StagedInputs to stage() before each step: the host
+    pipeline's batch dict ("host", HOST_INPUTS) or the pool's draws
+    {"cloud_ids" [B], "picks" [B, 3]} ("pool", POOL_INPUTS; a
+    DeviceTrainPool's sample_indices); None on the possibility path, whose
+    field is the pool's static buffer (PossibilityDevicePool.field),
+    updated in place. step(state, generator) → metrics runs one step from
+    them up to the Adam update, at the rate the caller set (set_lr, or
+    _advance, which also counts the step); generator draws the dropout
+    mask. The pooled blocks are extracted (extract_blocks) at the pool's
+    static window (pool.window, as JAX's jitted step reads it) and
+    shuffled (shuffle_blocks), both drawing from the pool's generator; the
+    possibility path runs the B-block schedule (possibility_extract,
+    augmented when pool.augment). On a sorted pyramid the loss is taken in
+    morton-sorted row order, with pseudo, labels and activation permuted
+    by pyramid.order instead of unsorting the logits (the loss averages
+    over points).
+
+    With a data-parallel group (set on the model too, set_data_group)
+    every rank stages the same global batch or pool draws, keeps its rows
+    and takes its rows of each global random draw, so the blocks are
+    those of the single-device step (_make_step_body says how the step
+    reduces); the possibility pool is single-device only."""
+    if path not in STEP_PATHS:
+        raise ValueError(f"unknown step path {path!r}; options: {STEP_PATHS}")
+    if path == "possibility" and group is not None:
+        raise ValueError("the possibility pool is single-device only")
+    device = resolve_device(device)
+    body = _make_step_body(model, cfg, weights, knn_engine, device, group)
+    inputs = None
+    if path == "host":
+        inputs = StagedInputs(device, HOST_INPUTS, group)
+
+        def blocks():
+            return tuple(inputs[k] for k in HOST_INPUTS)
+    elif path == "pool":
+        inputs = StagedInputs(device, POOL_INPUTS)
+
+        def blocks():
+            return shuffle_blocks(pool.extract(
+                inputs["cloud_ids"], inputs["picks"], group, pool.window),
+                pool.generator, group)
+    else:
+        def blocks():
+            new_poss, *out = possibility_extract(
+                *pool.device_args(), pool.class_weight, pool.field,
+                pool.generator, cfg.batch_size, cfg.num_points,
+                cfg.noise_init / 10, pool.window, pool.augment)
+            pool.field.copy_(new_poss)
+            return shuffle_blocks(out, pool.generator)
+
+    def step(state: TrainState, generator: torch.Generator):
+        return body(state, *blocks(), generator)
+
+    return inputs, step
 
 
 def make_train_step(model: RandLANet, cfg: Config, weights: np.ndarray,
                     knn_engine: str = "window", *,
                     device: torch.device | str = DEFAULT_DEVICE, group=None):
-    """Return train_step(state, batch, generator) → (state, metrics).
+    """Return train_step(state, batch, generator) → (state, metrics):
+    make_static_step's host step, its batch staged and its update counted.
 
     batch: {"xyz", "features", "labels", "activation", "pseudo"} numpy
-    [B, N, ...] arrays; generator draws the dropout mask (on `device`).
-    On a sorted pyramid the loss is taken in morton-sorted row order, with
-    pseudo, labels and activation permuted by pyramid.order instead of
-    unsorting the logits (the loss averages over points). The state is
+    [B, N, ...] arrays (with a group, the global batch). The state is
     updated in place: parameters, Adam moments, BatchNorm statistics and
-    the step count. With a data-parallel group (set on the model too,
-    set_data_group) every rank passes the same global batch and uploads
-    its rows."""
-    device = resolve_device(device)
-    body = _make_step_body(model, cfg, weights, knn_engine, device, group)
-
-    def rows(x):
-        x = np.asarray(x)
-        return x if group is None else group.shard_rows(x)
+    the step count."""
+    inputs, step = make_static_step(model, cfg, weights, knn_engine, "host",
+                                    device=device, group=group)
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
-        return body(state, *(
-            _tensor(rows(batch[k]), dt, device) for k, dt in (
-                ("xyz", torch.float32), ("features", torch.float32),
-                ("labels", torch.int64), ("activation", torch.float32),
-                ("pseudo", torch.int64))), generator)
+        inputs.stage(batch)
+        return state, _advance(state, lambda: step(state, generator))
 
     return train_step
 
@@ -192,23 +357,20 @@ def make_pooled_train_step(model: RandLANet, cfg: Config,
                            *, device: torch.device | str = DEFAULT_DEVICE,
                            group=None):
     """Return pooled_step(state, pool, cloud_ids, picks, generator) →
-    (state, metrics): a train step over a DeviceTrainPool on `device`.
-    cloud_ids [B] and picks [B, 3] are the pool's host draws
-    (pool.sample_indices), the only upload of the step; the blocks are
-    extracted on the card (extract_blocks) and shuffled (shuffle_blocks),
-    both drawing from the pool's generator; generator draws the dropout
-    mask. With a data-parallel group every rank holds a pool seeded alike
-    and passes the global draws; it extracts and shuffles its rows, taking
-    its rows of each global random draw, so the blocks are those of the
-    single-device step."""
-    device = resolve_device(device)
-    body = _make_step_body(model, cfg, weights, knn_engine, device, group)
+    (state, metrics): make_static_step's pooled step over a
+    DeviceTrainPool on `device`, the pool's host draws (sample_indices;
+    with a group, the global draws) staged and the update counted."""
+    made = {}
 
     def pooled_step(state: TrainState, pool, cloud_ids, picks,
                     generator: torch.Generator):
-        blocks = shuffle_blocks(pool.extract(cloud_ids, picks, group),
-                                pool.generator, group)
-        return body(state, *blocks, generator)
+        if made.get("pool") is not pool:
+            made.update(pool=pool, step=make_static_step(
+                model, cfg, weights, knn_engine, "pool", pool=pool,
+                device=device, group=group))
+        inputs, step = made["step"]
+        inputs.stage(dict(zip(POOL_INPUTS, (cloud_ids, picks))))
+        return state, _advance(state, lambda: step(state, generator))
 
     return pooled_step
 
@@ -218,23 +380,20 @@ def make_possibility_pooled_train_step(
         knn_engine: str = "window", *,
         device: torch.device | str = DEFAULT_DEVICE):
     """Return step(state, pool, poss, generator) → (state, new_poss,
-    metrics): a train step over a PossibilityDevicePool on `device` (the
-    Semantic3D training path). The B-block possibility schedule
-    (possibility_extract, augmented when pool.augment), the blocks'
-    shuffle (shuffle_blocks) and the step run on the card with nothing
-    uploaded; poss is the field, threaded through the steps by the
-    caller; generator draws the dropout mask."""
-    device = resolve_device(device)
-    body = _make_step_body(model, cfg, weights, knn_engine, device)
+    metrics): make_static_step's possibility step over a
+    PossibilityDevicePool on `device` (the Semantic3D training path) from
+    the field poss, which the caller threads through the steps (the
+    pool's static field holds it during the step); the update counted."""
+    made = {}
 
     def step(state: TrainState, pool, poss, generator: torch.Generator):
-        new_poss, *blocks = possibility_extract(
-            *pool.device_args(), pool.class_weight, poss, pool.generator,
-            cfg.batch_size, cfg.num_points, cfg.noise_init / 10, pool.window,
-            pool.augment)
-        state, metrics = body(state, *shuffle_blocks(blocks, pool.generator),
-                              generator)
-        return state, new_poss, metrics
+        if made.get("pool") is not pool:
+            made.update(pool=pool, step=make_static_step(
+                model, cfg, weights, knn_engine, "possibility", pool=pool,
+                device=device)[1])
+        pool.field.copy_(poss)
+        metrics = _advance(state, lambda: made["step"](state, generator))
+        return state, pool.field.clone(), metrics
 
     return step
 
@@ -341,9 +500,15 @@ class Trainer:
             self.model, cfg, self.weights, knn_engine, device=self.device)
         self.eval_step = make_eval_step(self.model, cfg, knn_engine, True,
                                         device=self.device)
-        self.train_state = create_train_state(self.model, cfg,
-                                              self.steps_per_epoch)
+        # Adam's capturable form where the steps are graphs (train_round)
+        self.train_state = create_train_state(
+            self.model, cfg, self.steps_per_epoch,
+            capturable=self.device.type == "cuda" and group is None)
         self.dropout_gen = torch.Generator(self.device).manual_seed(0)
+        # the last round's: every step's loss (device scalars), and on the
+        # card its StepGraph's stats()
+        self.round_losses = []
+        self.graph_stats = None
 
     @property
     def state(self) -> dict:
@@ -388,11 +553,19 @@ class Trainer:
         schedule (cfg.batch_size blocks a step), its field kept on the pool
         between epochs. Callers update_pseudo_gt() the pool for the round.
 
-        Under data parallelism the pooled batch is rounded down to a
-        multiple of the world size (as JAX's mesh path does); the
-        possibility pool is single-device only (its schedule is
-        sequential over the batch), and callers train on the host
-        pipeline instead."""
+        Every step is make_static_step's. On the card the round's steps
+        are one captured program (a StepGraph): GRAPH_WARMUP eager steps,
+        then a capture replayed for the rest, released at the round's end;
+        `graph_stats` keeps its stats(). Under SSDR_DEBUG_WINDOW_GUARD
+        (ops/gather.py), whose count reads back at every gather, and on
+        the CPU the steps run eagerly. `round_losses` keeps every step's
+        loss.
+
+        Under data parallelism the steps stay eager, and the pooled batch
+        is rounded down to a multiple of the world size (as JAX's mesh
+        path does); the possibility pool is single-device only (its
+        schedule is sequential over the batch), and callers train on the
+        host pipeline instead."""
         cfg = self.cfg
         group = self.group
         state = reset_optimizer(self.train_state, cfg, self.steps_per_epoch)
@@ -415,39 +588,61 @@ class Trainer:
             self.log(f"dp pooled training: batch {bsz} not divisible by "
                      f"mesh size {group.size} — rounding to {new_bsz}")
             bsz = new_bsz
+        path = ("possibility" if poss_pool else "host" if device_pool is None
+                else "pool")
+
+        def draws(epoch):
+            if path == "host":
+                return batch_iter_fn(epoch)
+            if path == "pool":
+                return (dict(zip(POOL_INPUTS, device_pool.sample_indices(bsz)))
+                        for _ in range(self.steps_per_epoch))
+            return [None] * self.steps_per_epoch
+
+        inputs, step = make_static_step(
+            self.model, cfg, self.weights, self.knn_engine, path,
+            pool=device_pool, device=self.device, group=group)
+        run = functools.partial(step, state, self.dropout_gen)
+        graph = None
+        # eager steps under dp, whose BatchNorm, loss and gradient
+        # all-reduces run over the group's gloo or NCCL process group
+        # outside any graph (ROADMAP.md §3), and under
+        # SSDR_DEBUG_WINDOW_GUARD, which reads its clamp count back at
+        # every gather (a host sync, which a capture refuses)
+        if self.device.type == "cuda" and group is None and \
+                not gather_ops.DEBUG_WINDOW_GUARD:
+            gens = [self.dropout_gen] + ([] if device_pool is None
+                                         else [device_pool.generator])
+            run = graph = StepGraph(run, gens, self.device)
+        if poss_pool:
+            device_pool.field.copy_(
+                device_pool.init_possibility
+                if device_pool.poss_state is None
+                else device_pool.poss_state)
+
+        def one_step(d):
+            if inputs is not None:
+                inputs.stage(d)
+            return _advance(state, run)
 
         def mean(xs):
             return float(torch.stack(xs).float().mean()) if xs else 0.0
 
+        self.round_losses, self.graph_stats = [], None
         for epoch in range(cfg.max_epoch):
             t0 = time.time()
             losses, accs, act_sum = [], [], 0.0
             metrics = None
-            if poss_pool:
-                poss = device_pool.poss_state
-                if poss is None:
-                    poss = device_pool.init_possibility
-                for _ in range(self.steps_per_epoch):
-                    state, poss, metrics = self.possibility_step(
-                        state, device_pool, poss, self.dropout_gen)
-                    losses.append(metrics["loss"])
-                    accs.append(metrics["accuracy"])
-                device_pool.poss_state = poss
-            elif device_pool is not None:
-                for _ in range(self.steps_per_epoch):
-                    ids, picks = device_pool.sample_indices(bsz)
-                    state, metrics = self.pooled_step(
-                        state, device_pool, ids, picks, self.dropout_gen)
-                    losses.append(metrics["loss"])
-                    accs.append(metrics["accuracy"])
-            else:
-                for batch in batch_iter_fn(epoch):
-                    state, metrics = self.train_step(state, batch,
-                                                     self.dropout_gen)
-                    losses.append(metrics["loss"])
-                    accs.append(metrics["accuracy"])
+            for d in draws(epoch):
+                metrics = one_step(d)
+                # a graph's outputs are rewritten by its next replay
+                losses.append(metrics["loss"].clone())
+                accs.append(metrics["accuracy"].clone())
             if metrics is not None:
                 act_sum = metrics["activation_sum"]
+            if poss_pool:
+                device_pool.poss_state = device_pool.field.clone()
+            self.round_losses += losses
             self.log(
                 f"Round {round_num} | epoch={epoch} "
                 f"L_out={mean(losses):.3f} Acc={mean(accs):.2f} "
@@ -466,6 +661,11 @@ class Trainer:
                     f"{time.time() - t1:.1f}s")
         if evaluate_fn is None:
             self._save(snap)
+        if graph is not None:
+            # release the graph's memory: its gradients are the last
+            # pointers into its pool
+            self.graph_stats = graph.stats()
+            state.optimizer.zero_grad(set_to_none=True)
         return best_miou, best_oa
 
     def _save(self, path: str):

@@ -149,10 +149,10 @@ def test_knn_window_engine_passes_keywords():
 
 @pytest.mark.parametrize("kw", [dict(impl="pallas", k=17),
                                 dict(impl="pallas", window=8192),
-                                dict(impl="kd"), dict(probes=3)])
+                                dict(impl="kd"), dict(impl="auto", k=17)])
 def test_knn_window_refuses(kw):
-    """The K1 form takes k ≤ 16 and window ≤ 4096, as JAX's Pallas impl;
-    an unknown impl and a probe count other than 1 or 2 raise too."""
+    """The K1 form takes k ≤ 16 and window ≤ 4096, as JAX's Pallas impl,
+    and "auto" is the K1 form; an unknown impl raises too."""
     sup, qry = _clouds(9, 10000, 300)
     k = kw.pop("k", 16)
     with pytest.raises(ValueError):
