@@ -37,8 +37,11 @@ device-busy share, launches and capture cost
 Every training round of the loops runs its steps as one captured
 program (Trainer.train_round: 3 eager steps, then replays of one CUDA
 graph, train/graphs.py), its K1, K2 and K4 launches counted per
-replay. Then --compute_dtype bfloat16: K2's bf16-output and K4's bf16-cotangent instantiations at every K2 call
-of a bf16 forward [8 × 40960] and every K4 call of a bf16 train step
+replay. Every evaluation, selection forward and cli.evaluate runs the
+eval step as replays of CUDA graphs (train/trainer.py::EvalStep), and
+each path prints and checks its eval-graph captures and replays. Then
+--compute_dtype bfloat16: K2's bf16-output and K4's bf16-cotangent
+instantiations at every K2 call of a bf16 forward [8 × 40960] and every K4 call of a bf16 train step
 [6 × 40960], bitwise against their plain versions; from round 1's f32
 snap-1, a bf16 training round on the device pool, bf16 and f32 eval steps
 [8 × 40960] timed in turns and their class agreement on the validation
@@ -62,7 +65,12 @@ host, device-pool and possibility-pool paths, bitwise equal:
 train/repeat_check.py), the replay phase (20 CUDA-graph replays
 against 20 eager steps from one state on each path, bitwise equal, the
 last replay's device trace holding K1's, K2's and K4's kernels as often
-as the replay's launch counts say: repeat_check.replay_paths), one warm
+as the replay's launch counts say: repeat_check.replay_paths), the eval
+replay phase (20 calls of the eval step's CUDA graph against 20 eager
+eval steps and one InferenceRunner group through the graph and eagerly,
+bitwise, on `window` and `pallas` at the S3DIS [20 x 40960] and
+Semantic3D [16 x 65536] eval shapes, the last replay traced:
+repeat_check.eval_replay_paths), one warm
 train step under
 utils/logging.py::device_trace (its Chrome trace under build/ must name
 K2's and K4's kernels), and the sampler ablation twin
@@ -206,6 +214,41 @@ def require_launched(path, counts, names):
     if missing:
         raise AssertionError(f"{path}: kernels of the path never launched: "
                              f"{missing} ({counts})")
+
+
+# the eval-step graphs' captures and replays (train/graphs.py::
+# ForwardGraphs calls) since the smoke began: count_eval_graphs
+EVAL_GRAPHS = {"captures": 0, "replays": 0}
+
+
+def count_eval_graphs():
+    """Count every capture and replay of an eval-step graph
+    (ForwardGraphs.__call__) in EVAL_GRAPHS, so that each path can show
+    that its evaluations and selection forwards ran as graph replays."""
+    from ssdr_al_torch.train import graphs
+
+    call = graphs.ForwardGraphs.__call__
+
+    def counted(self, key, make, batch):
+        captures = self.captures
+        out = call(self, key, make, batch)
+        EVAL_GRAPHS["captures"] += self.captures - captures
+        EVAL_GRAPHS["replays"] += 1
+        return out
+
+    graphs.ForwardGraphs.__call__ = counted
+
+
+def require_replayed(path, before, at_least=1) -> dict:
+    """The eval-graph captures and replays since `before` (a copy of
+    EVAL_GRAPHS), printed; fails below `at_least` replays."""
+    got = {k: EVAL_GRAPHS[k] - before[k] for k in EVAL_GRAPHS}
+    print(f"eval graphs {path}: {got['captures']} captures, "
+          f"{got['replays']} replays")
+    if got["replays"] < at_least:
+        raise AssertionError(f"{path}: {got['replays']} eval-graph replays, "
+                             f"fewer than {at_least}")
+    return got
 
 
 def sorted_batch(rng, b, n, dev):
@@ -752,7 +795,8 @@ def train_round(trainer, round_num, clouds, val, pseudo, seed, pool=None):
     streams set for the round here); returns the host pipeline and the
     round's wall clock after checking every step's loss (device scalars,
     trainer.round_losses) and that the steps after the warm-up were
-    replays of one captured step (trainer.graph_stats)."""
+    replays of one captured step (trainer.graph_stats) and that its
+    evaluations replayed the eval step's graph."""
     from ssdr_al_torch.data.dataset import TrainingPipeline
     from ssdr_al_torch.train.evaluator import Evaluator
     from ssdr_al_torch.train.graphs import GRAPH_WARMUP
@@ -768,12 +812,14 @@ def train_round(trainer, round_num, clouds, val, pseudo, seed, pool=None):
         if isinstance(pool, PossibilityDevicePool):
             pool.reset_possibility(seed)
     t0 = time.perf_counter()
+    g0 = dict(EVAL_GRAPHS)
     miou, oa = trainer.train_round(
         round_num, lambda epoch: pipe.batches(cfg.train_steps,
                                               cfg.batch_size),
         Evaluator(cfg, val, max_epochs=1), device_pool=pool)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    require_replayed(f"round {round_num} evaluation", g0)
     steps = cfg.max_epoch * cfg.train_steps
     loss = torch.stack(trainer.round_losses).cpu()
     if len(loss) != steps or not torch.isfinite(loss).all():
@@ -862,6 +908,7 @@ def al_loop(cfg, dev, work, profile_out=None):
 
     rg.chamfer_pairwise_blocks, sm.gcn_fps_sampling = rec_cd, rec_fps
     reset_counts()
+    g0 = dict(EVAL_GRAPHS)
     t0 = time.perf_counter()
     try:
         sampler.sampling(trainer.eval_step, trainer.state, BUDGET, 1, stats)
@@ -881,6 +928,7 @@ def al_loop(cfg, dev, work, profile_out=None):
           f"stats: {stats}")
     print("phase_times " + json.dumps(sampler.phase_times))
     print("launches selection " + json.dumps(paths["selection"]))
+    require_replayed("selection", g0)
     require_launched("selection", paths["selection"],
                      ("window_topk", "gather_window", "chamfer_sums"))
     if not n2 < n0 or len(gts) != ROOMS:
@@ -983,11 +1031,13 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
         "pallas", "--num_points", str(cfg.num_points), "--snapshot",
         trainer.snapshot_path(1), "--out", os.path.join(work, "preds")])
     reset_counts()
+    g0 = dict(EVAL_GRAPHS)
     t0 = time.perf_counter()
     result = evaluate.run_evaluate(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     paths["pallas_evaluate"] = read_counts()
+    require_replayed("cli.evaluate", g0, 2)
     plys = sorted(os.listdir(args.out))
     print(f"cli.evaluate --knn_engine pallas: {wall:.3f} s wall, wrote "
           f"{plys}, OA {result['oa']:.4f} mIoU {result['miou']:.4f}")
@@ -1016,6 +1066,7 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
         step = make_eval_step(model, cfg, engine, False, device=dev)
         kn.MXU_DISTANCE_DEFAULT = mxu
         reset_counts()
+        g0 = dict(EVAL_GRAPHS)
         try:
             p, f = step(state, batch)
             torch.cuda.synchronize()
@@ -1023,6 +1074,7 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
             ms = step_ms[name] = cuda_ms(lambda: step(state, batch), 3)
         finally:
             kn.MXU_DISTANCE_DEFAULT = False
+        require_replayed(name, g0, 5)
         if not (torch.isfinite(p).all() and torch.isfinite(f).all()) or \
                 p.shape != (8, cfg.num_points, cfg.num_classes):
             raise AssertionError(f"{name}: outputs {tuple(p.shape)} bad")
@@ -1032,7 +1084,8 @@ def exact_engine_paths(cfg, dev, work, train, val, pseudo):
         agree = {k: (classes[name] == c).float().mean().item()
                  for k, c in classes.items() if k != name}
         print(f"{name} [8x{cfg.num_points}]: {ms:.3f} ms by CUDA events "
-              f"(host upload included), {len(classes[name].unique())} "
+              f"(graph replays, staging and output copies included), "
+              f"{len(classes[name].unique())} "
               f"classes predicted, class agreement {json.dumps(agree)}; "
               f"launches " + json.dumps(paths[name]))
     print(f"approx_eval_step {step_ms['approx_eval_step']:.3f} ms beside "
@@ -1090,9 +1143,11 @@ def bf16_paths(cfg, dev, work, train, val, pseudo):
                                 device=dev)
              for dt, c in (("float32", cfg), ("bfloat16", cfg16))}
     reset_counts()
+    g0 = dict(EVAL_GRAPHS)
     probs = {dt: step(snap1, batch)[0] for dt, step in steps.items()}
     torch.cuda.synchronize()
     paths["bf16_eval_step"] = read_counts()   # f32 and bf16, one each
+    require_replayed("bf16_eval_step", g0, 2)
     require_launched("bf16_eval_step", paths["bf16_eval_step"],
                      ("window_topk", "gather_window", "gather_window_bf16"))
     spread = spread_weights(snap1, seed=0)
@@ -1111,8 +1166,8 @@ def bf16_paths(cfg, dev, work, train, val, pseudo):
          for dt, step in steps.items()}, steps=20, warmup=3)
     print(f"bf16 vs f32 class agreement on the validation room [8x"
           f"{cfg.num_points}]: " + json.dumps(agree))
-    print(f"eval step [8x{cfg.num_points}] in turns (host clock to a "
-          f"synchronize, upload included): " + json.dumps(times))
+    print(f"eval step [8x{cfg.num_points}] as graph replays in turns (host "
+          f"clock to a synchronize, staging included): " + json.dumps(times))
     if agree["spread weights"] < 0.9:
         raise AssertionError(f"bf16 and f32 classes disagree: {agree}")
     return paths
@@ -1142,6 +1197,7 @@ def selection_branches(cfg, dev, work, train, total):
                                                   "round_1"))["unlabeled"]
         stats = RoundStats()
         reset_counts()
+        g0 = dict(EVAL_GRAPHS)
         t0 = time.perf_counter()
         if branch == "random":
             sampler = RandomSampler(state, train, total["sp_num"], 1,
@@ -1201,6 +1257,7 @@ def selection_branches(cfg, dev, work, train, total):
         if branch == "random":
             ok = len(picked) == BUDGET
         else:
+            require_replayed(name, g0)
             require_launched(name, paths[name],
                              ("window_topk", "gather_window",
                               "chamfer_sums"))
@@ -1263,8 +1320,10 @@ def data_parallel_path(cfg, dev, work, train, val, total):
                     os.path.join(sel_dir, "superpoint"))
     shutil.copytree(os.path.join(work, "sampling", "seed"),
                     os.path.join(sel_dir, "sampling", "seed"))
+    g0 = dict(EVAL_GRAPHS)
     eval_one = dryrun.evaluate_result(None, cfg, val, snap1, max_epochs=1,
                                       device=dev)
+    require_replayed("single-card evaluation beside dp", g0)
     calls = [(dryrun.train_step_result, pinned),
              (dryrun.train_step_times, case),
              (dryrun.selection_round_result, dict(
@@ -1422,6 +1481,7 @@ def driver_paths(cfg, dev, work):
         for name, run in (("cli_baseline", baseline.run_baseline),
                           ("cli_max_dominant", max_dominant.run_max_dominant)):
             reset_counts()
+            g0 = dict(EVAL_GRAPHS)
             t0 = time.perf_counter()
             miou, oa = run(args)
             torch.cuda.synchronize()
@@ -1432,6 +1492,7 @@ def driver_paths(cfg, dev, work):
             require_launched(name, paths[name], ("window_topk",
                                                  "gather_window",
                                                  "scatter_window"))
+            require_replayed(name, g0)
             if not (0 <= miou <= 1 and 0 <= oa <= 1):
                 raise AssertionError(f"{name}: mIoU {miou} OA {oa}")
     finally:
@@ -1498,6 +1559,7 @@ def semantic3d_loop(dev, work):
     sampler = TSampler(state, train, cfg, TSamplerArgs(), sp_num, device=dev)
     stats = RoundStats()
     reset_counts()
+    g0 = dict(EVAL_GRAPHS)
     t0 = time.perf_counter()
     sampler.sampling(trainer.eval_step, trainer.state, S3D_BUDGET, 1, stats)
     torch.cuda.synchronize()
@@ -1511,6 +1573,7 @@ def semantic3d_loop(dev, work):
           + json.dumps(paths["semantic3d_selection"]))
     require_launched("semantic3d_selection", paths["semantic3d_selection"],
                      ("window_topk", "gather_window", "chamfer_sums"))
+    require_replayed("semantic3d_selection", g0)
     if not n2 < n0:
         raise AssertionError("the Semantic3D round labelled nothing")
     pseudo = {c.name: state.load_pseudo_gt(r2, c.name) for c in train}
@@ -1544,9 +1607,11 @@ def semantickitti_steps(dev, work, rooms):
     loss = metrics["loss"].item()
     paths["semantickitti_train_step"] = read_counts()
     reset_counts()
+    g0 = dict(EVAL_GRAPHS)
     probs, penult, order = trainer.eval_step(trainer.state, batch)
     torch.cuda.synchronize()
     paths["semantickitti_eval_step"] = read_counts()
+    require_replayed("semantickitti_eval_step", g0)
     shape = (cfg.batch_size, cfg.num_points, cfg.num_classes)
     print(f"SemanticKITTI [{cfg.batch_size}x{cfg.num_points}], 4 layers: "
           f"train step loss {loss:.4f}, eval step probs "
@@ -1642,6 +1707,40 @@ def replay_phase(dev, work):
     return paths
 
 
+def eval_replay_phase(dev):
+    """20 calls of the eval step's graph (a capture, then replays) against
+    20 eager eval steps on validation batches, and one InferenceRunner
+    group through the graph and eagerly, every output bitwise equal, on
+    `window` and `pallas` at the S3DIS [20 x 40960] and Semantic3D [16 x
+    65536] eval shapes (repeat_check.eval_replay_paths); the last replay
+    of each under torch.profiler, its trace holding K1's, K2's and K6's
+    kernels as often as its counts say; the launches counted from 0."""
+    from ssdr_al_torch.train.repeat_check import eval_replay_paths
+
+    t0 = time.perf_counter()
+    reset_counts()
+    g0 = dict(EVAL_GRAPHS)
+    res = eval_replay_paths(dev)
+    paths = {"eval_replays": read_counts()}
+    print(f"eval replay phase {time.perf_counter() - t0:.1f} s; launches "
+          f"eval_replays " + json.dumps(paths["eval_replays"]))
+    bad = {k: (r["differing"], r["runner_equal"]) for k, r in res.items()
+           if not (r["equal"] and r["runner_equal"])}
+    if bad or len(res) != 4:
+        raise AssertionError(f"eval-graph replays differ from eager calls: "
+                             f"{bad}")
+    untraced = {k: (r["traced"], r["counted"]) for k, r in res.items()
+                if not r["traced_ok"] or not r["traced"][
+                    "window_topk" if k.endswith("window") else "knn_tiled"]}
+    if untraced:
+        raise AssertionError(f"a replay's device trace does not hold the "
+                             f"kernels its counts add: {untraced}")
+    require_replayed("eval_replays", g0, 4 * 21)
+    require_launched("eval_replays", paths["eval_replays"],
+                     ("window_topk", "gather_window", "knn_tiled"))
+    return paths
+
+
 def trace_phase(dev, root):
     """One warm host train step [6 x 40960] under
     utils/logging.py::device_trace, its Chrome trace written under
@@ -1690,6 +1789,7 @@ def ablation_phase(dev, work):
     recs = []
     t0 = time.perf_counter()
     reset_counts()
+    g0 = dict(EVAL_GRAPHS)
     ablation.main(["--rooms", "3", "--points", "12000", "--seed_percent",
                    "0.02", "--clicks", "40", "--rounds", "2", "--configs",
                    "random,ssdr_full", "--workdir",
@@ -1719,6 +1819,7 @@ def ablation_phase(dev, work):
             total[k] += v
     print(f"ablation phase: {wall:.1f} s wall; launches by phase "
           + json.dumps(phases))
+    require_replayed("ablation", g0)
     return {"ablation": total}
 
 
@@ -1868,6 +1969,7 @@ def main() -> int:
     from ssdr_al_torch.config import ConfigS3DIS
     from ssdr_al_torch.kernels import build
 
+    count_eval_graphs()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     build.library()
@@ -1889,10 +1991,12 @@ def main() -> int:
         warm_steps(dev, work)
         paths.update(repeat_phase(dev, work))
         paths.update(replay_phase(dev, work))
+        paths.update(eval_replay_phase(dev))
         paths.update(trace_phase(dev, root))
         paths.update(ablation_phase(dev, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    print("eval graphs of the smoke: " + json.dumps(EVAL_GRAPHS))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

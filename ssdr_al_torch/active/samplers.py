@@ -51,6 +51,7 @@ from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
 from ssdr_al_torch.ops.chamfer import chamfer_pairwise
 from ssdr_al_torch.ops.fps import farthest_superpoint_sample
 from ssdr_al_torch.ops.segment import segment_majority
+from ssdr_al_torch.train.trainer import fused_program
 
 F16_MAX = 6.5e4   # penult is clipped to ±F16_MAX before its f16 cast
 
@@ -86,10 +87,30 @@ class CloudInference:
                                       # on the device
 
 
+def _point_reduce(mode: str):
+    """tail(probs, feats[, order]) → (classes u8, uncertainty f16,
+    penult clipped to ±F16_MAX in f16[, order]): the selection's per-point
+    reductions of an eval step's outputs (_eval_reduced,
+    ssdr_al_tpu/active/samplers.py:146)."""
+
+    def tail(probs, feats, *order):
+        unc = point_uncertainty(probs, mode).half()
+        cls = torch.argmax(probs, dim=-1).to(torch.uint8)
+        f16 = torch.clamp(feats.float(), -F16_MAX, F16_MAX).half()
+        return (cls, unc, f16, *order)
+
+    return tail
+
+
 class InferenceRunner:
     """Chunked whole-cloud inference (sampler2.py:580-642 + 313-342 in one
     pass). Chunks of every cloud are stacked `chunk_batch` at a time into
     one forward; all groups are launched before any result is read back.
+    The forward and the per-point reductions run as one program
+    (trainer.fused_program, cached on the eval step per mode as JAX's
+    _eval_reduced_fn: on the card one replayed CUDA graph a group shape,
+    so the [B, N, C] probabilities stay inside it); each group's results
+    are tensors of their own.
 
     keep_penult_on_device keeps the f16 penultimate features on the device
     and `region_feature_means` reduces them there.
@@ -106,7 +127,6 @@ class InferenceRunner:
                  keep_penult_on_device: bool = False, *,
                  device: torch.device | str = DEFAULT_DEVICE, group=None):
         self.cfg = cfg
-        self.eval_step = eval_step
         self.state = state
         self.mode = point_unc_mode
         self.device = resolve_device(device)
@@ -117,17 +137,14 @@ class InferenceRunner:
         self.chunk_batch = chunk_batch or min(
             32, max(8, 327_680 // cfg.num_points))
         self.pipe = SamplingPipeline(clouds, cfg, seed=seed)
+        self._program = fused_program(eval_step, ("point_reduce", self.mode),
+                                      _point_reduce(self.mode))
 
     def _reduced(self, batch):
-        """Forward + the per-point reductions, all on the device."""
-        res = self.eval_step(self.state, batch)
-        probs, feats = res[0], res[1]
-        with torch.inference_mode():
-            unc = point_uncertainty(probs, self.mode).half()
-            cls = torch.argmax(probs, dim=-1).to(torch.uint8)
-            f16 = torch.clamp(feats.float(), -F16_MAX, F16_MAX).half()
-        order = res[2] if len(res) == 3 else None
-        return cls, unc, f16, order
+        """Forward + the per-point reductions, all on the device, in one
+        program: (classes, uncertainty, f16 penult, order or None)."""
+        cls, unc, f16, *order = self._program(self.state, batch)
+        return cls, unc, f16, order[0] if order else None
 
     def run_many(self, clouds: List[Cloud]) -> Dict[str, CloudInference]:
         """Whole-dataset inference with chunk groups spanning cloud

@@ -8,7 +8,9 @@ report OA / mIoU from the written PLYs:
       --out preds/ [--knn_engine pallas] [--device cpu]
 
 The snapshot is a port checkpoint (a state_dict saved by
-train.trainer.save_checkpoint).
+train.trainer.save_checkpoint). On the card every [1 × N] chunk replays
+one captured forward (train/trainer.py::EvalStep); each pending chunk's
+probabilities are a copy of its own.
 """
 
 from __future__ import annotations

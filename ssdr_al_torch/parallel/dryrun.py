@@ -170,11 +170,14 @@ def train_round_result(group, cfg, state: dict, clouds, pseudo, weights,
     return {k: _numpy(v) for k, v in trainer.state.items()}
 
 
-def _eval_step(cfg, state, dev, knn_engine):
+def _eval_step(cfg, state, dev, knn_engine, group):
+    """The eval step of a rank (eager under a group, as its train steps)
+    or of the single device, and the state on `dev`."""
     from ssdr_al_torch.train.trainer import make_eval_step
 
     model = RandLANet(cfg).to(dev)
-    return make_eval_step(model, cfg, knn_engine, True, device=dev), \
+    return make_eval_step(model, cfg, knn_engine, True, device=dev,
+                          group=group), \
         {k: v.to(dev) for k, v in state.items()}
 
 
@@ -189,7 +192,7 @@ def inference_result(group, cfg, clouds, state: dict, slot_maps: dict,
     from ssdr_al_torch.active.samplers import InferenceRunner
 
     dev = _device(group, device)
-    step, st = _eval_step(cfg, state, dev, knn_engine)
+    step, st = _eval_step(cfg, state, dev, knn_engine, group)
     out = {}
     for keep in (True, False):
         runner = InferenceRunner(cfg, clouds, step, st, mode, seed=3,
@@ -242,7 +245,7 @@ def selection_round_result(group, work: str, cfg, clouds, state: dict,
     from ssdr_al_torch.active.state import ALState, RoundStats
 
     dev = _device(group, device)
-    step, st = _eval_step(cfg, state, dev, knn_engine)
+    step, st = _eval_step(cfg, state, dev, knn_engine, group)
     al = ALState(work, list(sampler_args),
                  write_files=group is None or group.lead)
     args = TSamplerArgs(diversity=diversity, gcn_steps=gcn_steps)
@@ -263,7 +266,7 @@ def evaluate_result(group, cfg, clouds, state: dict, max_epochs: int = 2,
     from ssdr_al_torch.train.evaluator import Evaluator
 
     dev = _device(group, device)
-    step, st = _eval_step(cfg, state, dev, knn_engine)
+    step, st = _eval_step(cfg, state, dev, knn_engine, group)
     return Evaluator(cfg, clouds, max_epochs=max_epochs, group=group)(step,
                                                                       st)
 
@@ -319,7 +322,7 @@ def _dryrun_rank(group) -> dict:
         raise AssertionError("params did not update")
 
     new = {k: torch.from_numpy(v) for k, v in step["state"].items()}
-    eval_step, st = _eval_step(cfg, new, dev, "window")
+    eval_step, st = _eval_step(cfg, new, dev, "window", group)
     probs, penult, _ = eval_step(st, {k: group.shard_rows(batch[k])
                                       for k in ("xyz", "features")})
     unc = point_uncertainty(probs, "sb")

@@ -7,8 +7,10 @@ Network.evaluate_test_s3dis, RandLANet.py:290-424):
   - sub-cloud confusion rescaled by the true class proportions, or
     probabilities reprojected to the full-resolution points (`val_proj`)
   - OA and mIoU (IoU_from_confusions) over the clouds
-Probabilities come back from the device as float16, as in the JAX package,
-so both accumulate the same votes.
+Probabilities come back from the device as float16, as in the JAX package
+(its jitted _probs_f16), so both accumulate the same votes; the cast runs
+as one program with the eval step (trainer.fused_program: one replayed
+CUDA graph a batch shape on the card).
 """
 
 from __future__ import annotations
@@ -20,6 +22,13 @@ import numpy as np
 from ssdr_al_torch.data.cloud import Cloud
 from ssdr_al_torch.data.dataset import PossibilityEvalPipeline
 from ssdr_al_torch.train.metrics import confusion_matrix, iou_from_confusion
+from ssdr_al_torch.train.trainer import fused_program
+
+
+def _probs_f16(probs, penult, *order):
+    """(probs as float16[, order]) of an eval step's outputs
+    (ssdr_al_tpu/train/evaluator.py:29)."""
+    return (probs.half(), *order)
 
 
 def simple_evaluate(eval_step, state, batches, num_classes,
@@ -27,7 +36,8 @@ def simple_evaluate(eval_step, state, batches, num_classes,
     """Plain batched validation without vote smoothing (Network.evaluate,
     RandLANet.py:426-484): a confusion matrix over fixed batches, dropping
     ignored-label points (labels shifted down by their count). eval_step
-    returns torch tensors, as make_eval_step's does."""
+    returns torch tensors, as make_eval_step's does (on the card copies
+    of its graph's outputs, so each pending result is its own)."""
     conf = np.zeros((num_classes, num_classes), np.int64)
     correct = seen = 0
     pending = []
@@ -81,8 +91,11 @@ class Evaluator:
         self.group = group
 
     def __call__(self, eval_step, state):
-        """eval_step(state, batch) → (probs, penult[, order]) tensors."""
+        """eval_step(state, batch) → (probs, penult[, order]) tensors; the
+        float16 cast of probs runs fused onto it (fused_program), and each
+        pending result is a tensor of its own."""
         cfg = self.cfg
+        step = fused_program(eval_step, "probs_f16", _probs_f16)
         pipe = PossibilityEvalPipeline(self.clouds, cfg, seed=self.seed)
         test_probs = [np.zeros((c.num_points, cfg.num_classes), np.float32)
                       for c in self.clouds]
@@ -98,11 +111,11 @@ class Evaluator:
             pending = []
             for _ in range(cfg.val_steps):
                 batch = pipe.get_batch(bs)
-                res = eval_step(state, batch if group is None else {
+                res = step(state, batch if group is None else {
                     k: group.shard_rows(batch[k])
                     for k in ("xyz", "features")})
-                pending.append((batch, res[0].half(),
-                                res[2] if len(res) == 3 else None))
+                pending.append((batch, res[0],
+                                res[1] if len(res) == 2 else None))
                 if pipe.global_min > last_min + 1:
                     break
             results = [(probs.cpu().numpy(),       # [B, N, C] float16

@@ -15,14 +15,17 @@ host syncs do, and a capture that fails raises. The kernel launch counts
 nothing, and added at every replay.
 
 The coreGCN fit (active/gcn.py) replays one captured step; a round's
-train steps (train/trainer.py::Trainer.train_round) run through StepGraph.
-Data-parallel steps and CPU tensors stay eager.
+train steps (train/trainer.py::Trainer.train_round) run through StepGraph;
+the eval step and the programs fused onto it (train/trainer.py::
+EvalStep) through ForwardGraphs. Data-parallel steps and CPU tensors stay
+eager.
 """
 
 from __future__ import annotations
 
+import collections
 import time
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Hashable, Sequence
 
 import torch
 
@@ -33,6 +36,11 @@ from ssdr_al_torch.kernels import counts
 # 12 % a step, graphs of 50 and 250 lost time, eager steps took 5-10× as
 # long as one captured step replayed
 GRAPH_WARMUP = 3
+# captured forwards an eval step keeps (ForwardGraphs), the least recently
+# used dropped first: a trainer's evaluation and selection shapes, with
+# room for two more (JAX keeps 8 fused selection programs an eval step,
+# ssdr_al_tpu/active/samplers.py:125)
+FORWARD_GRAPHS = 4
 
 
 class Graph:
@@ -92,6 +100,20 @@ def capture_steps(step: Callable, n: int, warmup: int,
     return graph
 
 
+def measured_capture(step: Callable, generators: Sequence[torch.Generator],
+                     device):
+    """(Graph, out, capture_s, capture_bytes): capture() timed, and the
+    memory its pool reserved. torch.cuda.graph empties the cache too, so
+    what the capture reserves past an emptied cache is its pool."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    graph, out = capture(step, generators, device)
+    return (graph, out, time.perf_counter() - t0,
+            torch.cuda.memory_reserved(device) - reserved)
+
+
 class StepGraph:
     """A train step as a replayed CUDA graph. step() runs one step from
     static tensors that the caller fills before each call and returns its
@@ -118,17 +140,8 @@ class StepGraph:
             if self.eager_steps < GRAPH_WARMUP:
                 self.eager_steps += 1
                 return warm(self.step, self.device)
-            # torch.cuda.graph empties the cache too: what the capture
-            # reserves past this is its pool
-            torch.cuda.synchronize(self.device)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
-            t0 = time.perf_counter()
-            self.graph, self.outputs = capture(self.step, self.generators,
-                                               self.device)
-            self.capture_s = time.perf_counter() - t0
-            self.capture_bytes = torch.cuda.memory_reserved(self.device) \
-                - reserved
+            self.graph, self.outputs, self.capture_s, self.capture_bytes = \
+                measured_capture(self.step, self.generators, self.device)
         self.graph.replay()
         return self.outputs
 
@@ -142,3 +155,79 @@ class StepGraph:
                     capture_bytes=self.capture_bytes,
                     launches={k: v for k, v in (g.launches if g else {})
                               .items() if v})
+
+
+class _Forward:
+    """One captured forward of ForwardGraphs: its staged inputs, graph and
+    static outputs, what it keeps alive, and its pool's bytes."""
+
+    def __init__(self, inputs, graph: Graph, outputs, keep, capture_bytes):
+        self.inputs = inputs
+        self.graph = graph
+        self.outputs = outputs
+        self.keep = keep
+        self.capture_bytes = capture_bytes
+
+
+class ForwardGraphs:
+    """Eval-mode programs as replayed CUDA graphs, one capture per static
+    key, kept across calls: the counterpart of JAX's cache of the jitted
+    eval step and of its lru_cache of fused selection programs
+    (ssdr_al_tpu/active/samplers.py:125), which live on the eval step
+    object across evaluations and rounds.
+
+    call(key, make, batch): `key` names what a capture depends on (the
+    program, the input shapes, the data pointers of the state it reads);
+    make() → (inputs, fn, keep) is called at a new key: `inputs` has
+    stage(batch) that writes the batch into static device tensors, fn()
+    runs the program from them and returns its output tensors, and `keep`
+    (the state read) stays referenced while the capture lives, so that its
+    addresses cannot be reused by other tensors. A new key stages the
+    batch, runs GRAPH_WARMUP eager calls (warm) and captures fn() (a
+    failed capture raises); every call then stages its batch and replays.
+    A call returns copies of the static outputs, made on the device in
+    stream order: the next replay overwrites the static outputs, never
+    what a caller holds. The programs read no generator. At most
+    FORWARD_GRAPHS captures are kept, the least recently used dropped
+    first, with its pool."""
+
+    def __init__(self, device):
+        self.device = device
+        self.forwards: "collections.OrderedDict[Hashable, _Forward]" = \
+            collections.OrderedDict()
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
+
+    def __call__(self, key: Hashable, make: Callable, batch):
+        fwd = self.forwards.get(key)
+        if fwd is None:
+            inputs, fn, keep = make()
+            inputs.stage(batch)
+            for _ in range(GRAPH_WARMUP):
+                warm(fn, self.device)
+            graph, outputs, capture_s, capture_bytes = measured_capture(
+                fn, (), self.device)
+            fwd = self.forwards[key] = _Forward(inputs, graph, outputs, keep,
+                                                capture_bytes)
+            self.captures += 1
+            self.capture_s += capture_s
+            while len(self.forwards) > FORWARD_GRAPHS:
+                self.forwards.popitem(last=False)
+        else:
+            self.forwards.move_to_end(key)
+            fwd.inputs.stage(batch)
+        fwd.graph.replay()
+        self.replays += 1
+        return tuple(o.clone() for o in fwd.outputs)
+
+    def stats(self) -> dict:
+        """{captures, replays, capture_s (all captures'), graphs (kept),
+        capture_bytes (the kept graphs' pools), launches (each kept
+        graph's kernel launches a replay)}."""
+        return dict(captures=self.captures, replays=self.replays,
+                    capture_s=self.capture_s, graphs=len(self.forwards),
+                    capture_bytes=sum(f.capture_bytes
+                                      for f in self.forwards.values()),
+                    launches=[{k: v for k, v in f.graph.launches.items() if v}
+                              for f in self.forwards.values()])

@@ -30,7 +30,14 @@ parameters and Adam moments must be bitwise equal; the learning rate
 decays after the warm-up (steps_per_epoch = GRAPH_WARMUP + 1), so the
 replays cross an epoch boundary; the last replay runs under
 torch.profiler, and its trace must hold K1's, K2's and K4's device
-kernels (TRACED) as often as the graph's launch counts say. `--profile` runs the two host steps under
+kernels (TRACED) as often as the graph's launch counts say. Then the
+eval replays (`eval_replay_paths`, CUDA only): on the `window` and
+`pallas` engines at S3DIS [20 × 40960] and Semantic3D [16 × 65536] eval
+shapes, 20 calls of make_eval_step's graph (a capture, then replays)
+each bitwise equal to the eager call on the same validation batch, one
+InferenceRunner group the same through the graph and eagerly, and the
+last replay's trace holding K1's, K2's and K6's kernels as counted.
+`--profile` runs the two host steps under
 torch.profiler and lists every device kernel launched inside the
 backward (under an `autograd::engine::evaluate_function` op) whose name
 holds "atomic" or "scatter", with the backward op that launched it and
@@ -303,6 +310,154 @@ def replay_paths(dev, paths=PATHS, replays=20, log=print, **kw) -> dict:
     return out
 
 
+# the eval forward's device kernels that a trace of a replay must hold,
+# each with its names in the trace and the launch counts it stands for:
+# one K1 or K5 launch is one window_topk_kernel, one K2 launch one
+# gather_window_kernel, one K6 launch one walk or brute-force kernel
+EVAL_TRACED = {
+    "window_topk": (("window_topk_kernel",), ("window_topk",
+                                              "window_topk_mxu")),
+    "gather_window": (("gather_window_kernel",), ("gather_window",
+                                                  "gather_window_bf16")),
+    "knn_tiled": (("knn_walk_kernel", "knn_brute_kernel"),
+                  ("knn_tiled", "knn_tiled_k64"))}
+EVAL_ENGINES = ("window", "pallas")
+
+
+def traced_eval_kernels(fn) -> dict:
+    """{EVAL_TRACED kernel: device launches} in a torch.profiler trace of
+    fn() on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(any(s in n for s in subs) for n in names)
+            for k, (subs, _) in EVAL_TRACED.items()}
+
+
+def eval_batches(cfg, clouds, calls, seed=0) -> list:
+    """`calls` validation batches of cfg.val_batch_size blocks
+    (PossibilityEvalPipeline over `clouds`)."""
+    from ssdr_al_torch.data.dataset import PossibilityEvalPipeline
+
+    pipe = PossibilityEvalPipeline(clouds, cfg, seed=seed)
+    return [pipe.get_batch(cfg.val_batch_size) for _ in range(calls)]
+
+
+def eval_replay_check(dev, cfg, engine, clouds, batches, seed=0) -> dict:
+    """make_eval_step's graph against its eager form on each of `batches`
+    (eval_batches over `clouds`), at weights spread at O(1) scale (seed
+    `seed`): the first call captures, the rest replay, each compared bit
+    for bit with the eager call on the same batch; then
+    InferenceRunner.run_many over the
+    first cloud (one group of chunks, the selection's fused program)
+    through the graph and eagerly, compared bit for bit; the last replay
+    of the eval step runs under torch.profiler (traced_eval_kernels)
+    against the launches the counts add a replay. {"equal", "differing",
+    "runner_equal", "traced", "counted", "traced_ok", "eager_ms",
+    "graph_ms" (medians to a synchronize), "stats"}."""
+    import statistics
+    import time
+
+    import numpy as np
+
+    from ssdr_al_torch.active.samplers import InferenceRunner
+    from ssdr_al_torch.kernels import counts
+    from ssdr_al_torch.models.randlanet import RandLANet, init_params
+    from ssdr_al_torch.train.grad_check import spread_weights
+    from ssdr_al_torch.train.trainer import make_eval_step
+
+    state = {k: v.to(dev) for k, v in spread_weights(init_params(
+        cfg, torch.Generator().manual_seed(0)), seed).items()}
+    model = RandLANet(cfg).to(dev)
+    steps = {m: make_eval_step(model, cfg, engine, True, device=dev,
+                               eager=m == "eager")
+             for m in ("eager", "graph")}
+    differing, times = [], {m: [] for m in steps}
+    traced = counted = None
+    for i, batch in enumerate(batches):
+        out = {}
+        for m, step in steps.items():
+            last = m == "graph" and i == len(batches) - 1
+            if last:
+                before = counts.read()
+                traced = traced_eval_kernels(lambda: out.update(
+                    graph=step(state, batch)))
+                launched = counts.since(before)
+                counted = {k: sum(launched[c] for c in keys)
+                           for k, (_, keys) in EVAL_TRACED.items()}
+                continue
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out[m] = step(state, batch)
+            torch.cuda.synchronize(dev)
+            if i:
+                times[m].append(1e3 * (time.perf_counter() - t0))
+        if not all(torch.equal(a, b) for a, b in zip(out["eager"],
+                                                    out["graph"])):
+            differing.append(i)
+    runs = {}
+    for m, step in steps.items():
+        runner = InferenceRunner(cfg, clouds[:1], step, state, "sb", seed=1,
+                                 device=dev)
+        inf = runner.run_many(clouds[:1])[clouds[0].name]
+        runs[m] = (inf.prob_class, inf.uncertainty, inf.penult)
+    runner_equal = all(np.array_equal(a, b)
+                       for a, b in zip(runs["eager"], runs["graph"]))
+    return {"equal": not differing, "differing": differing,
+            "runner_equal": runner_equal, "traced": traced,
+            "counted": counted,
+            "traced_ok": traced == counted and any(traced.values()),
+            "eager_ms": statistics.median(times["eager"]),
+            "graph_ms": statistics.median(times["graph"]),
+            "stats": steps["graph"].stats()}
+
+
+def eval_replay_paths(dev, clouds_by_dataset=None, calls=20,
+                      engines=EVAL_ENGINES, log=print) -> dict:
+    """eval_replay_check on each engine at each dataset's eval shape, on
+    `calls` batches made once a dataset
+    (val_batch_size x num_points: S3DIS [20 x 40960] on one validation room
+    of S3DIS_ROOM_POINTS points, Semantic3D [16 x 65536] on one cloud of
+    S3D_CLOUD_POINTS); clouds_by_dataset: {"S3DIS" | "Semantic3D":
+    (cfg, clouds)} in place of those. {"<dataset> <engine>": result}."""
+    from ssdr_al_torch import config
+    from ssdr_al_torch.data.synthetic import make_dataset
+
+    if clouds_by_dataset is None:
+        clouds_by_dataset = {
+            "S3DIS": (config.ConfigS3DIS, make_dataset(
+                num_train=0, num_val=1, num_points=S3DIS_ROOM_POINTS,
+                seed=2, hard=True)[1]),
+            "Semantic3D": (config.ConfigSemantic3D, make_dataset(
+                num_train=0, num_val=1, num_points=S3D_CLOUD_POINTS,
+                seed=3, hard=True)[1])}
+    out = {}
+    for name, (cfg, clouds) in clouds_by_dataset.items():
+        batches = eval_batches(cfg, clouds, calls)
+        for engine in engines:
+            r = out[f"{name} {engine}"] = eval_replay_check(
+                dev, cfg, engine, clouds, batches)
+            st = r["stats"]
+            log(f"eval replays {name} {engine} [{cfg.val_batch_size}x"
+                f"{cfg.num_points}]: {st['replays']} calls of one capture "
+                + ("bitwise equal to the eager calls" if r["equal"] else
+                   f"DIFFER from the eager calls at {r['differing']}")
+                + ", InferenceRunner group "
+                + ("equal" if r["runner_equal"] else "DIFFERS")
+                + f"; eager {r['eager_ms']:.3f} ms, graph "
+                f"{r['graph_ms']:.3f} ms (medians to a synchronize), "
+                f"capture {st['capture_s']:.3f} s, pools "
+                f"{st['capture_bytes'] / 2**30:.2f} GiB; the last replay's "
+                "trace " + ("holds" if r["traced_ok"] else "DOES NOT hold")
+                + f" {r['traced']} (counted {r['counted']})")
+    return out
+
+
 def repeat_paths(dev, paths=PATHS, log=print, **kw) -> dict:
     """repeat_step on each path of path_steps; {path: result}."""
     out = {}
@@ -382,6 +537,7 @@ def main() -> int:
     out = {"paths": repeat_paths(dev, paths)}
     if dev.type == "cuda":
         out["replays"] = replay_paths(dev, paths)
+        out["eval_replays"] = eval_replay_paths(dev)
     if a.profile:
         out["backward_kernels"] = profile_host(dev)
     line = json.dumps(out)
@@ -391,7 +547,8 @@ def main() -> int:
             f.write(line + "\n")
     print(line)
     return 0 if all(r["equal"] and r.get("traced_ok", True)
-                    for group in ("paths", "replays")
+                    and r.get("runner_equal", True)
+                    for group in ("paths", "replays", "eval_replays")
                     for r in out.get(group, {}).values()) else 1
 
 

@@ -48,13 +48,19 @@ made on the card): extract_blocks and possibility_extract by CUDA events,
 the torch.sort inside each, and the peak device memory each takes beyond
 its inputs, per block row (the pool's memory gate counts
 EXTRACT_BYTES_PER_ROW). `--eval-steps` measures only eval steps
-(`make_eval_step`) at ConfigS3DIS width [8 × 40960] on the exact engine
-(`pallas`, K6), on `approx` (served by the same search), on `window`
-(K1) and on `window` with K5
-(`MXU_DISTANCE_DEFAULT`), random weights (`init_params`, seed 0) on one
-random batch: each step by the host clock from its call to a
-synchronize, its numpy batch's upload included, the median and the
-range of 20 steps after 3 warm-up steps. `--dtype bfloat16` measures only
+(`make_eval_step`, sorted_outputs=False) at ConfigS3DIS width [8 × 40960]
+on the exact engine (`pallas`, K6), on `approx` (served by the same
+search), on `window` (K1) and on `window` with K5
+(`MXU_DISTANCE_DEFAULT`), in float32 and bfloat16, random weights
+(`init_params`, seed 0) on one random batch: the eager step (its numpy
+batch staged through pinned buffers) and the same step as replayed CUDA
+graphs in turns (in_turns: each call by the host clock to a synchronize,
+the median and the range of 20 calls after 3 warm-up calls, the capture
+among them), each with its busy share, kernels and host launches a
+call, and the graph's capture time and pool bytes; then the selection's
+prediction (TSampler.prediction) on the smoke's S3DIS rooms, eager
+against graph in turns (prediction_times). A tree without the eval
+graphs measures its eager steps only. `--dtype bfloat16` measures only
 --compute_dtype bfloat16 beside float32: the pooled train step [6 × 40960]
 (al_loop's default path) and the `window` eval step [8 × 40960], each
 dtype on its own Trainer / model from the same random weights, the two
@@ -476,38 +482,143 @@ def round_walls(dev, epochs=2, steps=25, work="build/step_times", log=print):
     return out
 
 
-def eval_steps(dev, steps=20, warmup=3, log=print):
-    """The eval-step medians of the `--eval-steps` mode (module
-    docstring); returns {engine: {...}}."""
+EVAL_ENGINES = (("pallas", "pallas", False), ("approx", "approx", False),
+                ("window", "window", False), ("window_k5", "window", True))
+# the selection's forward on the smoke's S3DIS workload: grid superpoints
+# a room, and the TSampler round's arguments
+PREDICTION_SP, PREDICTION_RUNS = 2048, 5
+SSDR_ARGS = ["t0", "sb", "clsbal", "gcn_fps", "WetSU", "NAIL", "0.9", "1",
+             "1", "0"]
+
+
+def eval_modes(model, cfg, engine, dev, sorted_outputs=False):
+    """{"eager": make_eval_step's eval step run eagerly, "graph": the
+    same as replayed CUDA graphs}, or only "eager" on a tree without the
+    eval graphs."""
+    from ssdr_al_torch.train.trainer import make_eval_step
+
+    try:
+        eager = make_eval_step(model, cfg, engine, sorted_outputs,
+                               device=dev, eager=True)
+    except TypeError:                     # a tree without the eval graphs
+        return {"eager": make_eval_step(model, cfg, engine, sorted_outputs,
+                                        device=dev)}
+    return {"eager": eager, "graph": make_eval_step(
+        model, cfg, engine, sorted_outputs, device=dev)}
+
+
+def eval_steps(dev, steps=20, warmup=3, work="build/step_times", log=print):
+    """The `--eval-steps` readings (module docstring): {"<engine>
+    <dtype>": {"eager": {...}, "graph": {...}, "peak_bytes"},
+    "prediction": prediction_times}."""
+    import dataclasses
+
     import numpy as np
 
     from ssdr_al_torch import config
     from ssdr_al_torch.models.randlanet import RandLANet, init_params
     from ssdr_al_torch.ops import knn as kn
-    from ssdr_al_torch.train.trainer import make_eval_step
+
+    n = config.ConfigS3DIS.num_points
+    rng = np.random.RandomState(0)
+    xyz = (rng.rand(8, n, 3) * 6).astype(np.float32)
+    batch = {"xyz": xyz, "features": np.concatenate(
+        [xyz, rng.rand(8, n, 3).astype(np.float32)], -1)}
+    state = {k: v.to(dev) for k, v in init_params(
+        config.ConfigS3DIS, torch.Generator().manual_seed(0)).items()}
+    out = {}
+    for dt in DTYPES:
+        cfg = dataclasses.replace(config.ConfigS3DIS, compute_dtype=dt)
+        model = RandLANet(cfg).to(dev)
+        for name, engine, mxu in EVAL_ENGINES:
+            torch.cuda.reset_peak_memory_stats(dev)
+            steps_by_mode = eval_modes(model, cfg, engine, dev)
+            calls = {m: (lambda i, f=f: f(state, batch))
+                     for m, f in steps_by_mode.items()}
+            kn.MXU_DISTANCE_DEFAULT = mxu
+            try:
+                r = in_turns(calls, steps, warmup)
+                for m, f in calls.items():
+                    r[m].update(busy_share(lambda: f(0)))
+            finally:
+                kn.MXU_DISTANCE_DEFAULT = False
+            if "graph" in steps_by_mode:
+                r["graph"].update(steps_by_mode["graph"].stats())
+            r["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            out[f"{name} {dt}"] = r
+            log(f"eval step {name} {dt} [8x{n}], eager and graph in turns: "
+                + json.dumps(r))
+            del steps_by_mode, calls
+            torch.cuda.empty_cache()
+    out["prediction"] = prediction_times(dev, work, log=log)
+    return out
+
+
+def prediction_times(dev, work="build/step_times", runs=PREDICTION_RUNS,
+                     log=print):
+    """TSampler.prediction (the selection's forward over every training
+    room, its per-point reductions and region scores) at ConfigS3DIS on
+    the smoke's S3DIS workload (S3DIS_ROOMS hard rooms of
+    S3DIS_ROOM_POINTS points, PREDICTION_SP grid superpoints a room, the
+    seed round's registry), init weights of seed 0, `window` engine: with
+    the eval step run eagerly and as graphs (eval_modes), in turns after
+    one untimed prediction each, `runs` each by the host clock to a
+    synchronize, then the device-busy share of one each (busy_share);
+    {mode: {median_s, min_s, max_s, runs, ...busy_share}}."""
+    import shutil
+
+    from ssdr_al_torch import config
+    from ssdr_al_torch.active.samplers import (
+        SeedSampler,
+        TSampler,
+        TSamplerArgs,
+    )
+    from ssdr_al_torch.active.state import ALState, RoundStats
+    from ssdr_al_torch.cli.common import write_grid_superpoints
+    from ssdr_al_torch.data.synthetic import make_dataset
+    from ssdr_al_torch.models.randlanet import RandLANet, init_params
 
     cfg = config.ConfigS3DIS
-    rng = np.random.RandomState(0)
-    xyz = (rng.rand(8, cfg.num_points, 3) * 6).astype(np.float32)
-    batch = {"xyz": xyz, "features": np.concatenate(
-        [xyz, rng.rand(8, cfg.num_points, 3).astype(np.float32)], -1)}
+    root = os.path.join(work, "prediction")
+    shutil.rmtree(root, ignore_errors=True)
+    rooms, _ = make_dataset(num_train=S3DIS_ROOMS, num_val=0,
+                            num_points=S3DIS_ROOM_POINTS, seed=0, hard=True)
+    total = write_grid_superpoints(ALState(root, []), rooms, PREDICTION_SP)
+    seed_state = ALState(root, ["seed"])
+    SeedSampler(seed_state, rooms, total["sp_num"]).sampling(
+        total["sp_num"] // 20, 0, RoundStats())
+    registry = seed_state.load_registry(seed_state.round_dir(1))
+    sampler = TSampler(ALState(root, SSDR_ARGS), rooms, cfg, TSamplerArgs(),
+                       total["sp_num"], device=dev)
     state = {k: v.to(dev) for k, v in init_params(
         cfg, torch.Generator().manual_seed(0)).items()}
-    model = RandLANet(cfg).to(dev)
+    steps_by_mode = eval_modes(RandLANet(cfg).to(dev), cfg, "window", dev,
+                               sorted_outputs=True)
+
+    def predict(step):
+        sampler.prediction(step, state, registry, 2, RoundStats())
+
+    times = {m: [] for m in steps_by_mode}
+    for m, step in steps_by_mode.items():
+        predict(step)
+    for _ in range(runs):
+        for m, step in steps_by_mode.items():
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            predict(step)
+            torch.cuda.synchronize(dev)
+            times[m].append(time.perf_counter() - t0)
     out = {}
-    for name, engine, mxu in (("pallas", "pallas", False),
-                              ("approx", "approx", False),
-                              ("window", "window", False),
-                              ("window_k5", "window", True)):
-        step = make_eval_step(model, cfg, engine, False, device=dev)
-        kn.MXU_DISTANCE_DEFAULT = mxu
-        try:
-            out[name] = timed_steps(lambda i: step(state, batch), steps,
-                                    warmup)
-        finally:
-            kn.MXU_DISTANCE_DEFAULT = False
-        log(f"eval step {name} [8x{cfg.num_points}]: "
-            + json.dumps(out[name]))
+    for m, v in times.items():
+        out[m] = dict(median_s=statistics.median(v), min_s=min(v),
+                      max_s=max(v), runs=len(v))
+        out[m].update(busy_share(lambda: predict(steps_by_mode[m]), reps=1))
+    if "graph" in steps_by_mode:
+        out["graph"].update(steps_by_mode["graph"].stats())
+    log(f"selection prediction on {S3DIS_ROOMS} rooms x {S3DIS_ROOM_POINTS} "
+        f"points ({total['sp_num']} superpoints), eager and graph in turns: "
+        + json.dumps(out))
+    shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -726,7 +837,9 @@ def main() -> int:
                          "EXTRACT_SWEEP_POINTS")
     ap.add_argument("--eval-steps", action="store_true",
                     help="measure only the eval steps [8 x 40960] on the "
-                         "pallas, approx, window and window + K5 engines")
+                         "pallas, approx, window and window + K5 engines "
+                         "in f32 and bf16, eager and as graphs, and the "
+                         "selection's prediction")
     ap.add_argument("--dtype", choices=["bfloat16"],
                     help="measure only the pooled train step [6 x 40960] "
                          "and the window eval step [8 x 40960] in this "
@@ -758,7 +871,8 @@ def main() -> int:
     if args.extract_sweep:
         res = {"extraction": extraction_sweep(dev)}
     elif args.eval_steps:
-        res = {"eval_steps": eval_steps(dev)}
+        res = {"eval_steps": eval_steps(dev, work=os.path.join(
+            tree, "build", "step_times"))}
     elif args.gcn_fit:
         res = {"gcn_fit": gcn_fit_times(dev)}
     elif args.eager:

@@ -24,6 +24,10 @@ Trainer's Adam on one card is capturable with a device learning rate
 are the same arithmetic. The CPU and data-parallel steps stay eager,
 with a float rate: the CPU has no graphs, and a dp step's collectives
 run over gloo or NCCL process groups outside any graph (ROADMAP.md §3).
+The eval step (EvalStep) and the programs fused onto it (the
+evaluation's f16 cast, the selection's reductions) run on the card as
+replayed CUDA graphs too, one capture per input shape and state, kept
+across rounds as JAX keeps its jitted eval step (:344).
 
 A model state is the RandLANet module itself (parameters and BatchNorm
 statistics) on the device; checkpoints are its `state_dict` saved with
@@ -59,15 +63,17 @@ from ssdr_al_torch.models.randlanet import (
     set_data_group,
 )
 from ssdr_al_torch.ops import gather as gather_ops
+from ssdr_al_torch.ops import knn as knn_ops
 from ssdr_al_torch.train.device_pool import shuffle_blocks
 from ssdr_al_torch.train.flax_snapshot import load_flax_snapshot
-from ssdr_al_torch.train.graphs import StepGraph
+from ssdr_al_torch.train.graphs import ForwardGraphs, StepGraph
 from ssdr_al_torch.train.possibility_pool import (
     PossibilityDevicePool,
     possibility_extract,
 )
 
-__all__ = ["init_params", "make_eval_step", "make_train_step",
+__all__ = ["init_params", "make_eval_step", "EvalStep", "fused_program",
+           "make_train_step",
            "make_pooled_train_step", "make_possibility_pooled_train_step",
            "make_static_step", "StagedInputs", "make_lr_schedule",
            "TrainState", "create_train_state", "reset_optimizer", "set_lr",
@@ -398,12 +404,126 @@ def make_possibility_pooled_train_step(
     return step
 
 
+EVAL_INPUTS = {"xyz": torch.float32, "features": torch.float32}
+
+
+class EvalStep:
+    """make_eval_step's eval step: eval_step(state, batch) → (probs,
+    penult[, order]), and fused(name, tail), the same forward with `tail`
+    applied to its outputs as one program.
+
+    On the card every call runs as a replayed CUDA graph
+    (train/graphs.py::ForwardGraphs, on `graphs`), as JAX jits its eval
+    step (ssdr_al_tpu/train/trainer.py:344) and fuses the selection's
+    reductions onto it (ssdr_al_tpu/active/samplers.py:146): one capture
+    per program, input shapes, addresses of the state's tensors and K5
+    switch (ops.knn.MXU_DISTANCE_DEFAULT), kept across calls, evaluations
+    and rounds. A call returns copies of the graph's outputs, which the
+    next replay does not touch. A Trainer's state keeps its addresses
+    (Trainer.state is the model's state_dict, and restore_model copies in
+    place), so its evaluations and selections replay one capture a shape;
+    a state of other tensors gets a capture of its own, never a replay of
+    stale weights.
+
+    The CPU, a data-parallel group (each rank's forward runs on its rows
+    of the batch, eagerly, as its train steps do), SSDR_DEBUG_WINDOW_GUARD
+    (its clamp count reads back at every gather, a host sync a capture
+    refuses) and eager=True (measurement) run the same body eagerly; on
+    the card their numpy batches are staged through pinned buffers
+    (StagedInputs), as the train step's are."""
+
+    def __init__(self, model: RandLANet, cfg: Config, knn_engine: str,
+                 sorted_outputs: bool, device: torch.device, group=None,
+                 eager: bool = False):
+        self.model = model
+        self.cfg = cfg
+        self.knn_engine = knn_engine
+        self.sorted_outputs = sorted_outputs
+        self.device = device
+        self.graphs = (ForwardGraphs(device) if device.type == "cuda"
+                       and group is None and not eager else None)
+        self._staged = {}
+
+    def body(self, state, xyz, feats):
+        """(probs, penult[, order]) of the forward of [B, N, 3] xyz and
+        [B, N, 6] features on the device."""
+        self.model.eval()
+        with torch.inference_mode():
+            pyramid = build_pyramid(xyz, self.cfg, engine=self.knn_engine)
+            sorted_mode = self.sorted_outputs and isinstance(pyramid,
+                                                             SortedPyramid)
+            logits, penult = functional_call(
+                self.model, state, (feats, pyramid),
+                {"unsort": not sorted_mode})
+            probs = torch.softmax(logits, dim=-1)
+            if not self.sorted_outputs:
+                return probs, penult
+            if sorted_mode:
+                order = pyramid.order
+            else:
+                b, n = xyz.shape[:2]
+                order = torch.arange(n, dtype=torch.int32,
+                                     device=xyz.device).repeat(b, 1)
+            return probs, penult, order
+
+    def __call__(self, state, batch):
+        return self._run(state, batch, None, None)
+
+    def fused(self, name: str, tail: Callable):
+        """program(state, batch) → tail(*eval_step(state, batch)): the
+        forward and `tail` as one program, one graph a key on the card;
+        `name` tells the programs of one eval step apart."""
+        return lambda state, batch: self._run(state, batch, name, tail)
+
+    def _run(self, state, batch, name, tail):
+        def program(xyz, feats):
+            out = self.body(state, xyz, feats)
+            if tail is None:
+                return out
+            with torch.inference_mode():
+                return tuple(tail(*out))
+
+        if self.graphs is None or gather_ops.DEBUG_WINDOW_GUARD:
+            return program(*self._eager_inputs(batch))
+        key = (name, tuple(tuple(batch[k].shape) for k in EVAL_INPUTS),
+               tuple((k, v.data_ptr()) for k, v in state.items()),
+               knn_ops.MXU_DISTANCE_DEFAULT)
+
+        def make():
+            inputs = StagedInputs(self.device, EVAL_INPUTS)
+            return (inputs, lambda: program(inputs["xyz"], inputs["features"]),
+                    tuple(state.values()))
+
+        return self.graphs(key, make, batch)
+
+    def _eager_inputs(self, batch):
+        if self.device.type != "cuda":
+            return tuple(_tensor(batch[k], dt, self.device)
+                         for k, dt in EVAL_INPUTS.items())
+        shapes = tuple(tuple(batch[k].shape) for k in EVAL_INPUTS)
+        inputs = self._staged.get(shapes)
+        if inputs is None:
+            inputs = self._staged[shapes] = StagedInputs(self.device,
+                                                          EVAL_INPUTS)
+        inputs.stage(batch)
+        return tuple(inputs[k] for k in EVAL_INPUTS)
+
+    def stats(self) -> dict:
+        """ForwardGraphs.stats() of the graphs, or {} where it runs
+        eagerly."""
+        return {} if self.graphs is None else self.graphs.stats()
+
+
 def make_eval_step(model: RandLANet, cfg: Config, knn_engine: str = "window",
                    sorted_outputs: bool = True, *,
-                   device: torch.device | str = DEFAULT_DEVICE):
-    """Return eval_step(state, batch) → (probs, penult[, order]).
+                   device: torch.device | str = DEFAULT_DEVICE, group=None,
+                   eager: bool = False) -> EvalStep:
+    """Return eval_step(state, batch) → (probs, penult[, order]), an
+    EvalStep (on the card a replayed CUDA graph; its docstring says when
+    it runs eagerly).
 
-    batch: {"xyz": [B, N, 3], "features": [B, N, 6]} numpy or tensors;
+    batch: {"xyz": [B, N, 3], "features": [B, N, 6]} numpy arrays (or
+    CPU tensors);
     state: a state_dict of `model` on `device`. probs are the softmax of
     the logits, penult the 32-d penultimate features.
 
@@ -411,30 +531,21 @@ def make_eval_step(model: RandLANet, cfg: Config, knn_engine: str = "window",
     leaves probs and penult in morton-sorted row order (row r is input row
     order[r]); callers permute their host index maps instead of the device
     rows. On an original-order Pyramid (every engine but "window") order
-    is the identity."""
-    device = resolve_device(device)
+    is the identity. group: the data-parallel group of the ranks that call
+    it (eager); eager=True: the eager form on the card too, for
+    measurement."""
+    return EvalStep(model, cfg, knn_engine, sorted_outputs,
+                    resolve_device(device), group, eager)
 
-    def eval_step(state, batch):
-        xyz = _tensor(batch["xyz"], torch.float32, device)
-        feats = _tensor(batch["features"], torch.float32, device)
-        model.eval()
-        with torch.inference_mode():
-            pyramid = build_pyramid(xyz, cfg, engine=knn_engine)
-            sorted_mode = sorted_outputs and isinstance(pyramid, SortedPyramid)
-            logits, penult = functional_call(
-                model, state, (feats, pyramid), {"unsort": not sorted_mode})
-            probs = torch.softmax(logits, dim=-1)
-            if not sorted_outputs:
-                return probs, penult
-            if sorted_mode:
-                order = pyramid.order
-            else:
-                b, n = xyz.shape[:2]
-                order = torch.arange(n, dtype=torch.int32,
-                                     device=device).expand(b, n)
-            return probs, penult, order
 
-    return eval_step
+def fused_program(eval_step, name: str, tail: Callable):
+    """program(state, batch) → tail(*eval_step(state, batch)): one
+    program where eval_step is make_eval_step's (EvalStep.fused), else
+    the two calls in turn."""
+    fused = getattr(eval_step, "fused", None)
+    if fused is not None:
+        return fused(name, tail)
+    return lambda state, batch: tuple(tail(*eval_step(state, batch)))
 
 
 def save_checkpoint(path: str, state: dict):
@@ -499,7 +610,7 @@ class Trainer:
         self.possibility_step = make_possibility_pooled_train_step(
             self.model, cfg, self.weights, knn_engine, device=self.device)
         self.eval_step = make_eval_step(self.model, cfg, knn_engine, True,
-                                        device=self.device)
+                                        device=self.device, group=group)
         # Adam's capturable form where the steps are graphs (train_round)
         self.train_state = create_train_state(
             self.model, cfg, self.steps_per_epoch,
