@@ -29,7 +29,7 @@ ConfigSemantic3D width ([4 × 65536]): seed labels,
 round-1 training on the PossibilityDevicePool with evaluation, a
 full-SSDR selection round (K3) and round-2 training on the pool; one
 SemanticKITTI train step and eval step at its width ([6 × 45056], 4
-layers); and the median of 20 warm steps of the host-pipeline and pooled
+layers); and the median of 10 warm steps of the host-pipeline and pooled
 S3DIS steps, the possibility-pooled Semantic3D step and the bf16 pooled
 step, each eager and as CUDA-graph replays in turns, with the
 device-busy share, launches and capture cost
@@ -70,7 +70,16 @@ replay phase (20 calls of the eval step's CUDA graph against 20 eager
 eval steps and one InferenceRunner group through the graph and eagerly,
 bitwise, on `window` and `pallas` at the S3DIS [20 x 40960] and
 Semantic3D [16 x 65536] eval shapes, the last replay traced:
-repeat_check.eval_replay_paths), one warm
+repeat_check.eval_replay_paths), the selection at the reference's scale
+(selection_scale_phase: the twin of scripts/profile_selection.py, 200
+rooms of 4096 points, ~46 000 superpoints, 10 000 clicks; for the
+gcn_fps branch, and for gcn and edcd at 50 rooms, a warm round, then
+the next round with
+the selection forward and the greedy loops (farthest-feature,
+farthest-superpoint, k-center) replayed as CUDA graphs and again eagerly
+from the same registry, the two rounds' files identical, with each
+round's phases and loops, and K3 at the gcn_fps round's call beside its
+plain version), one warm
 train step under
 utils/logging.py::device_trace (its Chrome trace under build/ must name
 K2's and K4's kernels), and the sampler ablation twin
@@ -164,6 +173,16 @@ DRIVER_ROOMS, DRIVER_EPOCHS, DRIVER_STEPS = 2, 1, 4
 # and the AL round's depth, the AL round's budget of superpoints
 PART_TRAIN_ROOMS, PART_VAL_ROOMS = 2, 1
 PART_EPOCHS, PART_STEPS, PART_BUDGET = 1, 4, 400
+# the selection at the reference's scale (scripts/profile_selection.py's
+# defaults: 200 rooms of 4096 points, ~46 000 grid superpoints, 10 000
+# clicks a round); the gcn and edcd rounds at SCALE_BRANCH_CLOUDS rooms,
+# as the gcn rounds at 200 rooms (~45 s with set-up and the warm round)
+# would take the smoke past ~560 s
+SCALE_CLOUDS, SCALE_POINTS, SCALE_BUDGET = 200, 4096, 10_000
+SCALE_BRANCH_CLOUDS = 50
+# warm steps a mode of each training path (step_times.py measures 20; 10
+# here keep the smoke near its time with the selection-at-scale phase)
+WARM_STEPS = 10
 # the data-parallel step against the one-rank step on the card: the loss
 # and the BatchNorm statistics within DP_REL. The gradients of both are
 # held to a float64 CPU step from the same state (train/grad_check.py::
@@ -1181,6 +1200,7 @@ def selection_branches(cfg, dev, work, train, total):
     printed). Each labels exactly BUDGET superpoints, all unlabeled before
     the round; K3 launches on edcd and gcn."""
     from ssdr_al_torch.active import gcn
+    from ssdr_al_torch.train import graphs
     from ssdr_al_torch.active.samplers import (
         RandomSampler,
         TSampler,
@@ -1216,20 +1236,14 @@ def selection_branches(cfg, dev, work, train, total):
             fit_gcn = gcn.fit_gcn
 
             def timed_fit(params, adj, *args, **kw):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                losses = fit_gcn(params, adj, *args, **kw)
-                torch.cuda.synchronize()
+                with graphs.record_runs() as runs:
+                    losses = fit_gcn(params, adj, *args, **kw)
                 fits.append(dict(
                     steps=losses.numel(), blocks=list(adj.shape),
-                    wall_s=time.perf_counter() - t1,
-                    replays=timed_fit.replays,
+                    wall_s=runs[0]["wall_s"], replays=runs[0]["replays"],
                     loss_first_last=[losses[0].item(), losses[-1].item()]))
                 return losses
 
-            # fit_gcn counts its replays on whatever its module calls
-            # fit_gcn: this wrapper, while it stands there
-            timed_fit.replays = 0
             gcn.fit_gcn = timed_fit
             try:
                 sampler.sampling(trainer.eval_step, trainer.state, BUDGET,
@@ -1251,7 +1265,7 @@ def selection_branches(cfg, dev, work, train, total):
         if branch == "gcn":
             print("coreGCN fit as CUDA graphs " + json.dumps(fits))
             if len(fits) != 1 or fits[0]["steps"] != 20000 or \
-                    fits[0]["replays"] != 20000 - gcn.GRAPH_WARMUP or \
+                    fits[0]["replays"] != 20000 - graphs.GRAPH_WARMUP or \
                     not np.isfinite(fits[0]["loss_first_last"]).all():
                 raise AssertionError(f"gcn branch: the fit ran {fits}")
         if branch == "random":
@@ -1628,12 +1642,14 @@ def semantickitti_steps(dev, work, rooms):
 
 
 def warm_steps(dev, work):
-    """The median of 20 warm steps per training path, the eager step and
-    its CUDA graph in turns, with each one's device-busy share (profiled),
-    launches and the graph's capture cost (step_times.measure)."""
+    """The median of WARM_STEPS warm steps per training path, the eager
+    step and its CUDA graph in turns, with each one's device-busy share
+    (profiled), launches and the graph's capture cost
+    (step_times.measure)."""
     from ssdr_al_torch.train import step_times
 
-    res = step_times.measure(dev, work=os.path.join(work, "step_times"))
+    res = step_times.measure(dev, steps=WARM_STEPS,
+                             work=os.path.join(work, "step_times"))
     print("warm steps " + json.dumps(res))
     for path, r in res.items():
         print(f"warm steps {path}: " + ", ".join(
@@ -1739,6 +1755,154 @@ def eval_replay_phase(dev):
     require_launched("eval_replays", paths["eval_replays"],
                      ("window_topk", "gather_window", "knn_tiled"))
     return paths
+
+
+def scale_round(sampler, steps, params, dev, diversity, budget):
+    """From a warm round's registry, the same round with graphs and then
+    eagerly (the greedy loops and the selection forward), each from the
+    same random state, its kernel launches counted from 0; the K3 call of
+    the graph round recorded. Returns ({mode: the twin's round record,
+    its loops' runs among them}, {mode: round files moved aside}, {path:
+    launches}, the K3 call)."""
+    from ssdr_al_torch.active import region_graph as rg
+    from ssdr_al_torch.scripts import profile_selection as twin
+
+    state = sampler.state
+    rng = sampler.rng.get_state()
+    rounds, dirs, paths, k3_calls = {}, {}, {}, []
+    cd_fn = rg.chamfer_pairwise_blocks
+
+    def rec_cd(points, mask):
+        k3_calls.append((points.contiguous(), mask.contiguous()))
+        return cd_fn(points, mask)
+
+    for mode in ("graph", "eager"):
+        sampler.rng.set_state(rng)
+        sampler.loop_eager = mode == "eager"
+        rg.chamfer_pairwise_blocks = rec_cd if mode == "graph" else cd_fn
+        reset_counts()
+        g0 = dict(EVAL_GRAPHS)
+        try:
+            rec = twin.run_round(sampler, steps[mode], params, budget, 2,
+                                 dev)
+        finally:
+            rg.chamfer_pairwise_blocks = cd_fn
+        paths[f"scale_{diversity}_{mode}"] = read_counts()
+        rec["eval_graphs"] = {k: EVAL_GRAPHS[k] - g0[k] for k in EVAL_GRAPHS}
+        rounds[mode] = rec
+        dirs[mode] = state.round_dir(3) + "_" + mode
+        shutil.move(state.round_dir(3), dirs[mode])
+    sampler.loop_eager = False
+    return rounds, dirs, paths, k3_calls
+
+
+def same_files(a, b):
+    """The names of the files that differ between directories a and b (or
+    that only one holds)."""
+    names = sorted(set(os.listdir(a)) | set(os.listdir(b)))
+    bad = []
+    for n in names:
+        pa, pb = os.path.join(a, n), os.path.join(b, n)
+        if not (os.path.exists(pa) and os.path.exists(pb)):
+            bad.append(n)
+            continue
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            if fa.read() != fb.read():
+                bad.append(n)
+    return bad
+
+
+def selection_scale_phase(dev, work):
+    """The selection round at the reference's scale through the twin of
+    scripts/profile_selection.py (ssdr_al_torch/scripts/
+    profile_selection.py): SCALE_CLOUDS synthetic rooms of SCALE_POINTS
+    points, ~46 000 grid superpoints, the seed round's labels and a bf16
+    TSampler at SCALE_BUDGET clicks a round, gcn_fps (the flagship), then
+    gcn and edcd at SCALE_BRANCH_CLOUDS rooms and as many clicks a room.
+    For each: one warm round, then the next round with graphs (the
+    selection forward and every
+    greedy loop replayed) and eagerly from the same registry and random
+    state (scale_round); the two rounds' files must be identical, every
+    greedy loop of the graph round longer than the replay threshold must
+    have replayed and none of the eager round's. Prints each round's
+    phases, loops and launches, and K3 at the gcn_fps round's call
+    against its plain version."""
+    from ssdr_al_torch.kernels import measure
+    from ssdr_al_torch.models.randlanet import RandLANet
+    from ssdr_al_torch.ops import fps
+    from ssdr_al_torch.scripts import profile_selection as twin
+    from ssdr_al_torch.train.graphs import GRAPH_WARMUP
+    from ssdr_al_torch.train.trainer import make_eval_step
+
+    t_phase = time.perf_counter()
+    paths, report = {}, {}
+    for diversity, clouds in (("gcn_fps", SCALE_CLOUDS),
+                              ("gcn", SCALE_BRANCH_CLOUDS),
+                              ("edcd", SCALE_BRANCH_CLOUDS)):
+        t0 = time.perf_counter()
+        w = os.path.join(work, f"scale_{diversity}")
+        train, state, total = twin.build_selection_workload(
+            w, clouds, SCALE_POINTS, diversity=diversity)
+        sampler, step, params = twin.make_selection_sampler(
+            train, state, total, SCALE_POINTS, diversity=diversity,
+            device=dev)
+        steps = {"graph": step, "eager": make_eval_step(
+            RandLANet(sampler.cfg).to(dev), sampler.cfg, device=dev,
+            eager=True)}
+        # 50 clicks a room, as at the reference's scale
+        budget = SCALE_BUDGET * clouds // SCALE_CLOUDS
+        warm = twin.run_round(sampler, step, params, budget, 1, dev)
+        rounds, dirs, p, k3_calls = scale_round(sampler, steps, params, dev,
+                                                diversity, budget)
+        paths.update(p)
+        differ = same_files(dirs["graph"], dirs["eager"])
+        print(f"selection at scale, {diversity}: {clouds} clouds x "
+              f"{SCALE_POINTS} points, {total['sp_num']} superpoints, "
+              f"{budget} clicks; warm round {warm['wall_s']:.3f} s; "
+              f"{time.perf_counter() - t0:.1f} s with set-up")
+        for mode, rec in rounds.items():
+            print(f"scale {diversity} {mode} round: " + json.dumps(rec))
+        if differ or len(os.listdir(dirs["graph"])) != clouds + 1:
+            raise AssertionError(f"scale {diversity}: the graph and eager "
+                                 f"rounds wrote different files: {differ}")
+        for mode, rec in rounds.items():
+            loops = [r for r in rec["loops"] if r["name"] != "fit_gcn"]
+            long = [r for r in loops
+                    if r["steps"] >= GRAPH_WARMUP + fps.MIN_REPLAYS]
+            # edcd's per-cloud loops (~50 steps) stay under the replay
+            # threshold, eager in both rounds by the rule
+            if not loops or any((r["replays"] > 0) != (mode == "graph")
+                                for r in long) or (
+                    mode == "graph" and diversity != "edcd" and not long):
+                raise AssertionError(f"scale {diversity} {mode}: loops "
+                                     f"{loops}")
+            if rec["stats"]["gcn_sp_num"] != budget:
+                raise AssertionError(f"scale {diversity} {mode}: "
+                                     f"{rec['stats']}")
+        if rounds["graph"]["eval_graphs"]["replays"] < 1:
+            raise AssertionError(f"scale {diversity}: the selection forward "
+                                 "did not replay its graph")
+        require_launched(f"scale_{diversity}_graph",
+                         paths[f"scale_{diversity}_graph"],
+                         ("window_topk", "gather_window_bf16",
+                          "chamfer_sums"))
+        report[diversity] = dict(rounds, warm_wall_s=warm["wall_s"],
+                                 sp_num=total["sp_num"], clouds=clouds)
+        if diversity == "gcn_fps":
+            if len(k3_calls) != 1:
+                raise AssertionError(f"scale round: {len(k3_calls)} K3 "
+                                     "calls")
+            r3 = measure.check_k3(*k3_calls[0], "selection at scale")
+            print(f"K3 at the at-scale round's call {r3['shape']}: max rel "
+                  f"err {r3['max_rel_err']:.2e}, run to run "
+                  f"{r3['run_to_run']}, {r3['ms']:.3f} ms (plain "
+                  f"{r3['plain_ms']:.3f} ms, bound {r3['bound_ms']:.4f} ms "
+                  f"by {r3['bound_by']})")
+            report["k3"] = r3
+        del sampler, steps, params
+        shutil.rmtree(w, ignore_errors=True)
+    print(f"selection at scale phase {time.perf_counter() - t_phase:.1f} s")
+    return paths, report
 
 
 def trace_phase(dev, root):
@@ -1992,6 +2156,8 @@ def main() -> int:
         paths.update(repeat_phase(dev, work))
         paths.update(replay_phase(dev, work))
         paths.update(eval_replay_phase(dev))
+        scale_paths, _ = selection_scale_phase(dev, work)
+        paths.update(scale_paths)
         paths.update(trace_phase(dev, root))
         paths.update(ablation_phase(dev, work))
     finally:

@@ -3,8 +3,15 @@ ssdr_al_tpu/active/fps_gcn.py; reference fps_gcn_cpu.py):
   A = D⁻¹(S−I)+I with S = exp(−(ED+CD)) per cloud block,
   V_combined = Σ_{i=0..hops} Aⁱ V,
   farthest-feature sampling over the unlabeled regions.
-Everything after the host bookkeeping runs on one device; the propagation
-matmul is full f32 (TF32 is off, models/randlanet.py), as JAX's HIGHEST.
+Everything after the host bookkeeping runs on one device in JAX's
+_gcn_fps_device order, with no host round trip between its parts:
+adjacency, propagation, candidate gather, then the greedy loop
+(ops/fps.py: on the card replays of one captured step); the picks come
+back once. The propagation matmul is full f32 (TF32 is off,
+models/randlanet.py), as JAX's HIGHEST. JAX pads the candidates to
+_M_LADDER rungs (ssdr_al_tpu/active/fps_gcn.py:75) so that XLA compiles
+one program a rung; the port captures the loop's step anew each call,
+at the call's own shape, so it pads nothing.
 """
 
 from __future__ import annotations
@@ -59,12 +66,14 @@ def gcn_fps_sampling(
     gcn_top: int = 0,
     rng: np.random.RandomState | None = None,
     device: torch.device | str = DEFAULT_DEVICE,
+    eager: bool = False,
 ) -> Dict[str, List[int]]:
     """GCN_FPS_sampling (fps_gcn_cpu.py:150-178).
 
     features [N, D] flat region features (penultimate means); unlabeled
     flags [N] mark the selectable candidates; the first pick is drawn from
-    the caller's numpy RandomState. Returns {cloud_name: [sp_idx]}."""
+    the caller's numpy RandomState. Returns {cloud_name: [sp_idx]}.
+    eager=True runs the FPS steps eagerly on the card too."""
     device = resolve_device(device)
     rng = rng or np.random.RandomState()
     if not np.any(unlabeled_flags) or sampling_batch <= 0:
@@ -82,7 +91,8 @@ def gcn_fps_sampling(
     blk = torch.from_numpy(graph.block_of[unl_idx].astype(np.int64)).to(device)
     slot = torch.from_numpy(graph.slot_of[unl_idx].astype(np.int64)).to(device)
     sel = farthest_feature_sample(combined[blk, slot], int(start),
-                                  int(sampling_batch)).cpu().numpy()
+                                  int(sampling_batch),
+                                  eager=eager).cpu().numpy()
     file_list: Dict[str, List[int]] = {}
     for i in unl_idx[sel]:
         ref = graph.refs[i]

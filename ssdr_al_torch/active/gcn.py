@@ -34,7 +34,7 @@ from ssdr_al_torch.ops.kcenter import kcenter_greedy
 # gradients and AdamW's state), then a graph of one step replayed
 # (`python3 ssdr_al_torch/train/step_times.py --gcn-fit` times it against
 # graphs of more steps and the eager steps)
-from ssdr_al_torch.train.graphs import GRAPH_WARMUP, capture_steps
+from ssdr_al_torch.train.graphs import run_steps
 
 NHID = 128  # gcn.py:208
 PARAMS = ("gc1_w", "gc1_b", "gc3_w", "gc3_b", "lin_w", "lin_b")
@@ -153,27 +153,16 @@ def fit_gcn(params, adj, vhat, mask, labeled, *, num_steps: int,
 
     CPU tensors take a Python loop of the steps. On CUDA tensors the
     first GRAPH_WARMUP steps run eagerly and the rest as replays of one
-    captured step (train/graphs.py::capture_steps); a capture that fails
-    raises. Each
-    replay adds one to `fit_gcn.replays`."""
+    captured step (train/graphs.py::run_steps); a capture that fails
+    raises."""
     step, losses = fit_steps(params, adj, vhat, mask, labeled,
                              num_steps=num_steps, lr=lr,
                              weight_decay=weight_decay, lam=lam,
                              dropout_gen=dropout_gen)
-    if adj.device.type != "cuda" or num_steps <= GRAPH_WARMUP:
-        for _ in range(num_steps):
-            step()
-        return losses
-    graph = capture_steps(step, 1, GRAPH_WARMUP,
-                          [dropout_gen] if dropout_gen is not None else [],
-                          adj.device)
-    for _ in range(num_steps - GRAPH_WARMUP):
-        graph.replay()
-        fit_gcn.replays += 1
+    run_steps(step, num_steps, adj.device,
+              generators=[dropout_gen] if dropout_gen is not None else [],
+              name="fit_gcn")
     return losses
-
-
-fit_gcn.replays = 0
 
 
 def gcn_sampling(
@@ -190,10 +179,13 @@ def gcn_sampling(
     s_margin: float = 0.1,
     seed: int = 0,
     device: torch.device | str = DEFAULT_DEVICE,
+    eager: bool = False,
 ) -> Dict[str, List[int]]:
     """GCN_sampling (gcn.py:193-263): fit the GCN on the region graph, then
     pick sampling_batch unlabeled regions. features [N, D] flat region
-    features; unlabeled_flags [N]. Returns {cloud_name: [sp_idx]}."""
+    features; unlabeled_flags [N]. Returns {cloud_name: [sp_idx]}.
+    eager=True runs the k-center steps eagerly on the card too (the fit
+    replays its graph either way)."""
     device = resolve_device(device)
     feats_flat = np.asarray(features, np.float32)
     mask = torch.from_numpy(graph.mask).to(device)
@@ -221,8 +213,8 @@ def gcn_sampling(
         feat = torch.nan_to_num(feat, nan=1e-10, posinf=1e10,
                                 neginf=-1e10).float()
         labeled_mask = torch.from_numpy(~unlabeled_flags).to(device)
-        chosen = kcenter_greedy(feat, labeled_mask,
-                                int(sampling_batch)).cpu().numpy()
+        chosen = kcenter_greedy(feat, labeled_mask, int(sampling_batch),
+                                eager=eager).cpu().numpy()
     else:
         margin = np.abs(scores_flat.cpu().numpy()[unl_idx] - s_margin)
         chosen = unl_idx[np.argsort(-margin)[-sampling_batch:]]

@@ -402,11 +402,17 @@ class TSampler:
     fit need not round alike in two processes on CUDA, and every rank must
     take the same decisions); the round ends by checking that every rank
     wrote the same registry and pseudo-GT. `state` should hold its writes
-    on ranks other than 0 (ALState(write_files=False))."""
+    on ranks other than 0 (ALState(write_files=False)).
+
+    The greedy loops (GCN-FPS, edcd's superpoint FPS, k-center) replay
+    one captured step on the card (ops/fps.py, ops/kcenter.py) unless
+    `loop_eager`: with eager=True (for measurement) and on a rank that
+    shares its card over gloo."""
 
     def __init__(self, state: ALState, clouds: List[Cloud], cfg: Config,
                  args: TSamplerArgs, total_num: int, seed: int = 0, *,
-                 device: torch.device | str = DEFAULT_DEVICE, group=None):
+                 device: torch.device | str = DEFAULT_DEVICE, group=None,
+                 eager: bool = False):
         if args.diversity not in ("", "edcd", "gcn", "gcn_fps"):
             raise ValueError(f"unknown diversity {args.diversity!r}")
         self.state = state
@@ -417,6 +423,12 @@ class TSampler:
         self.total_num = total_num
         self.device = resolve_device(device)
         self.group = group
+        # the greedy loops hold no collective, so ranks that own their
+        # card replay them as one card does; ranks that share a card
+        # over gloo run them eagerly, as their train steps. The window
+        # guard reads nothing inside the loops (they gather no windows)
+        self.loop_eager = eager or (group is not None and
+                                    group.shares_card)
         self.rng = np.random.RandomState(seed)
         self._gt_dom_cache: Dict[str, tuple] = {}
         self._runner = None        # round-lifetime InferenceRunner
@@ -692,7 +704,7 @@ class TSampler:
                                   torch.from_numpy(msk).to(self.device))
             sel = farthest_superpoint_sample(
                 torch.from_numpy(cents).to(self.device), cd, 0,
-                top_counts[name]).cpu().numpy()
+                top_counts[name], eager=self.loop_eager).cpu().numpy()
             file_list[name] = [int(sp_ids[i]) for i in sel]
         return file_list
 
@@ -761,12 +773,13 @@ class TSampler:
                 return gcn_fps_sampling(
                     graph, feats, unlabeled_flags, sampling_batch,
                     gcn_number=a.gcn_number, gcn_top=a.gcn_top, rng=self.rng,
-                    device=self.device)
+                    device=self.device, eager=self.loop_eager)
             steps = {} if a.gcn_steps is None else {"num_steps": a.gcn_steps}
             return gcn_sampling(graph, feats, unlabeled_flags,
                                 sampling_batch,
                                 seed=int(self.rng.randint(1 << 31)),
-                                device=self.device, **steps)
+                                device=self.device, eager=self.loop_eager,
+                                **steps)
         finally:
             self.phase_times["div_gcn_s"] = time.perf_counter() - t0
 

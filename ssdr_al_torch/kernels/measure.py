@@ -483,10 +483,11 @@ def selection_chamfer_call(dev, seed=0, per_room=310):
     return calls[0]
 
 
-def check_k3(points, mask, name, reps=5, plain_reps=1):
+def check_k3(points, mask, name, reps=5):
     """K3 at one call: two launches equal bit for bit, within 1e-5
-    relative of its plain version; its time, the plain version's, and both
-    bounds (chamfer_bounds)."""
+    relative of its plain version; its time, the plain version's (the one
+    call compared, by CUDA events: it takes seconds, so a warm-up would
+    add nothing but its time), and both bounds (chamfer_bounds)."""
     from ssdr_al_torch.ops import chamfer as ch
 
     before = ch.chamfer_sums.launches
@@ -494,7 +495,12 @@ def check_k3(points, mask, name, reps=5, plain_reps=1):
     again = ch.chamfer_sums(points, mask)
     if ch.chamfer_sums.launches != before + 2:
         raise AssertionError(f"K3 {name}: the kernel did not launch")
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
     op = ch._chamfer_sums_plain(points, mask)
+    end.record()
+    torch.cuda.synchronize()
     rel = ((o - op).abs() / op.abs().clamp(min=1e-6)).max().item()
     if not rel <= 1e-5:
         raise AssertionError(f"K3 {name}: relative error {rel}")
@@ -505,8 +511,7 @@ def check_k3(points, mask, name, reps=5, plain_reps=1):
                 run_to_run=torch.equal(o, again), max_rel_err=rel,
                 max_abs_err=(o - op).abs().max().item(),
                 ms=device_ms(lambda: ch.chamfer_sums(points, mask), reps),
-                plain_ms=device_ms(lambda: ch._chamfer_sums_plain(
-                    points, mask), plain_reps),
+                plain_ms=start.elapsed_time(end),
                 bound_ms=least[0], bound_by=least[1],
                 bound_ms_ordered=old[0], library_ms=None)
 

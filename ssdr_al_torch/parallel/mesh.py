@@ -78,6 +78,13 @@ class DataGroup:
         """Rank 0: the one rank that writes files and log lines."""
         return self.rank == 0
 
+    @property
+    def shares_card(self) -> bool:
+        """Whether this rank's card is another rank's too: its device
+        tensors' group is gloo (backend_for)."""
+        return self.device.type == "cuda" and \
+            dist.get_backend(self.group) == "gloo"
+
     def share(self, n: int) -> slice:
         """This rank's contiguous share of n items, [r·n/m, (r+1)·n/m):
         the rows of a batch (n a multiple of m) or chamfer blocks (any n;

@@ -14,16 +14,19 @@ host syncs do, and a capture that fails raises. The kernel launch counts
 (kernels/counts.py) of a capture are taken back, since the capture runs
 nothing, and added at every replay.
 
-The coreGCN fit (active/gcn.py) replays one captured step; a round's
-train steps (train/trainer.py::Trainer.train_round) run through StepGraph;
-the eval step and the programs fused onto it (train/trainer.py::
-EvalStep) through ForwardGraphs. Data-parallel steps and CPU tensors stay
-eager.
+The loops of n steps of one static step, JAX's lax.fori_loop and
+lax.scan programs, run through run_steps: the coreGCN fit (active/gcn.py)
+and the greedy selection loops (ops/fps.py, ops/kcenter.py). A round's
+train steps (train/trainer.py::Trainer.train_round) run through
+StepGraph; the eval step and the programs fused onto it (train/
+trainer.py::EvalStep) through ForwardGraphs. Data-parallel steps and CPU
+tensors stay eager.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from typing import Callable, Dict, Hashable, Sequence
 
@@ -41,6 +44,8 @@ GRAPH_WARMUP = 3
 # room for two more (JAX keeps 8 fused selection programs an eval step,
 # ssdr_al_tpu/active/samplers.py:125)
 FORWARD_GRAPHS = 4
+# the open record_runs() lists, each taking every run_steps call's stats
+_RECORDS: list = []
 
 
 class Graph:
@@ -98,6 +103,67 @@ def capture_steps(step: Callable, n: int, warmup: int,
     graph, _ = capture(lambda: [step() for _ in range(n)], generators,
                        device)
     return graph
+
+
+def capturable(device: torch.device) -> bool:
+    """Whether steps on `device` can be captured: the card's."""
+    return device.type == "cuda"
+
+
+def run_steps(step: Callable, n: int, device, *,
+              generators: Sequence[torch.Generator] = (), eager=False,
+              min_replays: int = 1, name: str = "steps"):
+    """step() n times, where step is static (it reads and writes the same
+    tensors at every call, and advances on the device whatever position
+    it keeps): the counterpart of a lax.fori_loop or lax.scan whose body
+    is step. On the card GRAPH_WARMUP eager steps (warm), then one step
+    captured in a CUDA graph (with `generators` registered; a capture
+    that fails raises) and replayed n − GRAPH_WARMUP times. CPU tensors,
+    eager=True and loops that would replay fewer than `min_replays`
+    times run a Python loop of the same step. Inside record_runs() the
+    run's stats are recorded under `name`."""
+    device = torch.device(device)
+    graphed = capturable(device) and not eager and \
+        n - GRAPH_WARMUP >= max(min_replays, 1)
+    record = bool(_RECORDS) and capturable(device)
+    if record:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+    graph = capture_s = capture_bytes = None
+    if graphed:
+        for _ in range(GRAPH_WARMUP):
+            warm(step, device)
+        graph, _, capture_s, capture_bytes = measured_capture(
+            step, generators, device)
+        for _ in range(n - GRAPH_WARMUP):
+            graph.replay()
+    else:
+        for _ in range(n):
+            step()
+    if record:
+        torch.cuda.synchronize(device)
+        stats = dict(name=name, steps=n, wall_s=time.perf_counter() - t0,
+                     replays=graph.replays if graph else 0,
+                     capture_s=capture_s, capture_bytes=capture_bytes,
+                     launches={k: v for k, v in graph.launches.items()
+                               if v} if graph else {})
+        for runs in _RECORDS:
+            runs.append(stats)
+
+
+@contextlib.contextmanager
+def record_runs():
+    """Inside the block every run_steps call on the card appends {name,
+    steps, wall_s (to a synchronize before and after), replays,
+    capture_s, capture_bytes (its graph pool), launches (a replay's, by
+    kernel)} to the list this yields. For measurement: it synchronizes
+    the device around each run."""
+    runs: list = []
+    _RECORDS.append(runs)
+    try:
+        yield runs
+    finally:
+        _RECORDS.remove(runs)
 
 
 def measured_capture(step: Callable, generators: Sequence[torch.Generator],

@@ -3,7 +3,7 @@ eager against CUDA-graph replays.
 
     python3 ssdr_al_torch/train/step_times.py [--tree DIR] [--out PATH]
         [--extract-sweep | --eval-steps | --dtype bfloat16 | --gcn-fit |
-         --eager]
+         --greedy-loops | --eager]
 
 Paths, each on a fresh Trainer (`window` engine, random weights) over
 synthetic rooms (seed 0):
@@ -73,7 +73,11 @@ largest kernels. `--gcn-fit` measures only the coreGCN fit
 and 2048: the s a step of GCN_FIT_STEPS steps by the host clock to a
 synchronize, as fit_gcn runs them (one captured step replayed), as
 graphs of GCN_GRAPH_SIZES steps, and eagerly (fit_steps' step in a
-loop), each twice in turns. Prints one line per path and, as its
+loop), each twice in turns. `--greedy-loops` measures only the greedy
+selection loops (ops/fps.py, ops/kcenter.py: greedy_loop_times), eager
+against replayed graphs at the at-scale round's lengths and at an edcd
+cloud's short lengths, which set ops/fps.py::MIN_REPLAYS. Prints one
+line per path and, as its
 last line, the results as JSON (also written to PATH). chip_smoke.py runs
 `measure` and `in_turns`.
 """
@@ -781,10 +785,11 @@ def gcn_fit_times(dev, slots=GCN_FIT_SLOTS, num_steps=GCN_FIT_STEPS,
                   sizes=GCN_GRAPH_SIZES, blocks=4, nfeat=32, log=print):
     """{"[blocks, S, nfeat]": {"fit" | "graph_<n>" | "eager": [s a step,
     s a step]}}: the fit as fit_gcn runs it, graphs of n steps
-    (gcn.capture_steps, (num_steps − GRAPH_WARMUP) // n replays after the
+    (graphs.capture_steps, (num_steps − GRAPH_WARMUP) // n replays after the
     warm-up steps) and the eager steps, each from fresh weights with
     dropout on, twice in turns."""
     from ssdr_al_torch.active import gcn
+    from ssdr_al_torch.train import graphs
 
     def run(kind, inputs):
         params, adj, vhat, mask, labeled = inputs
@@ -806,12 +811,12 @@ def gcn_fit_times(dev, slots=GCN_FIT_SLOTS, num_steps=GCN_FIT_STEPS,
                 done = num_steps
             else:
                 n = int(kind.split("_")[1])
-                graph = gcn.capture_steps(step, n, gcn.GRAPH_WARMUP, [drop],
-                                          dev)
-                replays = (num_steps - gcn.GRAPH_WARMUP) // n
+                graph = graphs.capture_steps(step, n, graphs.GRAPH_WARMUP,
+                                             [drop], dev)
+                replays = (num_steps - graphs.GRAPH_WARMUP) // n
                 for _ in range(replays):
                     graph.replay()
-                done = gcn.GRAPH_WARMUP + replays * n
+                done = graphs.GRAPH_WARMUP + replays * n
         torch.cuda.synchronize(dev)
         return (time.perf_counter() - t0) / done
 
@@ -824,6 +829,110 @@ def gcn_fit_times(dev, slots=GCN_FIT_SLOTS, num_steps=GCN_FIT_STEPS,
             res.setdefault(kind, []).append(run(kind, inputs))
         out[f"[{blocks}, {s}, {nfeat}]"] = res
         log(f"gcn fit [{blocks}, {s}, {nfeat}] s a step: {res}")
+    return out
+
+
+def greedy_loop(kind, dev, rows, seed=0):
+    """loop(n, eager) → picks: one of the greedy selection loops
+    (farthest_feature_sample [rows, 32]; farthest_superpoint_sample [rows,
+    3] with a [rows, rows] chamfer; kcenter_greedy [rows, 129] with a
+    twentieth of the rows labeled) on inputs made from `seed`, n steps
+    through train/graphs.py::run_steps with no replay threshold: eagerly
+    or as GRAPH_WARMUP eager steps, a capture and replays."""
+    import numpy as np
+
+    from ssdr_al_torch.device import full_f32_matmul
+    from ssdr_al_torch.ops import fps, kcenter
+    from ssdr_al_torch.train.graphs import run_steps
+
+    rng = np.random.RandomState(seed)
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    if kind == "farthest_feature_sample":
+        feats = up(rng.randn(rows, 32).astype(np.float32))
+
+        def make(n):
+            return fps.farthest_feature_steps(feats, 0, n + 1)
+    elif kind == "farthest_superpoint_sample":
+        cents = up((rng.rand(rows, 3) * 6).astype(np.float32))
+        cd = up(rng.rand(rows, rows).astype(np.float32))
+
+        def make(n):
+            return fps.farthest_superpoint_steps(cents, cd, 0, n + 1)
+    else:
+        feats = up(rng.randn(rows, 129).astype(np.float32))
+        mask = up(rng.rand(rows) < 0.05)
+
+        def make(n):
+            return kcenter.kcenter_steps(feats, mask, n)
+
+    def loop(n, eager):
+        step, sel = make(n)
+        with full_f32_matmul():
+            run_steps(step, n, dev, eager=eager, name=kind)
+        return sel
+
+    return loop
+
+
+GREEDY_KINDS = ("farthest_feature_sample", "farthest_superpoint_sample",
+                "kcenter_greedy")
+# --greedy-loops: the at-scale round's loops (scripts/profile_selection.py
+# at 200 clouds and 10 000 clicks: ~20 000 candidates, 10 000 picks), and
+# short loops over an edcd candidate cloud's superpoints
+GREEDY_ROWS, GREEDY_STEPS = 20_000, 10_000
+GREEDY_SHORT_ROWS, GREEDY_SHORT_STEPS = 128, (8, 16, 32, 64, 128, 256)
+
+
+def greedy_loop_times(dev, reps=5, log=print):
+    """{kind: {"[rows] x steps": {eager_ms, graph_ms (medians of `reps`
+    calls each, in turns, by the host clock to a synchronize; the graph's
+    warm-up steps and capture included), equal (the graph's picks bitwise
+    the eager loop's), capture_s, capture_bytes, launches}}}: each greedy
+    loop at GREEDY_ROWS rows and GREEDY_STEPS steps and at
+    GREEDY_SHORT_ROWS rows and GREEDY_SHORT_STEPS steps, then a loop of
+    1000 steps of each under torch.profiler eagerly and as a graph
+    (busy_share: kernels and host launches a step)."""
+    from ssdr_al_torch.train import graphs
+
+    out = {}
+    for kind in GREEDY_KINDS:
+        res = out[kind] = {}
+        big = greedy_loop(kind, dev, GREEDY_ROWS)
+        small = greedy_loop(kind, dev, GREEDY_SHORT_ROWS)
+        cases = [(GREEDY_ROWS, GREEDY_STEPS, big)] + [
+            (GREEDY_SHORT_ROWS, n, small) for n in GREEDY_SHORT_STEPS
+            if kind != "kcenter_greedy"]
+        for rows, n, loop in cases:
+            times = {"eager": [], "graph": []}
+            picks = {}
+            for _ in range(reps):
+                for mode in times:
+                    torch.cuda.synchronize(dev)
+                    with graphs.record_runs() as runs:
+                        t0 = time.perf_counter()
+                        picks[mode] = loop(n, mode == "eager")
+                        torch.cuda.synchronize(dev)
+                        times[mode].append(1e3 * (time.perf_counter() - t0))
+            run = runs[0]
+            res[f"[{rows}] x {n}"] = row = dict(
+                eager_ms=statistics.median(times["eager"]),
+                graph_ms=statistics.median(times["graph"]),
+                eager_range_ms=[min(times["eager"]), max(times["eager"])],
+                graph_range_ms=[min(times["graph"]), max(times["graph"])],
+                equal=bool(torch.equal(picks["eager"], picks["graph"])),
+                capture_s=run["capture_s"],
+                capture_bytes=run["capture_bytes"],
+                launches=run["launches"])
+            log(f"{kind} [{rows}] x {n} steps: {json.dumps(row)}")
+        for mode in ("eager", "graph"):
+            b = busy_share(lambda: big(1000, mode == "eager"), reps=1)
+            res[f"profiled {mode} [{GREEDY_ROWS}] x 1000"] = b
+            log(f"{kind} {mode} profiled: busy {b['busy_share']:.3f}, "
+                f"kernels {b['kernels']}, host launches "
+                f"{b['host_launches']} for 1000 steps")
     return out
 
 
@@ -848,6 +957,10 @@ def main() -> int:
                     help="measure only each path's eager step (with "
                          "Adam's capturable and plain forms where the "
                          "trainer's is capturable) and the dp step")
+    ap.add_argument("--greedy-loops", action="store_true",
+                    help="measure only the greedy selection loops, eager "
+                         "against replayed graphs, at the at-scale "
+                         "round's lengths and at short lengths")
     ap.add_argument("--gcn-fit", action="store_true",
                     help="measure only the coreGCN fit: one captured step "
                          "replayed, graphs of GCN_GRAPH_SIZES steps and "
@@ -875,6 +988,8 @@ def main() -> int:
             tree, "build", "step_times"))}
     elif args.gcn_fit:
         res = {"gcn_fit": gcn_fit_times(dev)}
+    elif args.greedy_loops:
+        res = {"greedy_loops": greedy_loop_times(dev)}
     elif args.eager:
         res = {"eager": eager_steps(dev, work=os.path.join(
             tree, "build", "step_times"))}

@@ -932,14 +932,16 @@ def test_gcn_fit_graphs_match_eager_steps(dev):
     parameters bitwise equal (the same kernels on the same inputs, the
     same Philox offsets for every mask)."""
     from ssdr_al_torch.active import gcn
+    from ssdr_al_torch.train import graphs
 
     params, adj, vhat, mask, labeled = _gcn_problem(dev)
     ref = {k: v.detach().clone().requires_grad_(True)
            for k, v in params.items()}
-    replays = gcn.fit_gcn.replays
-    losses = gcn.fit_gcn(params, adj, vhat, mask, labeled, num_steps=200,
-                         dropout_gen=torch.Generator(dev).manual_seed(3))
-    assert gcn.fit_gcn.replays == replays + 200 - gcn.GRAPH_WARMUP
+    with graphs.record_runs() as runs:
+        losses = gcn.fit_gcn(params, adj, vhat, mask, labeled,
+                             num_steps=200,
+                             dropout_gen=torch.Generator(dev).manual_seed(3))
+    assert [r["replays"] for r in runs] == [200 - graphs.GRAPH_WARMUP]
     valid = mask.float()
     n_lbl = torch.clamp((labeled * valid).sum(), min=1.0)
     n_unl = torch.clamp(((1 - labeled) * valid).sum(), min=1.0)
@@ -975,14 +977,15 @@ def test_gcn_card_fit_matches_cpu_fit(dev):
     step, capturable AdamW) against the CPU loop; losses and the weights
     that the loss reaches within GCN_CARD_TOL."""
     from ssdr_al_torch.active import gcn
+    from ssdr_al_torch.train import graphs
 
     cpu = _gcn_problem("cpu", blocks=3, slots=20, nfeat=32, seed=5)
     card = [{k: v.detach().to(dev).requires_grad_(True)
              for k, v in cpu[0].items()}] + [x.to(dev) for x in cpu[1:]]
     want = gcn.fit_gcn(*cpu, num_steps=24)
-    replays = gcn.fit_gcn.replays
-    got = gcn.fit_gcn(*card, num_steps=24)
-    assert gcn.fit_gcn.replays == replays + 24 - gcn.GRAPH_WARMUP
+    with graphs.record_runs() as runs:
+        got = gcn.fit_gcn(*card, num_steps=24)
+    assert [r["replays"] for r in runs] == [24 - graphs.GRAPH_WARMUP]
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                **GCN_CARD_TOL)
     for k in ("gc1_w", "gc1_b", "gc3_w", "gc3_b"):
