@@ -79,7 +79,14 @@ the selection forward and the greedy loops (farthest-feature,
 farthest-superpoint, k-center) replayed as CUDA graphs and again eagerly
 from the same registry, the two rounds' files identical, with each
 round's phases and loops, and K3 at the gcn_fps round's call beside its
-plain version), one warm
+plain version), the Semantic3D round at the JAX package's Semantic3D
+scale (semantic3d_scale_phase: the twin with --dataset Semantic3D, 4
+clouds of 1 000 000 points in 65 536-point bf16 chunks, ~8 400
+superpoints, 1500 clicks; a warm round, then a graph round and an eager
+round from the same registry with identical files, the [8 x 65536]
+forward and the farthest-feature loop replayed, K3 held to its plain
+version on a block of the round's call and timed on the whole call,
+K2-bf16 on the round's first gather), one warm
 train step under
 utils/logging.py::device_trace (its Chrome trace under build/ must name
 K2's and K4's kernels), and the sampler ablation twin
@@ -180,6 +187,15 @@ PART_EPOCHS, PART_STEPS, PART_BUDGET = 1, 4, 400
 # would take the smoke past ~560 s
 SCALE_CLOUDS, SCALE_POINTS, SCALE_BUDGET = 200, 4096, 10_000
 SCALE_BRANCH_CLOUDS = 50
+# the Semantic3D selection at the JAX package's Semantic3D scale (bench.py::
+# measure_semantic3d_selection; the twin with --dataset Semantic3D):
+# clouds of 1 000 000 points cut into the bf16 ConfigSemantic3D's
+# 65 536-point chunks, grid superpoints at 2048 a cloud, a seed round at
+# seed_div 40; 4 clouds and 1500 clicks a round here, half of JAX's 8 and
+# 3000 (at 8 clouds the smoke took 611 s on an H100 80GB HBM3 at 700 W;
+# the twin runs all 8)
+S3D_SCALE_CLOUDS, S3D_SCALE_POINTS, S3D_SCALE_BUDGET = 4, 1_000_000, 1500
+S3D_SCALE_TARGET_SP, S3D_SCALE_SEED_DIV = 2048, 40
 # warm steps a mode of each training path (step_times.py measures 20; 10
 # here keep the smoke near its time with the selection-at-scale phase)
 WARM_STEPS = 10
@@ -1905,6 +1921,135 @@ def selection_scale_phase(dev, work):
     return paths, report
 
 
+def semantic3d_scale_phase(dev, work):
+    """The Semantic3D selection round at the JAX package's Semantic3D
+    scale through the twin (scripts/profile_selection.py --dataset
+    Semantic3D): S3D_SCALE_CLOUDS synthetic clouds of S3D_SCALE_POINTS
+    points in 65 536-point bf16 chunks, ~2 100 grid superpoints a
+    cloud, the seed round's labels and S3D_SCALE_BUDGET clicks a round,
+    gcn_fps. One warm round, then the next round with graphs and eagerly
+    from the same registry and random state (scale_round): identical
+    files, every click spent, K1, K2-bf16 and K3 launched, the [8 x
+    65536] forward and the farthest-feature loop replayed in the graph
+    round and neither in the eager one. K3 is held to its plain version
+    on block 0 of the graph round's call and timed on the whole call;
+    K2-bf16 on the eager round's first windowed gather. Prints the
+    set-up, each round's phases, S, K3's time and bound, and peak bytes.
+    Returns ({path: launches}, {"chamfer_sums": ...,
+    "gather_window_bf16": ...})."""
+    from ssdr_al_torch.kernels import measure
+    from ssdr_al_torch.models import randlanet as rl
+    from ssdr_al_torch.ops import chamfer as ch
+    from ssdr_al_torch.ops import fps
+    from ssdr_al_torch.scripts import profile_selection as twin
+    from ssdr_al_torch.train.graphs import GRAPH_WARMUP
+    from ssdr_al_torch.train.trainer import make_eval_step
+
+    t_phase = time.perf_counter()
+    w = os.path.join(work, "semantic3d_scale")
+    setup = {}
+    train, state, total = twin.build_selection_workload(
+        w, S3D_SCALE_CLOUDS, S3D_SCALE_POINTS,
+        target_sp=S3D_SCALE_TARGET_SP, seed_div=S3D_SCALE_SEED_DIV,
+        timings=setup)
+    sampler, step, params = twin.make_selection_sampler(
+        train, state, total, dataset="Semantic3D", device=dev)
+    cfg = sampler.cfg
+    # InferenceRunner's chunk group at 65 536 points: min(32, max(8,
+    # 327 680 // 65 536)) = 8 chunks a forward
+    chunk = (8, cfg.num_points)
+    steps = {"graph": step, "eager": make_eval_step(
+        rl.RandLANet(cfg).to(dev), cfg, device=dev, eager=True)}
+    print(f"semantic3d at scale: {S3D_SCALE_CLOUDS} clouds x "
+          f"{S3D_SCALE_POINTS} points, chunks [{chunk[0]} x {chunk[1]}] "
+          f"{cfg.compute_dtype}, {total['sp_num']} superpoints, "
+          f"{S3D_SCALE_BUDGET} clicks; set-up " + json.dumps(setup))
+    warm = twin.run_round(sampler, step, params, S3D_SCALE_BUDGET, 1, dev)
+    k2_calls, gather = [], rl.gather_window
+
+    def rec_k2(values, idx, starts, window, tq=128, out_dtype=None):
+        if not k2_calls:
+            k2_calls.append(dict(values=values.clone(), idx=idx.clone(),
+                                 starts=starts.clone(), window=window,
+                                 tq=tq, path="LFA", out_dtype=out_dtype))
+        return gather(values, idx, starts, window, tq, out_dtype)
+
+    # the graph round replays its captured forward, so only the eager
+    # round's forward calls the wrapper
+    rl.gather_window = rec_k2
+    try:
+        rounds, dirs, paths, k3_calls = scale_round(
+            sampler, steps, params, dev, "semantic3d", S3D_SCALE_BUDGET)
+    finally:
+        rl.gather_window = gather
+    differ = same_files(dirs["graph"], dirs["eager"])
+    print(f"semantic3d at scale: warm round {warm['wall_s']:.3f} s "
+          + json.dumps(warm["phases"]))
+    for mode, rec in rounds.items():
+        print(f"semantic3d at scale {mode} round: " + json.dumps(rec))
+    if differ or len(os.listdir(dirs["graph"])) != S3D_SCALE_CLOUDS + 1:
+        raise AssertionError("semantic3d at scale: the graph and eager "
+                             f"rounds wrote different files: {differ}")
+    for mode, rec in rounds.items():
+        ffs = [r for r in rec["loops"]
+               if r["name"] == "farthest_feature_sample"]
+        if not ffs or any(r["steps"] < GRAPH_WARMUP + fps.MIN_REPLAYS or
+                          (r["replays"] > 0) != (mode == "graph")
+                          for r in ffs):
+            raise AssertionError(f"semantic3d at scale {mode}: the "
+                                 f"farthest-feature loop {ffs}")
+        if rec["stats"]["gcn_sp_num"] != S3D_SCALE_BUDGET:
+            raise AssertionError(f"semantic3d at scale {mode}: "
+                                 f"{rec['stats']}")
+    graph = rounds["graph"]
+    kept = [k["shapes"][0] for k in graph["forward_graphs"]["kept"]]
+    if graph["eval_graphs"]["replays"] < 1 or \
+            rounds["eager"]["eval_graphs"]["replays"] or \
+            list(chunk) + [3] not in [list(k) for k in kept]:
+        raise AssertionError("semantic3d at scale: the [8 x 65536] "
+                             f"forward did not replay: {graph}")
+    require_launched("scale_semantic3d_graph",
+                     paths["scale_semantic3d_graph"],
+                     ("window_topk", "gather_window_bf16", "chamfer_sums"))
+    if len(k3_calls) != 1 or len(k2_calls) != 1 or \
+            k2_calls[0]["out_dtype"] != torch.bfloat16:
+        raise AssertionError(f"semantic3d at scale: {len(k3_calls)} K3 "
+                             f"calls, K2 calls {k2_calls[:1]}")
+    points, mask = k3_calls[0]
+    r3 = measure.check_k3(points[:1], mask[:1], "Semantic3D round block 0")
+    out = ch.chamfer_sums(points, mask)
+    least, _ = measure.chamfer_bounds(points, mask, out)
+    r3.update(call=list(points.shape[:3]),
+              valid_share=mask.float().mean().item(),
+              call_ms=measure.device_ms(lambda: ch.chamfer_sums(points, mask),
+                                        3),
+              call_bound_ms=least[0], call_bound_by=least[1],
+              launches=paths["scale_semantic3d_graph"]["chamfer_sums"])
+    print(f"K3 at the Semantic3D round's call {r3['call']} (S = "
+          f"{r3['call'][1]}), {r3['valid_share']:.3f} valid: "
+          f"{r3['call_ms']:.3f} ms, bound {r3['call_bound_ms']:.3f} ms by "
+          f"{r3['call_bound_by']}; on {r3['shape']}: max rel err "
+          f"{r3['max_rel_err']:.2e}, run to run {r3['run_to_run']}, "
+          f"{r3['ms']:.3f} ms (plain {r3['plain_ms']:.3f} ms, bound "
+          f"{r3['bound_ms']:.4f} ms by {r3['bound_by']})")
+    if not (r3["max_rel_err"] <= 1e-5 and r3["run_to_run"]):
+        raise AssertionError(f"K3 at the Semantic3D round: {r3}")
+    r2 = measure.check_k2(k2_calls[0])
+    r2["launches"] = paths["scale_semantic3d_graph"]["gather_window_bf16"]
+    print(f"K2 at the Semantic3D round's first gather {r2['shape']}: "
+          f"bitwise equal, {r2['ms']:.4f} ms (plain {r2['plain_ms']:.3f} "
+          f"ms, torch.gather bf16 {r2['library_ms']:.4f} ms, bound "
+          f"{r2['bound_ms']:.4f} ms by {r2['bound_by']})")
+    for mode, rec in rounds.items():
+        print(f"semantic3d at scale {mode}: {rec['wall_s']:.3f} s, peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB allocated, "
+              f"{rec['peak_reserved_bytes'] / 2**30:.2f} GiB reserved")
+    del sampler, steps, params, k3_calls, k2_calls, points, mask, out
+    shutil.rmtree(w, ignore_errors=True)
+    print(f"semantic3d at scale phase {time.perf_counter() - t_phase:.1f} s")
+    return paths, {"chamfer_sums": r3, "gather_window_bf16": r2}
+
+
 def trace_phase(dev, root):
     """One warm host train step [6 x 40960] under
     utils/logging.py::device_trace, its Chrome trace written under
@@ -2158,6 +2303,10 @@ def main() -> int:
         paths.update(eval_replay_phase(dev))
         scale_paths, _ = selection_scale_phase(dev, work)
         paths.update(scale_paths)
+        s3d_paths, s3d_checks = semantic3d_scale_phase(dev, work)
+        paths.update(s3d_paths)
+        for name, c in s3d_checks.items():
+            checks[name]["semantic3d_scale"] = c
         paths.update(trace_phase(dev, root))
         paths.update(ablation_phase(dev, work))
     finally:
@@ -2177,7 +2326,8 @@ def main() -> int:
                          bound_by=c["bound_by"], library_ms=c["library_ms"],
                          **{k: c[k] for k in ("shapes", "ties",
                                               "shapes_semantic3d",
-                                              "shapes_semantickitti")
+                                              "shapes_semantickitti",
+                                              "semantic3d_scale")
                             if k in c}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "ssdr_al_tpu"))

@@ -10,7 +10,10 @@ on CUDA tensors, or `_chamfer_sums_plain` on CPU tensors, followed by the
 combine epilogue of chamfer.py:447-456 in PyTorch.
 
 The TPU's live-buffer cap and sub-chunk wrappers (_CSP_CAP, _subchunk,
-*_chunked) guarded a TPU worker crash and are not ported.
+*_chunked) guarded a TPU worker crash and are not ported. K3 numbers its
+pair tasks in 32-bit ints, so `chamfer_sums` refuses a call whose task
+count (C · S(S−1)/2 and the counter's overshoot) would not fit in one
+(K3_MAX_TASKS), before it launches anything.
 """
 
 from __future__ import annotations
@@ -22,11 +25,23 @@ import torch
 
 from ssdr_al_torch.kernels import build as _kb
 
+# K3 (csrc/chamfer_sums.cu) numbers its pair tasks in int: it forms S(S−1)
+# before halving it, counts C · S(S−1)/2 tasks, and its task counter runs
+# past the last by one a warp (3 CTAs of 8 warps an SM); 2**16 leaves room
+# for that overshoot.
+K3_MAX_TASKS = 2 ** 31 - 1 - 2 ** 16
+PLAIN_ELEMS = 2 ** 27     # the plain version's [rc, P, S·P] intermediates
 
-def _chamfer_sums_plain(points, mask, row_chunk=8):
+
+def _chamfer_sums_plain(points, mask, row_chunk=None):
     """Plain PyTorch version of K3: o[c, a, b] = Σ over b's valid points of
-    the min distance to a's valid points (0 when a is empty)."""
+    the min distance to a's valid points (0 when a is empty). Rows of
+    superpoints go `row_chunk` at a time (default: at most 8, and few
+    enough that one [rc, P, S·P] intermediate holds PLAIN_ELEMS values);
+    each row's sums do not depend on it."""
     c, s, p, _ = points.shape
+    if row_chunk is None:
+        row_chunk = max(1, min(8, PLAIN_ELEMS // max(1, s * p * p)))
     o = torch.empty((c, s, s), dtype=torch.float32, device=points.device)
     for ci in range(c):
         flat = points[ci].reshape(s * p, 3)
@@ -51,10 +66,17 @@ def chamfer_sums(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     [C, S, P] bool → o [C, S, S] f32, o[c, a, b] = Σ_{q∈b} min_{p∈a} ||p−q||
     (0 when a or b is empty). CPU tensors take the plain version; CUDA
     tensors launch the kernel, which computes each unordered pair's
-    distances once for both directions."""
+    distances once for both directions. A call of more than K3_MAX_TASKS
+    pair tasks raises ValueError on either device."""
     c, s, p, three = points.shape
     if three != 3 or mask.shape != (c, s, p):
         raise ValueError(f"chamfer_sums: bad shapes {points.shape} {mask.shape}")
+    if s * (s - 1) > K3_MAX_TASKS or c * (s * (s - 1) // 2) > K3_MAX_TASKS:
+        raise ValueError(
+            f"chamfer_sums: {c} blocks of {s} superpoints make "
+            f"{c * (s * (s - 1) // 2)} pair tasks (S(S-1) = {s * (s - 1)}); "
+            f"K3 numbers them in int and takes at most {K3_MAX_TASKS}: "
+            "split the blocks over calls")
     if points.device.type == "cpu":
         return _chamfer_sums_plain(points.float(), mask)
     if points.dtype != torch.float32 or mask.dtype != torch.bool:

@@ -509,9 +509,15 @@ class EvalStep:
         return tuple(inputs[k] for k in EVAL_INPUTS)
 
     def stats(self) -> dict:
-        """ForwardGraphs.stats() of the graphs, or {} where it runs
-        eagerly."""
-        return {} if self.graphs is None else self.graphs.stats()
+        """ForwardGraphs.stats() of the graphs and `kept`, one {program,
+        shapes (of the inputs), pool_bytes} a kept capture; {} where it
+        runs eagerly."""
+        if self.graphs is None:
+            return {}
+        kept = [dict(program=key[0], shapes=key[1],
+                     pool_bytes=fwd.capture_bytes)
+                for key, fwd in self.graphs.forwards.items()]
+        return dict(self.graphs.stats(), kept=kept)
 
 
 def make_eval_step(model: RandLANet, cfg: Config, knn_engine: str = "window",
