@@ -62,18 +62,18 @@ with its leaky-ReLU slopes and max-pool picks replayed
 (train/grad_check.py::reference_step). After the warm steps: the repeat
 phase (two identical train steps from one state and one batch on the
 host, device-pool and possibility-pool paths, bitwise equal:
-train/repeat_check.py), the replay phase (20 CUDA-graph replays
-against 20 eager steps from one state on each path, bitwise equal, the
+train/repeat_check.py), the replay phase (10 CUDA-graph replays
+against 10 eager steps from one state on each path, bitwise equal, the
 last replay's device trace holding K1's, K2's and K4's kernels as often
 as the replay's launch counts say: repeat_check.replay_paths), the eval
-replay phase (20 calls of the eval step's CUDA graph against 20 eager
+replay phase (10 calls of the eval step's CUDA graph against 10 eager
 eval steps and one InferenceRunner group through the graph and eagerly,
 bitwise, on `window` and `pallas` at the S3DIS [20 x 40960] and
 Semantic3D [16 x 65536] eval shapes, the last replay traced:
 repeat_check.eval_replay_paths), the selection at the reference's scale
 (selection_scale_phase: the twin of scripts/profile_selection.py, 200
 rooms of 4096 points, ~46 000 superpoints, 10 000 clicks; for the
-gcn_fps branch, and for gcn and edcd at 50 rooms, a warm round, then
+gcn_fps branch, and for gcn and edcd at 30 rooms, a warm round, then
 the next round with
 the selection forward and the greedy loops (farthest-feature,
 farthest-superpoint, k-center) replayed as CUDA graphs and again eagerly
@@ -86,7 +86,14 @@ superpoints, 1500 clicks; a warm round, then a graph round and an eager
 round from the same registry with identical files, the [8 x 65536]
 forward and the farthest-feature loop replayed, K3 held to its plain
 version on a block of the round's call and timed on the whole call,
-K2-bf16 on the round's first gather), one warm
+K2-bf16 on the round's first gather), the JAX package's flagship AL
+run cut in depth (flagship_phase: the twin scripts/flagship.py through
+cli.superpoint, cli.seed and cli.al_loop, 2 hard rooms of 60 000 points,
+cut-pursuit at reg_strength 0.03, rounds 1-4 of 8 bf16 steps on
+40 960-point blocks and 2 val steps, 150 clicks a round; the reserved
+bytes at round 4's end within 5 % of round 3's, the live CUDA graphs
+bounded, every mIoU finite, K3 held to its plain version at round 4's
+call), one warm
 train step under
 utils/logging.py::device_trace (its Chrome trace under build/ must name
 K2's and K4's kernels), and the sampler ablation twin
@@ -184,9 +191,9 @@ PART_EPOCHS, PART_STEPS, PART_BUDGET = 1, 4, 400
 # defaults: 200 rooms of 4096 points, ~46 000 grid superpoints, 10 000
 # clicks a round); the gcn and edcd rounds at SCALE_BRANCH_CLOUDS rooms,
 # as the gcn rounds at 200 rooms (~45 s with set-up and the warm round)
-# would take the smoke past ~560 s
+# would take the smoke past ~560 s (30 since the flagship phase)
 SCALE_CLOUDS, SCALE_POINTS, SCALE_BUDGET = 200, 4096, 10_000
-SCALE_BRANCH_CLOUDS = 50
+SCALE_BRANCH_CLOUDS = 30
 # the Semantic3D selection at the JAX package's Semantic3D scale (bench.py::
 # measure_semantic3d_selection; the twin with --dataset Semantic3D):
 # clouds of 1 000 000 points cut into the bf16 ConfigSemantic3D's
@@ -196,9 +203,21 @@ SCALE_BRANCH_CLOUDS = 50
 # the twin runs all 8)
 S3D_SCALE_CLOUDS, S3D_SCALE_POINTS, S3D_SCALE_BUDGET = 4, 1_000_000, 1500
 S3D_SCALE_TARGET_SP, S3D_SCALE_SEED_DIV = 2048, 40
-# warm steps a mode of each training path (step_times.py measures 20; 10
-# here keep the smoke near its time with the selection-at-scale phase)
-WARM_STEPS = 10
+# the JAX package's flagship run (scripts/flagship.py; results/
+# record_round_flagship/: 6 rooms of 150 000 points, rounds 1-10 of 500
+# steps) cut in depth: 2 rooms of 60 000 points, rounds 1-4 of 8 steps
+# and 2 val steps at full width (bf16, 40 960-point blocks), 150 clicks
+FLAG_ROOMS, FLAG_POINTS, FLAG_ROUNDS = 2, 60_000, 4
+FLAG_STEPS, FLAG_VAL_STEPS, FLAG_CLICKS = 8, 2, 150
+# the end-of-round reserved bytes may grow by this share from round 3 on
+FLAG_RESERVED_GROWTH = 0.05
+# warm steps a mode of each training path (step_times.py measures 20),
+# graph replays against eager steps a path in the replay phase and eval
+# calls a path in the eval replay phase (repeat_check.py runs 20 each): 6,
+# 10 and 10 here keep the smoke near its time with the flagship phase
+WARM_STEPS = 6
+REPLAY_STEPS = 10
+EVAL_REPLAY_CALLS = 10
 # the data-parallel step against the one-rank step on the card: the loss
 # and the BatchNorm statistics within DP_REL. The gradients of both are
 # held to a float64 CPU step from the same state (train/grad_check.py::
@@ -1706,8 +1725,8 @@ def repeat_phase(dev, work):
 
 
 def replay_phase(dev, work):
-    """20 CUDA-graph replays against 20 eager steps, after the warm-up
-    steps, from one state on the host S3DIS step [6 x 40960], the
+    """REPLAY_STEPS CUDA-graph replays against as many eager steps, after
+    the warm-up steps, from one state on the host S3DIS step [6 x 40960], the
     device-pool step and the Semantic3D possibility-pool step [4 x 65536]
     (train/repeat_check.py::replay_paths): every step's loss, the
     gradients, BatchNorm statistics, parameters and Adam moments must be
@@ -1720,13 +1739,14 @@ def replay_phase(dev, work):
 
     t0 = time.perf_counter()
     reset_counts()
-    res = replay_paths(dev, work=os.path.join(work, "replay"))
+    res = replay_paths(dev, replays=REPLAY_STEPS,
+                       work=os.path.join(work, "replay"))
     paths = {"replay_steps": read_counts()}
     print(f"replay phase {time.perf_counter() - t0:.1f} s; launches "
           f"replay_steps " + json.dumps(paths["replay_steps"]))
     differ = {k: r["differing"][:4] for k, r in res.items() if not r["equal"]}
     if differ or set(res) != {"host", "pool", "possibility"} or any(
-            r["replays"] != 20 for r in res.values()):
+            r["replays"] != REPLAY_STEPS for r in res.values()):
         raise AssertionError(f"graph replays differ from eager steps: "
                              f"{differ} {res}")
     untraced = {k: (r["traced"], r["counted"]) for k, r in res.items()
@@ -1740,8 +1760,9 @@ def replay_phase(dev, work):
 
 
 def eval_replay_phase(dev):
-    """20 calls of the eval step's graph (a capture, then replays) against
-    20 eager eval steps on validation batches, and one InferenceRunner
+    """EVAL_REPLAY_CALLS calls of the eval step's graph (a capture, then
+    replays) against as many eager eval steps on validation batches, and
+    one InferenceRunner
     group through the graph and eagerly, every output bitwise equal, on
     `window` and `pallas` at the S3DIS [20 x 40960] and Semantic3D [16 x
     65536] eval shapes (repeat_check.eval_replay_paths); the last replay
@@ -1752,7 +1773,7 @@ def eval_replay_phase(dev):
     t0 = time.perf_counter()
     reset_counts()
     g0 = dict(EVAL_GRAPHS)
-    res = eval_replay_paths(dev)
+    res = eval_replay_paths(dev, calls=EVAL_REPLAY_CALLS)
     paths = {"eval_replays": read_counts()}
     print(f"eval replay phase {time.perf_counter() - t0:.1f} s; launches "
           f"eval_replays " + json.dumps(paths["eval_replays"]))
@@ -1767,7 +1788,7 @@ def eval_replay_phase(dev):
     if untraced:
         raise AssertionError(f"a replay's device trace does not hold the "
                              f"kernels its counts add: {untraced}")
-    require_replayed("eval_replays", g0, 4 * 21)
+    require_replayed("eval_replays", g0, 4 * (EVAL_REPLAY_CALLS + 1))
     require_launched("eval_replays", paths["eval_replays"],
                      ("window_topk", "gather_window", "knn_tiled"))
     return paths
@@ -2050,6 +2071,101 @@ def semantic3d_scale_phase(dev, work):
     return paths, {"chamfer_sums": r3, "gather_window_bf16": r2}
 
 
+def flagship_phase(dev, work):
+    """The JAX package's flagship AL run through the twin (python -m
+    ssdr_al_torch.scripts.flagship) cut in depth: FLAG_ROOMS hard rooms of
+    FLAG_POINTS points (and a validation room), the cut-pursuit partition
+    at reg_strength 0.03, the 1 % seed round and cli.al_loop's rounds
+    2..FLAG_ROUNDS in one call, FLAG_STEPS bf16 steps on 40 960-point
+    blocks, FLAG_VAL_STEPS val steps and FLAG_CLICKS clicks a round. Fails
+    unless every round's mIoU and losses are finite, every AL round buys
+    FLAG_CLICKS clicks, each round's steps replay their StepGraph, the
+    live CUDA graphs stay within FORWARD_GRAPHS and one StepGraph, and
+    round FLAG_ROUNDS ends with at most FLAG_RESERVED_GROWTH more
+    reserved bytes than round FLAG_ROUNDS - 1; the partition and the
+    rounds must launch K6-k64, K1, K2-bf16, K4-bf16 and K3 (counted by
+    the twin from 0 in each). K3 is held to its plain version at the last
+    round's call. Returns ({"flagship": launches}, K3's check)."""
+    from ssdr_al_torch.active import region_graph as rg
+    from ssdr_al_torch.kernels import measure
+    from ssdr_al_torch.ops import chamfer as ch
+    from ssdr_al_torch.scripts import flagship
+    from ssdr_al_torch.train.graphs import FORWARD_GRAPHS
+
+    t_phase = time.perf_counter()
+    recs, k3_calls, cd_fn = [], [], rg.chamfer_pairwise_blocks
+
+    def rec_cd(points, mask):
+        k3_calls[:] = [(points.contiguous(), mask.contiguous())]
+        return cd_fn(points, mask)
+
+    g0 = dict(EVAL_GRAPHS)
+    rg.chamfer_pairwise_blocks = rec_cd
+    try:
+        flagship.main(["--rooms", str(FLAG_ROOMS), "--points",
+                       str(FLAG_POINTS), "--rounds", str(FLAG_ROUNDS),
+                       "--train_steps", str(FLAG_STEPS), "--val_steps",
+                       str(FLAG_VAL_STEPS), "--clicks", str(FLAG_CLICKS),
+                       "--work", os.path.join(work, "flagship"), "--out",
+                       os.path.join(work, "flagship_out")], log=recs.append)
+    finally:
+        rg.chamfer_pairwise_blocks = cd_fn
+    for r in recs:
+        print("flagship " + json.dumps(r))
+    rounds = [r for r in recs if r.get("event") == "round"]
+    part = next(r for r in recs if r.get("event") == "partition")
+    launches = dict.fromkeys(read_counts(), 0)
+    for r in [part] + rounds:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    print("launches flagship " + json.dumps(launches))
+    require_launched("flagship", launches,
+                     ("knn_tiled_k64", "window_topk", "gather_window_bf16",
+                      "scatter_window_bf16", "chamfer_sums"))
+    require_replayed("flagship", g0, FLAG_ROUNDS)
+    bad = [r["round"] for r in rounds
+           if not (np.isfinite(r["miou"]) and np.isfinite(r["oa"])
+                   and r["losses_finite"] and r["replays"] >= 1
+                   and r["live_graphs"] <= FORWARD_GRAPHS + 1
+                   and (r["round"] == 1
+                        or r["stats"]["gcn_sp_num"] == FLAG_CLICKS))]
+    if [r["round"] for r in rounds] != list(range(1, FLAG_ROUNDS + 1)) or \
+            bad:
+        raise AssertionError(f"flagship: rounds {bad} failed: {rounds}")
+    end = {r["round"]: r["end_reserved_bytes"] for r in rounds}
+    if end[FLAG_ROUNDS] > (1 + FLAG_RESERVED_GROWTH) * end[FLAG_ROUNDS - 1]:
+        raise AssertionError(f"flagship: reserved bytes at the rounds' ends "
+                             f"grew: {end}")
+    for r in rounds:
+        print(f"flagship round {r['round']}: mIoU {r['miou']:.4f}, OA "
+              f"{r['oa']:.4f}, wall {r['wall_s']:.2f} s (selection "
+              f"{r['select_s']:.2f}, training {r['train_s']:.2f}, eval "
+              f"{r['eval_s']:.2f}), warm step {r['warm_step_ms']:.3f} ms, "
+              f"{r['replays']} replays, {r['live_graphs']} live graphs "
+              f"({r['graph_pool_bytes'] / 2**30:.2f} GiB), reserved at the "
+              f"end {r['end_reserved_bytes'] / 2**30:.3f} GiB, peak "
+              f"{r['peak_reserved_bytes'] / 2**30:.3f} GiB, K3 "
+              + json.dumps(r["k3"]))
+    points, mask = k3_calls[0]
+    r3 = measure.check_k3(points, mask, f"flagship round {FLAG_ROUNDS}")
+    out = ch.chamfer_sums(points, mask)
+    least, _ = measure.chamfer_bounds(points, mask, out)
+    r3.update(call=list(points.shape[:3]),
+              valid_share=mask.float().mean().item(),
+              call_bound_ms=least[0], call_bound_by=least[1],
+              launches=launches["chamfer_sums"])
+    print(f"K3 at the flagship round's call {r3['call']}, "
+          f"{r3['valid_share']:.3f} valid: max rel err "
+          f"{r3['max_rel_err']:.2e}, run to run {r3['run_to_run']}, "
+          f"{r3['ms']:.3f} ms (plain {r3['plain_ms']:.3f} ms, bound "
+          f"{r3['bound_ms']:.4f} ms by {r3['bound_by']})")
+    if not (r3["max_rel_err"] <= 1e-5 and r3["run_to_run"]):
+        raise AssertionError(f"K3 at the flagship round: {r3}")
+    del k3_calls, points, mask, out
+    print(f"flagship phase {time.perf_counter() - t_phase:.1f} s")
+    return {"flagship": launches}, r3
+
+
 def trace_phase(dev, root):
     """One warm host train step [6 x 40960] under
     utils/logging.py::device_trace, its Chrome trace written under
@@ -2307,6 +2423,9 @@ def main() -> int:
         paths.update(s3d_paths)
         for name, c in s3d_checks.items():
             checks[name]["semantic3d_scale"] = c
+        flag_paths, checks["chamfer_sums"]["flagship"] = flagship_phase(
+            dev, work)
+        paths.update(flag_paths)
         paths.update(trace_phase(dev, root))
         paths.update(ablation_phase(dev, work))
     finally:
@@ -2327,7 +2446,8 @@ def main() -> int:
                          **{k: c[k] for k in ("shapes", "ties",
                                               "shapes_semantic3d",
                                               "shapes_semantickitti",
-                                              "semantic3d_scale")
+                                              "semantic3d_scale",
+                                              "flagship")
                             if k in c}))
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "ssdr_al_tpu"))

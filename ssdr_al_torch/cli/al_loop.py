@@ -24,6 +24,7 @@ on the host pipeline under dp, as in JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 from ssdr_al_torch.active.samplers import (
@@ -70,11 +71,16 @@ def build_sampler_args(args) -> list:
     return sa
 
 
-def run_al_loop(args):
-    return run_ranks(_run_al_loop, args)
+def run_al_loop(args, observe=None):
+    """Rounds args.round..last of the loop; returns [(miou, oa)] a round.
+    observe(event, info), for measurement (scripts/flagship.py), is
+    called with ("setup", {trainer, sampler}) before the first
+    round and with ("round", {round, stats, select_s, train_s, miou, oa})
+    after each round's training."""
+    return run_ranks(functools.partial(_run_al_loop, observe=observe), args)
 
 
-def _run_al_loop(group, args):
+def _run_al_loop(group, args, observe=None):
     exp = setup_experiment(args)
     sampler_args = build_sampler_args(args)
     state = exp.make_state(sampler_args, group)
@@ -125,6 +131,8 @@ def _run_al_loop(group, args):
     sp_batch_size = args.sp_batch_size or exp.cfg.sp_batch_size
     last = args.rounds if args.rounds else exp.cfg.al_rounds[1]
 
+    if observe is not None:
+        observe("setup", dict(trainer=trainer, sampler=sampler))
     results = []
     for r in range(args.round, last + 1):
         trainer.restore_model(r - 1)
@@ -136,10 +144,11 @@ def _run_al_loop(group, args):
         else:
             sampler.sampling(trainer.eval_step, trainer.state, sp_batch_size,
                              r - 1, stats)
+        select_s = time.time() - t0
         regions = max(stats.sp_num + stats.split_sp_num, 1)
         points = stats.p_num + stats.sub_p_num
         log(f"round= {r} | labeling mean point={points / regions:.1f}, "
-            f"{stats}, costTime={time.time() - t0:.1f}")
+            f"{stats}, costTime={select_s:.1f}")
 
         t0 = time.time()
         round_dir = state.round_dir(r)
@@ -157,9 +166,13 @@ def _run_al_loop(group, args):
                 return pipe.batches(exp.cfg.train_steps, exp.cfg.batch_size)
         miou, oa = trainer.train_round(r, batch_iter_fn, evaluate,
                                        device_pool=pool)
+        train_s = time.time() - t0
         log(f"round= {r} | best_miou= {miou:.4f}, best_OA= {oa:.4f}, "
-            f"costTime={time.time() - t0:.1f}")
+            f"costTime={train_s:.1f}")
         results.append((miou, oa))
+        if observe is not None:
+            observe("round", dict(round=r, stats=stats, select_s=select_s,
+                                  train_s=train_s, miou=miou, oa=oa))
     if record is not None:
         record.close()
     return results

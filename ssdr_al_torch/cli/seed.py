@@ -12,6 +12,8 @@ The superpoint registry (data/<ds>/<reg>/superpoint/total.pkl) must exist.
 from __future__ import annotations
 
 import argparse
+import functools
+import time
 
 from ssdr_al_torch.active.samplers import SeedSampler
 from ssdr_al_torch.active.state import RoundStats
@@ -29,11 +31,16 @@ from ssdr_al_torch.cli.common import (
 )
 
 
-def run_seed(args):
-    return run_ranks(_run_seed, args)
+def run_seed(args, observe=None):
+    """The seed round; returns its (miou, oa). observe(event, info), for
+    measurement (scripts/flagship.py), is called with ("setup",
+    {trainer, sampler}) before the labelling and with
+    ("round", {round: 1, stats, select_s, train_s, miou, oa}) after the
+    training."""
+    return run_ranks(functools.partial(_run_seed, observe=observe), args)
 
 
-def _run_seed(group, args):
+def _run_seed(group, args, observe=None):
     exp = setup_experiment(args)
     sampler_args = ["seed"]
     state = exp.make_state(sampler_args, group)
@@ -48,14 +55,19 @@ def _run_seed(group, args):
     log(f"total_sp_num {total_sp_num}, seeding {sp_batch}")
 
     sampler = SeedSampler(state, exp.train_clouds, total_sp_num)
+    if observe is not None:
+        observe("setup", dict(trainer=trainer, sampler=sampler))
+    t0 = time.time()
     stats = RoundStats()
     sampler.sampling(sp_batch, last_round=0, stats=stats)
+    select_s = time.time() - t0
     n_regions = max(stats.sp_num + stats.sub_num, 1)
     n_points = stats.p_num + stats.sub_p_num
     log(f"round= 1 | labeling_region_num={n_regions}, "
         f"labeling_point_num={n_points}, "
         f"mean_points={n_points / n_regions:.1f}")
 
+    t0 = time.time()
     round_dir = state.round_dir(1)
     pipe = make_training_pipeline(
         exp, pseudo_gt=pseudo_gt_for_round(state, round_dir,
@@ -67,6 +79,9 @@ def _run_seed(group, args):
                                       exp.cfg.batch_size),
         evaluate)
     log(f"round= 1 | best_miou= {miou:.4f}, best_OA= {oa:.4f}")
+    if observe is not None:
+        observe("round", dict(round=1, stats=stats, select_s=select_s,
+                              train_s=time.time() - t0, miou=miou, oa=oa))
     if record is not None:
         record.close()
     return miou, oa

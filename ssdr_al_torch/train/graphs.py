@@ -28,6 +28,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import time
+import weakref
 from typing import Callable, Dict, Hashable, Sequence
 
 import torch
@@ -46,6 +47,12 @@ GRAPH_WARMUP = 3
 FORWARD_GRAPHS = 4
 # the open record_runs() lists, each taking every run_steps call's stats
 _RECORDS: list = []
+# the open record_steps() lists, each taking every StepGraph call's events
+_STEP_RECORDS: list = []
+# every Graph not yet collected (live_graphs)
+_LIVE: "weakref.WeakSet[Graph]" = weakref.WeakSet()
+# warm()'s side stream of each device (side_stream)
+_SIDE_STREAMS: dict = {}
 
 
 class Graph:
@@ -57,6 +64,8 @@ class Graph:
         self.graph = graph
         self.launches = launches
         self.replays = 0
+        self.pool_bytes = None      # measured_capture's reading
+        _LIVE.add(self)
 
     def replay(self):
         self.graph.replay()
@@ -64,12 +73,26 @@ class Graph:
         self.replays += 1
 
 
+def side_stream(current):
+    """warm()'s side stream beside the stream `current`: one a device, made
+    at its first use. torch.cuda.Stream() hands out the next stream of a
+    pool of 32, and cuBLAS keeps a workspace for every stream it has run
+    on, so a new side stream a warm step made a process hold a workspace
+    more each time, up to 32 (on an H100, ~0.1 GB more a training round
+    of the flagship loop)."""
+    side = _SIDE_STREAMS.get(current.device)
+    if side is None:
+        side = _SIDE_STREAMS[current.device] = torch.cuda.Stream(
+            current.device)
+    return side
+
+
 def warm(step: Callable, device):
     """step() on a side stream that waits for the current stream's work
     and that the current stream then waits for: an eager step before a
     capture. Returns step()'s result."""
     current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
+    side = side_stream(current)
     side.wait_stream(current)
     with torch.cuda.stream(side):
         out = step()
@@ -129,12 +152,11 @@ def run_steps(step: Callable, n: int, device, *,
     if record:
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-    graph = capture_s = capture_bytes = None
+    graph = capture_s = None
     if graphed:
         for _ in range(GRAPH_WARMUP):
             warm(step, device)
-        graph, _, capture_s, capture_bytes = measured_capture(
-            step, generators, device)
+        graph, _, capture_s = measured_capture(step, generators, device)
         for _ in range(n - GRAPH_WARMUP):
             graph.replay()
     else:
@@ -144,7 +166,8 @@ def run_steps(step: Callable, n: int, device, *,
         torch.cuda.synchronize(device)
         stats = dict(name=name, steps=n, wall_s=time.perf_counter() - t0,
                      replays=graph.replays if graph else 0,
-                     capture_s=capture_s, capture_bytes=capture_bytes,
+                     capture_s=capture_s,
+                     capture_bytes=graph.pool_bytes if graph else None,
                      launches={k: v for k, v in graph.launches.items()
                                if v} if graph else {})
         for runs in _RECORDS:
@@ -168,16 +191,47 @@ def record_runs():
 
 def measured_capture(step: Callable, generators: Sequence[torch.Generator],
                      device):
-    """(Graph, out, capture_s, capture_bytes): capture() timed, and the
-    memory its pool reserved. torch.cuda.graph empties the cache too, so
-    what the capture reserves past an emptied cache is its pool."""
+    """(Graph, out, capture_s): capture() timed, and the memory its pool
+    reserved kept as the Graph's pool_bytes. torch.cuda.graph empties
+    the cache too, so what the capture reserves past an emptied cache is
+    its pool."""
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     t0 = time.perf_counter()
     graph, out = capture(step, generators, device)
-    return (graph, out, time.perf_counter() - t0,
-            torch.cuda.memory_reserved(device) - reserved)
+    graph.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    return graph, out, time.perf_counter() - t0
+
+
+def live_graphs() -> list:
+    """Every captured Graph of the process not yet collected (a graph
+    holds its memory pool while it lives): the kept eval-step captures,
+    a round's StepGraph, a greedy loop's or fit's graph while it runs,
+    and any that something still references."""
+    return list(_LIVE)
+
+
+@contextlib.contextmanager
+def record_steps():
+    """Inside the block every StepGraph call on the card appends (kind,
+    start, end) to the list this yields: kind "eager", "capture" (the
+    call that captures and replays) or "replay", and two CUDA events
+    recorded on the current stream before and after the call (nothing
+    synchronizes; step_ms reads them). For measurement."""
+    steps: list = []
+    _STEP_RECORDS.append(steps)
+    try:
+        yield steps
+    finally:
+        _STEP_RECORDS.remove(steps)
+
+
+def step_ms(steps) -> list:
+    """[(kind, device ms)] of record_steps' entries, after a
+    synchronize."""
+    torch.cuda.synchronize()
+    return [(kind, start.elapsed_time(end)) for kind, start, end in steps]
 
 
 class StepGraph:
@@ -199,17 +253,30 @@ class StepGraph:
         self.graph = None
         self.outputs = None
         self.capture_s = None
-        self.capture_bytes = None
 
     def __call__(self):
+        if not _STEP_RECORDS:
+            return self._call()[1]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        kind, out = self._call()
+        end.record()
+        for steps in _STEP_RECORDS:
+            steps.append((kind, start, end))
+        return out
+
+    def _call(self):
+        """(kind, outputs) of one step: kind as record_steps names it."""
+        kind = "replay"
         if self.graph is None:
             if self.eager_steps < GRAPH_WARMUP:
                 self.eager_steps += 1
-                return warm(self.step, self.device)
-            self.graph, self.outputs, self.capture_s, self.capture_bytes = \
-                measured_capture(self.step, self.generators, self.device)
+                return "eager", warm(self.step, self.device)
+            self.graph, self.outputs, self.capture_s = measured_capture(
+                self.step, self.generators, self.device)
+            kind = "capture"
         self.graph.replay()
-        return self.outputs
+        return kind, self.outputs
 
     def stats(self) -> dict:
         """{eager_steps, replays, capture_s, capture_bytes (the memory the
@@ -218,21 +285,20 @@ class StepGraph:
         g = self.graph
         return dict(eager_steps=self.eager_steps,
                     replays=g.replays if g else 0, capture_s=self.capture_s,
-                    capture_bytes=self.capture_bytes,
+                    capture_bytes=g.pool_bytes if g else None,
                     launches={k: v for k, v in (g.launches if g else {})
                               .items() if v})
 
 
 class _Forward:
     """One captured forward of ForwardGraphs: its staged inputs, graph and
-    static outputs, what it keeps alive, and its pool's bytes."""
+    static outputs, and what it keeps alive."""
 
-    def __init__(self, inputs, graph: Graph, outputs, keep, capture_bytes):
+    def __init__(self, inputs, graph: Graph, outputs, keep):
         self.inputs = inputs
         self.graph = graph
         self.outputs = outputs
         self.keep = keep
-        self.capture_bytes = capture_bytes
 
 
 class ForwardGraphs:
@@ -272,10 +338,8 @@ class ForwardGraphs:
             inputs.stage(batch)
             for _ in range(GRAPH_WARMUP):
                 warm(fn, self.device)
-            graph, outputs, capture_s, capture_bytes = measured_capture(
-                fn, (), self.device)
-            fwd = self.forwards[key] = _Forward(inputs, graph, outputs, keep,
-                                                capture_bytes)
+            graph, outputs, capture_s = measured_capture(fn, (), self.device)
+            fwd = self.forwards[key] = _Forward(inputs, graph, outputs, keep)
             self.captures += 1
             self.capture_s += capture_s
             while len(self.forwards) > FORWARD_GRAPHS:
@@ -293,7 +357,7 @@ class ForwardGraphs:
         graph's kernel launches a replay)}."""
         return dict(captures=self.captures, replays=self.replays,
                     capture_s=self.capture_s, graphs=len(self.forwards),
-                    capture_bytes=sum(f.capture_bytes
+                    capture_bytes=sum(f.graph.pool_bytes
                                       for f in self.forwards.values()),
                     launches=[{k: v for k, v in f.graph.launches.items() if v}
                               for f in self.forwards.values()])

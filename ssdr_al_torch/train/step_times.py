@@ -177,6 +177,12 @@ def busy_share(fn, reps=3):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / reps
+    return profile_summary(prof, wall, reps)
+
+
+def profile_summary(prof, wall, reps=1):
+    """busy_share's dict of a finished torch.profiler run over `reps`
+    calls of `wall` s each (host clock, to a synchronize)."""
     spans, launches, by_name = [], 0, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:

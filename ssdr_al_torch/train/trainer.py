@@ -48,6 +48,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+# imported here, not by the first optimizer (torch.optim imports it
+# lazily): its first import leaves a reference cycle through the frames
+# on the stack (torch.fx.wrap keeps its own frame), which would keep the
+# first Trainer of a process, and the CUDA graphs its eval step holds,
+# alive after its entry point returns, until a full garbage collection
+import torch._dynamo  # noqa: F401
 from torch.func import functional_call
 
 from ssdr_al_torch.config import Config, class_weights as get_class_weights
@@ -515,7 +521,7 @@ class EvalStep:
         if self.graphs is None:
             return {}
         kept = [dict(program=key[0], shapes=key[1],
-                     pool_bytes=fwd.capture_bytes)
+                     pool_bytes=fwd.graph.pool_bytes)
                 for key, fwd in self.graphs.forwards.items()]
         return dict(self.graphs.stats(), kept=kept)
 
@@ -622,10 +628,12 @@ class Trainer:
             self.model, cfg, self.steps_per_epoch,
             capturable=self.device.type == "cuda" and group is None)
         self.dropout_gen = torch.Generator(self.device).manual_seed(0)
-        # the last round's: every step's loss (device scalars), and on the
-        # card its StepGraph's stats()
+        # the last round's: every step's loss (device scalars), on the
+        # card its StepGraph's stats(), and the host seconds of its
+        # training epochs and evaluations (as logged)
         self.round_losses = []
         self.graph_stats = None
+        self.round_times = {"train_s": 0.0, "eval_s": 0.0}
 
     @property
     def state(self) -> dict:
@@ -746,6 +754,7 @@ class Trainer:
             return float(torch.stack(xs).float().mean()) if xs else 0.0
 
         self.round_losses, self.graph_stats = [], None
+        self.round_times = {"train_s": 0.0, "eval_s": 0.0}
         for epoch in range(cfg.max_epoch):
             t0 = time.time()
             losses, accs, act_sum = [], [], 0.0
@@ -760,10 +769,13 @@ class Trainer:
             if poss_pool:
                 device_pool.poss_state = device_pool.field.clone()
             self.round_losses += losses
+            loss, acc = mean(losses), mean(accs)    # waits for the steps
+            train_s = time.time() - t0
+            self.round_times["train_s"] += train_s
             self.log(
                 f"Round {round_num} | epoch={epoch} "
-                f"L_out={mean(losses):.3f} Acc={mean(accs):.2f} "
-                f"train costTime={time.time() - t0:.1f}s "
+                f"L_out={loss:.3f} Acc={acc:.2f} "
+                f"train costTime={train_s:.1f}s "
                 f"activation_sum={float(act_sum):.0f}")
             if evaluate_fn is not None and \
                     epoch + 1 >= int(cfg.max_epoch * cfg.eval_start_frac):
@@ -772,10 +784,11 @@ class Trainer:
                 if miou > best_miou:
                     best_miou, best_oa = miou, oa
                     self._save(snap)
+                eval_s = time.time() - t1
+                self.round_times["eval_s"] += eval_s
                 self.log(
                     f"Round {round_num} | Best m_IoU is: {best_miou:.3f}, "
-                    f"OA is: {best_oa:.3f} | val costTime="
-                    f"{time.time() - t1:.1f}s")
+                    f"OA is: {best_oa:.3f} | val costTime={eval_s:.1f}s")
         if evaluate_fn is None:
             self._save(snap)
         if graph is not None:

@@ -57,7 +57,8 @@ def test_every_submodule_is_listed():
                  "ssdr_al_torch.utils.logging",
                  "ssdr_al_torch.train.repeat_check",
                  "ssdr_al_torch.scripts",
-                 "ssdr_al_torch.scripts.ablation"):
+                 "ssdr_al_torch.scripts.ablation",
+                 "ssdr_al_torch.scripts.flagship"):
         assert name in SUBMODULES
 
 
