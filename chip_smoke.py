@@ -2,8 +2,9 @@
 hold each against its plain PyTorch version at the main path's shapes
 (K1, its centred-product form K5 and K2 at every call of one forward,
 both K2 sources, K6 at every call of one exact pyramid, tie-heavy inputs,
-K4 at every call of one train step, bitwise, each at S3DIS, Semantic3D
-[4 × 65536] and SemanticKITTI [6 × 45056] width, and K3 at a fixed
+K4 at every call of one train step, bitwise, with its transposes, each
+at S3DIS, Semantic3D [4 × 65536] and SemanticKITTI [6 × 45056] width,
+K4-bf16 at the flagship's [2 × 40960] too, and K3 at a fixed
 dispatch and the selection round's shape: ssdr_al_torch/kernels/
 measure.py), then ops.knn.knn_window at [6 x 40960] (K1 a probe; k = 16
 at W = 2048 with probes 1 and 2 on both curves, the k = 1 upsample at
@@ -161,6 +162,10 @@ KERNELS = {
                             "ssdr_al_tpu/ops/gather.py:184"),
     "knn_tiled_k64": ("ssdr_al_torch/csrc/knn_tiled.cu",
                       "ssdr_al_tpu/ops/knn.py:760"),
+    # K4's transpose of an index set (its count and place kernels), built
+    # once for the scatters that share it
+    "scatter_window_transpose": ("ssdr_al_torch/csrc/scatter_window.cu",
+                                 "ssdr_al_tpu/ops/gather.py:184"),
 }
 ROOMS, ROOM_POINTS, TARGET_SP, BUDGET = 4, 150_000, 2048, 400
 TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 8, 2
@@ -264,6 +269,9 @@ def read_counts():
 
 
 def require_launched(path, counts, names):
+    # a path that runs K4's sum pass builds the transposes it reads
+    if {"scatter_window", "scatter_window_bf16"} & set(names):
+        names = tuple(names) + ("scatter_window_transpose",)
     missing = [n for n in names if counts[n] < 1]
     if missing:
         raise AssertionError(f"{path}: kernels of the path never launched: "
@@ -344,8 +352,8 @@ def check_kernels(cfg, dev):
         print(f"{name}: {len(r['window_topk'])} K1 and K5, "
               f"{len(r['gather_window'])} K2, {len(k4r)} K4, "
               f"{len(r['knn_tiled'])} K6 calls equal to "
-              f"their plain versions; K4 rows past the bins per call "
-              f"{[x.get('overflow_rows') for x in k4r]}")
+              f"their plain versions; K4 as the step runs it "
+              f"{measure.k4_step(k4r)[0]:.4f} ms")
     s3d, kitti = wide["Semantic3D"], wide["SemanticKITTI"]
     main = measure.check_main_path(cfg, dev)
     k1_calls, _ = main["calls"]
@@ -418,15 +426,20 @@ def check_kernels(cfg, dev):
 
     # K4: the 11 calls of one train step [6 x 40960] (9 of the encoder's
     # gathers, 2 at k = 1 of the decoder's windowed upsamples), each
-    # bitwise equal to the CPU plain version and to itself
-    # (measure.check_k4); the row sums them, each field over the same calls
+    # bitwise equal to the CPU plain version and to itself, through its
+    # own transpose and a shared one (measure.check_k4); the row sums them
+    # as the step runs them (every sum pass, each shared transpose once:
+    # measure.k4_step), the other fields over the same calls; beside the
+    # k = 1 calls, K4-bf16 against scatter_rows, the bf16 model's upsample
+    # backward
     k4, k4s, k4k = (x["scatter_window"] for x in (main, s3d, kitti))
-    out["scatter_window"] = dict(
-        {key: sum(r[key] for r in k4) for key in ("ms", "plain_ms",
-                                                  "bound_ms", "library_ms")},
-        max_abs_err=max(r["max_abs_err"] for r in k4 + k4s + k4k),
-        bound_by="bytes", calls=len(k4), shapes=k4, shapes_semantic3d=k4s,
-        shapes_semantickitti=k4k)
+    out["scatter_window"] = k4_row(
+        k4, max_abs_err=max(r["max_abs_err"] for r in k4 + k4s + k4k),
+        shapes_semantic3d=k4s, shapes_semantickitti=k4k,
+        k1_bf16_rows=main["scatter_rows_k1"])
+    for r in main["scatter_rows_k1"]:
+        print(measure.k1_rows_line(r))
+    out["scatter_window_transpose"] = transpose_row(k4, k4s, k4k)
     # K3: one [8, 256, 512] dispatch at 60 % valid, and the selection
     # round's call shape (measure.check_k3)
     out["chamfer_sums"] = dict(main["chamfer_sums"][0],
@@ -437,21 +450,61 @@ def check_kernels(cfg, dev):
     # plain version (measure.check_bf16_path)
     bf = measure.check_bf16_path(cfg, dev)
     k2b, k4b = bf["gather_window_bf16"], bf["scatter_window_bf16"]
+    k4f = bf["scatter_window_bf16_flagship"]
     out["gather_window_bf16"] = dict(k2b[0], shapes=k2b,
                                      library_call="torch.gather of the "
                                      "values cast to bf16")
-    out["scatter_window_bf16"] = dict(
-        {key: sum(r[key] for r in k4b) for key in ("ms", "plain_ms",
-                                                   "bound_ms", "library_ms")},
-        max_abs_err=max(r["max_abs_err"] for r in k4b), bound_by="bytes",
-        calls=len(k4b), shapes=k4b,
+    out["scatter_window_bf16"] = k4_row(
+        k4b, max_abs_err=max(r["max_abs_err"] for r in k4b + k4f),
+        flagship_step=k4_row(k4f, max_abs_err=max(r["max_abs_err"]
+                                                  for r in k4f)),
         library_call="index_add_ of the cotangent widened to f32")
-    print(f"bf16: {len(k2b)} K2 calls and {len(k4b)} K4 calls bitwise equal "
-          f"to their plain versions; K2 sum {sum(r['ms'] for r in k2b):.4f} "
-          f"ms (bound {sum(r['bound_ms'] for r in k2b):.4f}), K4 sum "
-          f"{out['scatter_window_bf16']['ms']:.4f} ms (bound "
-          f"{out['scatter_window_bf16']['bound_ms']:.4f})")
+    fl = out["scatter_window_bf16"]["flagship_step"]
+    print(f"bf16: {len(k2b)} K2 calls and {len(k4b)} + {len(k4f)} K4 calls "
+          f"bitwise equal to their plain versions; K2 sum "
+          f"{sum(r['ms'] for r in k2b):.4f} ms (bound "
+          f"{sum(r['bound_ms'] for r in k2b):.4f}), K4 step [6 x "
+          f"{cfg.num_points}] {out['scatter_window_bf16']['ms']:.4f} ms "
+          f"(bound {out['scatter_window_bf16']['bound_ms']:.4f}), the "
+          f"flagship's [2 x {cfg.num_points}] {fl['ms']:.4f} ms (bound "
+          f"{fl['bound_ms']:.4f})")
     return out
+
+
+def transpose_row(*steps):
+    """The JSON row of K4's transposes from measure.check_k4's rows of
+    several steps: each distinct index set under shapes (all must equal
+    the plain transpose), the row itself the largest set of the first
+    step's (the L0 LFA gathers')."""
+    sets = [[dict(shape=r["shape"], equal=r["transpose_equal"],
+                  ms=r["transpose_ms"], plain_ms=r["transpose_plain_ms"],
+                  bound_ms=r["transpose_bound_ms"],
+                  sort_ms=r["transpose_sort_ms"], plan=r["transpose_plan"])
+             for r in {x["shared"]: x for x in rows}.values()]
+            for rows in steps]
+    tr = [t for step in sets for t in step]
+    if not all(t["equal"] for t in tr):
+        raise AssertionError(f"K4 transposes differ from the plain one: {tr}")
+    top = max(sets[0], key=lambda t: t["ms"])
+    return dict(ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by="bytes", library_ms=None,
+                max_abs_err=0, shape=top["shape"], shapes=tr,
+                library_call="none: a stable torch.sort of the row keys "
+                "(sort_ms) is only its sort")
+
+
+def k4_row(rows, **extra):
+    """A K4 row of the smoke's JSON line from measure.check_k4's rows of
+    one step: ms as the step runs them (measure.k4_step), the unshared
+    sum, and the plain version's, index_add_'s and the bounds summed."""
+    from ssdr_al_torch.kernels import measure
+
+    ms, unshared, bd = measure.k4_step(rows)
+    return dict(ms=ms, ms_transpose_each=unshared, bound_ms=bd,
+                bound_by="bytes",
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                library_ms=sum(r["library_ms"] for r in rows),
+                calls=len(rows), shapes=rows, **extra)
 
 
 def check_upsample_windows(dev):
@@ -1733,8 +1786,9 @@ def replay_phase(dev, work):
     bitwise equal; the launches counted from 0, the replays' included.
     The last replay of each path runs under torch.profiler: its trace
     must hold K1's, K2's and K4's device kernels (window_topk_kernel,
-    gather_window_kernel, scatter_fill_kernel, scatter_sum_kernel) as
-    often as the counts that each replay adds."""
+    gather_window_kernel, the transposes' *_transpose_kernel, the sums'
+    scatter_sum_kernel or scatter_bins_sum_kernel) as often as the counts
+    that each replay adds."""
     from ssdr_al_torch.train.repeat_check import replay_paths
 
     t0 = time.perf_counter()
@@ -1988,12 +2042,14 @@ def semantic3d_scale_phase(dev, work):
     warm = twin.run_round(sampler, step, params, S3D_SCALE_BUDGET, 1, dev)
     k2_calls, gather = [], rl.gather_window
 
-    def rec_k2(values, idx, starts, window, tq=128, out_dtype=None):
+    def rec_k2(values, idx, starts, window, tq=128, out_dtype=None,
+               transpose=None):
         if not k2_calls:
             k2_calls.append(dict(values=values.clone(), idx=idx.clone(),
                                  starts=starts.clone(), window=window,
                                  tq=tq, path="LFA", out_dtype=out_dtype))
-        return gather(values, idx, starts, window, tq, out_dtype)
+        return gather(values, idx, starts, window, tq, out_dtype,
+                      transpose=transpose)
 
     # the graph round replays its captured forward, so only the eager
     # round's forward calls the wrapper
@@ -2169,8 +2225,9 @@ def flagship_phase(dev, work):
 def trace_phase(dev, root):
     """One warm host train step [6 x 40960] under
     utils/logging.py::device_trace, its Chrome trace written under
-    build/device_trace/ and read back: it must name K2's kernel and both
-    of K4's."""
+    build/device_trace/ and read back: it must name K2's kernel and K4's
+    (a transpose's *_transpose_kernel and its sums, the single-use path's
+    fill and sum)."""
     from ssdr_al_torch.train.repeat_check import path_steps
     from ssdr_al_torch.utils.logging import device_trace
 
@@ -2187,8 +2244,9 @@ def trace_phase(dev, root):
     path = device_trace.last_path
     with open(path) as f:
         text = f.read()
-    names = ("gather_window_kernel", "scatter_fill_kernel",
-             "scatter_sum_kernel")
+    names = ("gather_window_kernel", "_transpose_kernel",
+             "scatter_sum_kernel", "scatter_fill_kernel",
+             "scatter_bins_sum_kernel")
     found = {n: text.count(n) for n in names}
     print(f"device_trace: {os.path.relpath(path, root)} "
           f"({os.path.getsize(path) / 2**20:.1f} MiB), kernel names "

@@ -9,10 +9,10 @@ a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the cached file. The first call to `library()` builds;
 importing this module builds nothing.
 
-Each wrapper (ops/knn.window_topk and knn_tiled, ops/gather.gather_window
-and scatter_window, ops/chamfer.chamfer_sums) passes tensor pointers and the
-current CUDA stream as ctypes.c_void_p and raises if the launcher's
-returned cudaError_t is not 0.
+Each wrapper (ops/knn.window_topk and knn_tiled, ops/gather.gather_window,
+window_transpose and scatter_window, ops/chamfer.chamfer_sums) passes
+tensor pointers and the current CUDA stream as ctypes.c_void_p and raises
+if the launcher's returned cudaError_t is not 0.
 """
 
 from __future__ import annotations
@@ -60,10 +60,17 @@ SIGNATURES = {
     # threads, bf16 output, unit, stream
     "gather_window_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _P],
+    # idx, starts, plan-tile counts, spans and reach, row counts, block
+    # counts, rowptr, ids, B, N, nq, k, window, tq, parts, pieces, threads,
+    # one CTA a batch element, stream (K4's transpose)
+    "scatter_transpose_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # g, idx, starts, counts, bins, ovf, dv, B, N, nq, k, C, window, tq,
-    # group, hist, bf16 g, stream
-    "scatter_window_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _P],
+    # group, hist, bf16 g, stream (K4's single-use path)
+    "scatter_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _P],
+    # g, rowptr, ids, dv, B, N, nq, k, C, group, unit, stream (K4's sum)
+    "scatter_sum_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # points, mask, packed, counts, out, C, S, P, stream
     "chamfer_sums_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

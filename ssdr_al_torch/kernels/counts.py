@@ -13,7 +13,11 @@ from typing import Dict
 def counters() -> dict:
     """{kernel: (wrapper, attribute holding its launch count)}."""
     from ssdr_al_torch.ops.chamfer import chamfer_sums
-    from ssdr_al_torch.ops.gather import gather_window, scatter_window
+    from ssdr_al_torch.ops.gather import (
+        gather_window,
+        scatter_window,
+        window_transpose,
+    )
     from ssdr_al_torch.ops.knn import knn_tiled, window_topk
 
     return {"window_topk": (window_topk, "launches"),
@@ -24,7 +28,8 @@ def counters() -> dict:
             "knn_tiled": (knn_tiled, "launches"),
             "gather_window_bf16": (gather_window, "launches_bf16"),
             "scatter_window_bf16": (scatter_window, "launches_bf16"),
-            "knn_tiled_k64": (knn_tiled, "launches_k64")}
+            "knn_tiled_k64": (knn_tiled, "launches_k64"),
+            "scatter_window_transpose": (window_transpose, "launches")}
 
 
 def reset():

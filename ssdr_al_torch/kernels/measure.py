@@ -2,7 +2,7 @@
 make.
 
     python3 ssdr_al_torch/kernels/measure.py [--tree DIR] [--out PATH]
-        [--dataset S3DIS|Semantic3D|SemanticKITTI] [--k6-only]
+        [--dataset S3DIS|Semantic3D|SemanticKITTI] [--k4-only | --k4-routes | --k6-only]
 
 One eval-mode forward of RandLA-Net at ConfigS3DIS width (B=8 × 40960,
 `window` engine, weights and cloud drawn from a seed; with `--dataset
@@ -20,9 +20,17 @@ clouds read and the indices written once), with the operations of the
 pairs it evaluated and of every pair beside it. One
 train-mode forward and backward (B=6 × 40960,
 4 × 65536 or 6 × 45056, dropout off) records every K4 call (`scatter_window`, the
-backward of each K2 call), with the count of dv rows whose entries
-overflow K4's bins. K3 (`chamfer_sums`) runs at one [8, 256, 512] dispatch (60 %
-valid) and at the selection round's call: the superpoint slab of the
+backward of each K2 call) and which calls share a transpose of their index
+set (a layer's two LFA gathers); each K4 call is also timed as its sum pass
+alone and its transpose alone (`window_transpose`, equal to its plain
+version, beside a stable torch.sort of the row keys), and the step's K4
+time is summed as the step runs it (`k4_step`: the calls that share a
+transpose by their sum passes and the transpose once, every other call
+whole: the single-use path, or its own transpose and sum at k = 1). At each k = 1 call (a windowed upsample's
+backward) K4-bf16 is timed beside `scatter_rows`, the bf16 model's
+upsample backward, on the same rows (`check_rows_k1`). K3
+(`chamfer_sums`) runs at one [8, 256, 512] dispatch (60 % valid) and at
+the selection round's call: the superpoint slab of the
 smoke's four synthetic rooms (`grid_superpoints`, 2048 a room, capped at
 512 points) gathered by `SuperpointBlockCache.chamfer` for 310 superpoints
 a room. Each call is replayed: the kernel against its plain version (K1
@@ -35,14 +43,23 @@ in shared memory. Tie-heavy inputs follow at S3DIS width: duplicated
 points, points on a coarse grid, SENTINEL pad rows and window starts
 clamped at the cloud's end, for K1, K5, K2 and K6.
 
-`check_bf16_path` (run by `chip_smoke.py`) checks K2 and K4 at every
-call of the same forward and train-mode backward of the bf16 model
-(cfg.compute_dtype "bfloat16"): K2's bf16-output instantiation and K4's
-bf16-cotangent one, each bitwise equal to its plain version (the f32
-gather rounded to bf16; index_add_ of g.float()), beside `torch.gather`
-of the values cast to bf16 and `index_add_` of the cotangent widened to
-f32; the bound counts the bf16 output and cotangent at 2 bytes a value.
+`check_bf16_path` (run here after the f32 checks, and by
+`chip_smoke.py`) checks K2 and K4 at every call of the same forward and
+train-mode backward of the bf16 model (cfg.compute_dtype "bfloat16"),
+and at S3DIS width K4 also at the flagship run's batch [2 × 40960]: K2's
+bf16-output instantiation and K4's bf16-cotangent one, each bitwise equal
+to its plain version (the f32 gather rounded to bf16; index_add_ of
+g.float()), beside `torch.gather` of the values cast to bf16 and
+`index_add_` of the cotangent widened to f32; the bound counts the bf16
+output and cotangent at 2 bytes a value.
 
+`--k4-only` runs only the K4 calls of one f32 and one bf16 train step
+(and the bf16 one at the flagship's batch at S3DIS width).
+`--k4-routes` runs K4 at the same calls (f32 at each dataset's width,
+bf16 at S3DIS width and at the flagship's batch) on each of its routes
+(`k4_routes`: the single-use path, a transpose of the call's own on the
+batch and on the tile plan, the sum pass alone), two turns each, for the
+margins of the wrapper's choices.
 `--k6-only` runs only the K6 calls, and the partition's (`partition_call`:
 the k = 46 self-search over one prepared S3DIS-sized room, K6's K = 64
 instantiation), each also on every route of the wrapper (the brute-force
@@ -144,14 +161,17 @@ def record_main_path(cfg, dev, b=8, seed=0):
         return k1_fn(support, queries, starts, k, window, tq, mxu)
 
     def rec_k2(path):
-        def rec(values, idx, starts, window, tq=128, out_dtype=None):
+        def rec(values, idx, starts, window, tq=128, out_dtype=None,
+                transpose=None):
             k2.append(dict(values=values, idx=idx, starts=starts,
                            window=window, tq=tq,
                            path="upsample" if idx.shape[2] == 1 else path,
                            out_dtype=out_dtype or values.dtype))
-            # a tree without the bf16 output takes no out_dtype
+            # a tree without the bf16 output takes no out_dtype, one
+            # without shared transposes none
             dt = () if out_dtype is None else (out_dtype,)
-            return k2_fn(values, idx, starts, window, tq, *dt)
+            kw = {} if transpose is None else {"transpose": transpose}
+            return k2_fn(values, idx, starts, window, tq, *dt, **kw)
         return rec
 
     # a wrapper counts its launches on its module's name for it, which is
@@ -319,17 +339,22 @@ def k6_routes(call, reps=10):
 def record_train_backward(cfg, dev, b=6, seed=0):
     """K4 calls of one train-mode forward and backward [b × cfg.num_points]
     (dropout off, a random cotangent on the logits): each a dict of the
-    wrapper's arguments, in launch order."""
+    wrapper's arguments, in launch order, and `shared`: the calls that
+    share one transpose of their index set (a layer's two LFA scatters)
+    have the same number, every other call its own."""
     from ssdr_al_torch.models import randlanet as rl
     from ssdr_al_torch.ops import gather as ga
 
-    calls = []
+    calls, keys = [], {}
     k4 = ga.scatter_window
 
-    def rec(g, idx, starts, n, window, tq=128):
+    def rec(g, idx, starts, n, window, tq=128, transpose=None):
+        key = len(calls) if transpose is None else \
+            keys.setdefault(id(transpose), len(calls))
         calls.append(dict(g=g, idx=idx, starts=starts, n=n, window=window,
-                          tq=tq))
-        return k4(g, idx, starts, n, window, tq)
+                          tq=tq, shared=key))
+        kw = {} if transpose is None else {"transpose": transpose}
+        return k4(g, idx, starts, n, window, tq, **kw)
 
     # the wrapper counts its launches on the module's name for it
     rec.launches = rec.launches_bf16 = 0
@@ -402,17 +427,184 @@ def check_k4(call, reps=20, plain_reps=5):
                library_ms=device_ms(lambda: torch.zeros(
                    b * n, c, device=g.device).index_add_(0, rows, g2), reps),
                max_row_entries=int(per_row.max()))
-    if hasattr(ga, "SCATTER_BIN"):
-        out["overflow_rows"] = int((per_row > ga.SCATTER_BIN).sum())
+    # rows past the bins of the fill's path (this tree's single-use path,
+    # a parent tree's only one)
+    bins = getattr(ga, "FUSED_BIN", getattr(ga, "SCATTER_BIN", None))
+    if bins:
+        out["overflow_rows"] = int((per_row > bins).sum())
     if hasattr(ga, "scatter_plan"):
         out["plan"] = list(ga.scatter_plan(b, n, nq, k, c, w, tq,
                                            *((g.dtype,) if bf16 else ())))
+    if hasattr(ga, "fused_plan") and tq * k >= ga.TRANSPOSE_SMALL_TILE:
+        # the call on its own takes the single-use path
+        out["plan"] = ["single-use"] + list(ga.fused_plan(b, n, nq, k, c, w,
+                                                           tq, g.dtype))
+    if hasattr(ga, "WindowTranspose"):
+        # the sum pass alone, through a transpose built beforehand and
+        # shared by two calls, and the transpose alone
+        tr = ga.WindowTranspose(i, st, n, w, tq)
+        shared = [ga.scatter_window(g, i, st, n, w, tq, transpose=tr)
+                  for _ in range(2)]
+        out.update(check_transpose(i, st, n, w, tq, reps),
+                   shared_bitwise=all(torch.equal(x, got) for x in shared),
+                   sum_ms=device_ms(lambda: ga.scatter_window(
+                       g, i, st, n, w, tq, transpose=tr), reps),
+                   transpose_plan=list(ga.transpose_plan(b, n, nq, k, w,
+                                                         tq)),
+                   shared=call.get("shared"))
     return out
+
+
+def check_transpose(idx, starts, n, window, tq, reps=20, plain_reps=5):
+    """K4's transpose kernels at one index set: one launch counted,
+    rowptr and the ids it defines equal to the plain version's (a stable
+    sort of the rows); its time, the plain version's, a stable torch.sort
+    of the same row keys (the sort alone) and the bound: idx and starts
+    read, rowptr and the in-window ids written."""
+    from ssdr_al_torch.ops import gather as ga
+
+    before = ga.window_transpose.launches
+    rp, ids = ga.window_transpose(idx, starts, n, window, tq)
+    if ga.window_transpose.launches != before + 1:
+        raise AssertionError("K4 transpose: the kernels did not launch")
+    rp0, ids0 = ga._window_transpose_plain(idx, starts, n, window, tq)
+    b, nq, k = idx.shape
+    ends = rp0.reshape(b, n + 1)[:, n].tolist()
+    equal = torch.equal(rp, rp0) and all(
+        torch.equal(ids[j * nq * k:j * nq * k + m],
+                    ids0[j * nq * k:j * nq * k + m])
+        for j, m in enumerate(ends))
+    i, inside = ga._window_mask(idx, starts, n, window, tq)
+    key = torch.where(inside, i, n).reshape(b, -1)
+    bd = bound(nbytes(idx, starts, rp) + 4 * sum(ends), 0)
+    return dict(transpose_equal=equal,
+                transpose_ms=device_ms(lambda: ga.window_transpose(
+                    idx, starts, n, window, tq), reps),
+                transpose_plain_ms=device_ms(
+                    lambda: ga._window_transpose_plain(idx, starts, n,
+                                                       window, tq),
+                    plain_reps),
+                transpose_bound_ms=bd[0], transpose_bound_by=bd[1],
+                transpose_sort_ms=device_ms(
+                    lambda: torch.sort(key, dim=1, stable=True), reps))
+
+
+def k4_routes(call, reps=20, turns=2):
+    """K4's routes at one recorded call, each checked bitwise against the
+    CPU plain version and timed `turns` times, the routes in turns: the
+    single-use path (`fused`: fill and sum), the call through a transpose
+    of its own on the batch plan (`batch`, where its ids fit: nq·k <=
+    65535 and its shared memory within TRANSPOSE_WHOLE_SMEM) and on the
+    tile plan (`tile`), each transpose alone (`batch_t`, `tile_t`) and the
+    sum pass alone through a transpose built beforehand (`sum`). The tile
+    plan is forced by setting ops/gather.py's TRANSPOSE_WHOLE_SMEM to 0
+    for the call. Returns {shape, route (the one the wrapper takes without a
+    shared transpose), transpose (the plan it takes), ms: {route: [ms a
+    turn]}, bitwise}."""
+    from ssdr_al_torch.ops import gather as ga
+
+    g, i, st = call["g"], call["idx"], call["starts"]
+    n, w, tq = call["n"], call["window"], call["tq"]
+    b, nq, k, c = g.shape
+    if g.data_ptr() % 16:
+        g = g.clone()            # the kernels load 16-byte aligned units
+    name = (f"[{b},{nq},{k},{c}]"
+            f"{' bf16' if g.dtype == torch.bfloat16 else ''} -> "
+            f"[{b},{n},{c}] W={w} tq={tq}")
+    saved = ga.TRANSPOSE_WHOLE_SMEM
+
+    def forced(plan, fn):
+        def run():
+            if plan == "tile":
+                ga.TRANSPOSE_WHOLE_SMEM = 0
+            try:
+                return fn()
+            finally:
+                ga.TRANSPOSE_WHOLE_SMEM = saved
+        return run
+
+    plans = ["tile"] + (["batch"] if ga.transpose_plan(b, n, nq, k, w, tq)[3]
+                        else [])
+    fns = {"fused": lambda: ga._scatter_fused(g, i, st, n, w, tq)}
+    for plan in plans:
+        fns[plan] = forced(plan, lambda: ga._scatter_csr(g, i, st, n, w, tq,
+                                                         None))
+        fns[plan + "_t"] = forced(plan, lambda: ga.window_transpose(
+            i, st, n, w, tq))
+    tr = ga.WindowTranspose(i, st, n, w, tq)
+    tr.csr()
+    fns["sum"] = lambda: ga._scatter_csr(g, i, st, n, w, tq, tr)
+    want = ga._scatter_window_plain(g.cpu(), i.cpu(), st.cpu(), n, w, tq)
+    bitwise = all(torch.equal(fns[r]().cpu(), want)
+                  for r in fns if not r.endswith("_t"))
+    ms = {r: [] for r in fns}
+    for _ in range(turns):
+        for r, fn in fns.items():
+            ms[r].append(device_ms(fn, reps))
+    route = "fused" if tq * k >= ga.TRANSPOSE_SMALL_TILE else \
+        ("batch" if ga.transpose_plan(b, n, nq, k, w, tq)[3] else "tile")
+    return dict(shape=name, shared=call.get("shared"), route=route,
+                transpose="batch" if ga.transpose_plan(
+                    b, n, nq, k, w, tq)[3] else "tile",
+                ms=ms, bitwise=bitwise)
+
+
+def k4_routes_line(r) -> str:
+    return (f"K4 routes {r['shape']} (shared {r['shared']}; takes "
+            f"{r['route']}, transposes on the {r['transpose']} plan; every "
+            f"route bitwise {r['bitwise']}): " + ", ".join(
+                f"{n} " + "/".join(f"{v:.4f}" for v in ms)
+                for n, ms in r["ms"].items()) + " ms")
+
+
+def k4_step(rows):
+    """(ms, unshared ms, bound ms) of the K4 calls of one step as checked
+    by check_k4: the step as it runs (a call that shares its index set's
+    transpose with another: its sum pass, and the transpose once; any
+    other call: the whole call), every call on its own, and the calls'
+    bounds summed. A tree without shared transposes: its calls' times."""
+    unshared = sum(r["ms"] for r in rows)
+    if not all("sum_ms" in r for r in rows):
+        return unshared, unshared, sum(r["bound_ms"] for r in rows)
+    groups = {}
+    for r in rows:
+        groups.setdefault(r["shared"], []).append(r)
+    step = sum(sum(r["sum_ms"] for r in g) + g[0]["transpose_ms"]
+               if len(g) > 1 else g[0]["ms"] for g in groups.values())
+    return step, unshared, sum(r["bound_ms"] for r in rows)
+
+
+def k4_line(r) -> str:
+    """One K4 call's check as a line."""
+    line = (f"K4 {r['shape']}: bitwise equal to the CPU plain version "
+            f"{r['bitwise']}, run to run {r['run_to_run']}, {r['ms']:.4f} ms"
+            f" (plain {r['plain_ms']:.3f} ms, index_add_ "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, plan {r.get('plan')}; most entries a row "
+            f"{r['max_row_entries']})")
+    if "sum_ms" in r:
+        line += (f"; sum pass {r['sum_ms']:.4f} ms, shared transpose "
+                 f"bitwise {r['shared_bitwise']}; transpose {r['shared']} "
+                 f"equal {r['transpose_equal']}, {r['transpose_ms']:.4f} ms "
+                 f"(plain {r['transpose_plain_ms']:.3f}, stable sort "
+                 f"{r['transpose_sort_ms']:.4f}, bound "
+                 f"{r['transpose_bound_ms']:.4f} ms, plan "
+                 f"{r['transpose_plan']})")
+    return line
+
+
+def k4_ok(r) -> bool:
+    """A fixed-order K4 call's check passed: bitwise equal to the plain
+    version and to itself, through its own and a shared transpose, the
+    transpose equal to the plain one."""
+    return (r["bitwise"] and r["run_to_run"]
+            and r.get("shared_bitwise", True)
+            and r.get("transpose_equal", True))
 
 
 def row_entries(idx, starts, n, window, tq):
     """[B·n] count of in-window entries per dv row of a K4 call: the rows
-    past K4's SCATTER_BIN slots take its overflow list."""
+    past the fill's bins (FUSED_BIN) take its overflow list."""
     from ssdr_al_torch.ops import gather as ga
 
     i, inside = ga._window_mask(idx, starts, n, window, tq)
@@ -821,25 +1013,23 @@ def check_main_path(cfg, dev, log=print, b_eval=8, b_train=6,
     if shape_free:
         ties = check_ties(dev)
         log(f"tie-heavy inputs, equal to the plain versions: {ties}")
-    k4 = []
+    k4, k1_rows = [], []
     strict = hasattr(ga, "scatter_plan")
     for call in record_train_backward(cfg, dev, b=b_train):
         r = check_k4(call)
         k4.append(r)
-        log(f"K4 {r['shape']}: bitwise equal to the CPU plain version "
-            f"{r['bitwise']}, run to run {r['run_to_run']}, {r['ms']:.4f} ms "
-            f"(plain {r['plain_ms']:.3f} ms, index_add_ "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}, plan {r.get('plan')}; rows past the bins "
-            f"{r.get('overflow_rows')}, most entries a row "
-            f"{r['max_row_entries']})")
-        if strict and not (r["bitwise"] and r["run_to_run"]):
+        log(k4_line(r))
+        if strict and not k4_ok(r):
             raise AssertionError(f"K4 {r['shape']}: not bitwise equal to "
                                  "the plain version and to itself")
-    log(f"K4 sum over the {len(k4)} calls of one train step: "
-        f"{sum(r['ms'] for r in k4):.4f} ms (index_add_ "
-        f"{sum(r['library_ms'] for r in k4):.4f} ms, bound "
-        f"{sum(r['bound_ms'] for r in k4):.4f} ms)")
+        if call["g"].shape[2] == 1 and hasattr(ga, "WindowTranspose"):
+            k1_rows.append(check_rows_k1(call))
+            log(k1_rows_line(k1_rows[-1]))
+    step, unshared, bd = k4_step(k4)
+    log(f"K4 over the {len(k4)} calls of one train step: {step:.4f} ms as "
+        f"the step runs them ({unshared:.4f} ms with a transpose each; "
+        f"index_add_ {sum(r['library_ms'] for r in k4):.4f} ms, bound "
+        f"{bd:.4f} ms)")
     k3 = []
     for name, call in ((("fixed", fixed_chamfer_call(dev)),
                         ("selection", selection_chamfer_call(dev)))
@@ -855,19 +1045,73 @@ def check_main_path(cfg, dev, log=print, b_eval=8, b_train=6,
             raise AssertionError(f"K3 {r['shape']}: two launches differ")
     return {"window_topk": k1, "window_topk_mxu": k5, "knn_tiled": k6,
             "gather_window": k2, "scatter_window": k4, "chamfer_sums": k3,
-            "ties": ties, "calls": (k1_calls, k2_calls)}
+            "scatter_rows_k1": k1_rows, "ties": ties,
+            "calls": (k1_calls, k2_calls)}
 
 
-def check_bf16_path(cfg, dev):
-    """K2-bf16 at every K2 call of one forward of the bf16 model [8 ×
-    cfg.num_points] and K4-bf16 at every K4 call of one train-mode
-    backward [6 × cfg.num_points], each checked and timed as check_k2 /
-    check_k4 do, bitwise and run to run. Returns
-    {"gather_window_bf16": [...], "scatter_window_bf16": [...]}."""
+def check_rows_k1(call, reps=20):
+    """A k = 1 K4 call (a windowed upsample's backward) with its
+    cotangent cast to bf16: K4-bf16 against scatter_rows, the row gather's
+    fixed-order backward that the bf16 model's upsamples take
+    (models/randlanet.py::nearest_interpolation through
+    gather_rows_fixed), on the same rows (no index clamped: the window
+    holds them), both bitwise equal to index_add_ of g.float() on the CPU;
+    their times and index_add_'s on the card."""
+    from ssdr_al_torch.ops import gather as ga
+
+    g, i, st = call["g"], call["idx"], call["starts"]
+    n, w, tq = call["n"], call["window"], call["tq"]
+    b, nq, _, c = g.shape
+    g16 = g.to(torch.bfloat16)
+    flat = g16.reshape(b, nq, c)
+    rows = ga.scatter_rows(flat, i.reshape(b, nq), n)
+    k4 = ga.scatter_window(g16, i, st, n, w, tq)
+    flat_i = (i.long() + (torch.arange(b, device=i.device) * n)[:, None,
+                                                                 None]
+              ).reshape(-1)
+    # the CPU's index_add_: in index order (the card's adds with atomics)
+    want = torch.zeros(b * n, c).index_add_(
+        0, flat_i.cpu(), flat.reshape(-1, c).float().cpu())
+    lo = torch.repeat_interleave(torch.clamp(st, 0, n - w), tq, 1)[..., None]
+    inside = bool(((i >= lo) & (i < lo + w)).all())
+    bd = bound(nbytes(g16, i, rows), 0)
+    return dict(shape=f"[{b},{nq},1,{c}] bf16 -> [{b},{n},{c}] W={w}",
+                all_in_window=inside,
+                k4_bitwise=torch.equal(k4.reshape(-1, c).cpu(), want),
+                rows_bitwise=torch.equal(rows.reshape(-1, c).cpu(), want),
+                k4_ms=device_ms(lambda: ga.scatter_window(g16, i, st, n, w,
+                                                          tq), reps),
+                rows_ms=device_ms(lambda: ga.scatter_rows(
+                    flat, i.reshape(b, nq), n), reps),
+                library_ms=device_ms(lambda: torch.zeros(
+                    b * n, c, device=g.device).index_add_(
+                    0, flat_i, flat.reshape(-1, c).float()), reps),
+                bound_ms=bd[0])
+
+
+def k1_rows_line(r) -> str:
+    return (f"k = 1 bf16 {r['shape']}: K4 {r['k4_ms']:.4f} ms, scatter_rows "
+            f"{r['rows_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f}); both bitwise equal to index_add_ "
+            f"of g.float() {r['k4_bitwise']} / {r['rows_bitwise']}, every "
+            f"index in its window {r['all_in_window']}")
+
+
+def check_bf16_path(cfg, dev, b_eval=8, b_train=6, b_flagship=2):
+    """K2-bf16 at every K2 call of one forward of the bf16 model [b_eval ×
+    cfg.num_points] (unless b_eval is None) and K4-bf16 at every K4 call of
+    one train-mode
+    backward [b_train × cfg.num_points] and, unless b_flagship is None, of
+    one at the flagship run's batch [b_flagship × cfg.num_points]
+    (scripts/flagship.py: 500 replays a round), each checked and timed as
+    check_k2 / check_k4 do, bitwise and run to run. Returns
+    {"gather_window_bf16": [...], "scatter_window_bf16": [...],
+    "scatter_window_bf16_flagship": [...]}."""
     import dataclasses
 
     cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    _, k2_calls = record_main_path(cfg16, dev, b=8)
+    k2_calls = [] if b_eval is None else \
+        record_main_path(cfg16, dev, b=b_eval)[1]
     k2 = []
     for call in k2_calls:
         if call["out_dtype"] != torch.bfloat16:
@@ -881,25 +1125,30 @@ def check_bf16_path(cfg, dev):
             f"{r['plain_ms']:.3f} ms, torch.gather bf16 "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}, plan {r.get('plan')}{alt})")
-    k4 = []
-    for call in record_train_backward(cfg16, dev, b=6):
-        if call["g"].dtype != torch.bfloat16:
-            raise AssertionError("the bf16 backward made an f32 K4 call")
-        r = check_k4(call)
-        k4.append(r)
-        print(f"K4 {r['shape']}: bitwise equal to the CPU plain version "
-            f"{r['bitwise']}, run to run {r['run_to_run']}, {r['ms']:.4f} ms "
-            f"(plain {r['plain_ms']:.3f} ms, index_add_ "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plan "
-            f"{r.get('plan')}; rows past the bins {r.get('overflow_rows')})")
-        if not (r["bitwise"] and r["run_to_run"]):
-            raise AssertionError(f"K4 {r['shape']}: not bitwise equal to "
-                                 "the plain version and to itself")
+    out = {"gather_window_bf16": k2}
+    for key, b in (("scatter_window_bf16", b_train),
+                   ("scatter_window_bf16_flagship", b_flagship)):
+        if b is None:
+            continue
+        k4 = out[key] = []
+        for call in record_train_backward(cfg16, dev, b=b):
+            if call["g"].dtype != torch.bfloat16:
+                raise AssertionError("the bf16 backward made an f32 K4 call")
+            r = check_k4(call)
+            k4.append(r)
+            print(k4_line(r))
+            if not k4_ok(r):
+                raise AssertionError(f"K4 {r['shape']}: not bitwise equal "
+                                     "to the plain version and to itself")
+        step, unshared, bd = k4_step(k4)
+        print(f"bf16 [{b} x {cfg.num_points}]: {len(k4)} K4 calls "
+              f"{step:.4f} ms as the step runs them ({unshared:.4f} ms with "
+              f"a transpose each; index_add_ "
+              f"{sum(r['library_ms'] for r in k4):.4f} ms, bound "
+              f"{bd:.4f} ms)")
     print(f"bf16: {len(k2)} K2 calls {sum(r['ms'] for r in k2):.4f} ms "
-        f"(torch.gather {sum(r['library_ms'] for r in k2):.4f} ms), "
-        f"{len(k4)} K4 calls {sum(r['ms'] for r in k4):.4f} ms (index_add_ "
-        f"{sum(r['library_ms'] for r in k4):.4f} ms)")
-    return {"gather_window_bf16": k2, "scatter_window_bf16": k4}
+          f"(torch.gather {sum(r['library_ms'] for r in k2):.4f} ms)")
+    return out
 
 
 def main() -> int:
@@ -913,7 +1162,17 @@ def main() -> int:
                          "6 × 40960, with the tie inputs and K3), "
                          "Semantic3D (B=4 × 65536) or SemanticKITTI (B=6 "
                          "× 45056, 4 layers), these two K1, K2 and K4 "
-                         "only")
+                         "only, f32 and bf16")
+    ap.add_argument("--k4-only", action="store_true",
+                    help="only K4 at every call of one f32 and one bf16 "
+                         "train step (and the bf16 one at the flagship's "
+                         "batch at S3DIS width)")
+    ap.add_argument("--k4-routes", action="store_true",
+                    help="only K4's routes (single-use, batch-plan and "
+                         "tile-plan transposes, the sum alone) at every "
+                         "call of one f32 train step of each dataset's "
+                         "width, and of one bf16 step at S3DIS width and "
+                         "at the flagship's batch, two turns each")
     ap.add_argument("--k6-only", action="store_true",
                     help="only K6 at every call of one exact pyramid and "
                          "at the partition's call (k = 46 over one "
@@ -935,7 +1194,43 @@ def main() -> int:
 
     build.library()
     dev = torch.device("cuda", 0)
-    if args.k6_only:
+    if args.k4_only:
+        cfg = config.get_config(args.dataset)
+        b = 6 if args.dataset == "S3DIS" else cfg.batch_size
+        res = {"scatter_window": []}
+        for call in record_train_backward(cfg, dev, b=b):
+            res["scatter_window"].append(check_k4(call))
+            print(k4_line(res["scatter_window"][-1]))
+        step, unshared, bd = k4_step(res["scatter_window"])
+        print(f"K4 over the {len(res['scatter_window'])} calls of one train "
+              f"step: {step:.4f} ms as the step runs them ({unshared:.4f} ms "
+              f"with a transpose each; bound {bd:.4f} ms)")
+        res.update(check_bf16_path(
+            cfg, dev, b_eval=None, b_train=b,
+            b_flagship=2 if args.dataset == "S3DIS" else None))
+        res["calls"] = None
+    elif args.k4_routes:
+        import dataclasses
+
+        res = {"k4_routes": []}
+        cases = [(config.get_config(d), None) for d in
+                 ("S3DIS", "Semantic3D", "SemanticKITTI")]
+        cases += [(dataclasses.replace(config.ConfigS3DIS,
+                                       compute_dtype="bfloat16"), b)
+                  for b in (6, 2)]
+        for cfg, b in cases:
+            b = b or (6 if cfg.name == "S3DIS" else cfg.batch_size)
+            print(f"{cfg.name} {cfg.compute_dtype} [{b} x {cfg.num_points}]")
+            for call in record_train_backward(cfg, dev, b=b):
+                r = k4_routes(call)
+                r["case"] = f"{cfg.name} {cfg.compute_dtype} b={b}"
+                res["k4_routes"].append(r)
+                print(k4_routes_line(r))
+                if not r["bitwise"]:
+                    raise AssertionError(f"K4 {r['shape']}: a route is not "
+                                         "bitwise equal to the plain version")
+        res["calls"] = None
+    elif args.k6_only:
         cfg = config.get_config(args.dataset)
         res = {"knn_tiled": []}
         calls = record_exact_path(cfg, dev, b=8 if args.dataset == "S3DIS"
@@ -956,10 +1251,13 @@ def main() -> int:
         res["calls"] = None
     elif args.dataset == "S3DIS":
         res = check_main_path(config.ConfigS3DIS, dev)
+        res.update(check_bf16_path(config.ConfigS3DIS, dev))
     else:
         cfg = config.get_config(args.dataset)
         res = check_main_path(cfg, dev, b_eval=cfg.batch_size,
                               b_train=cfg.batch_size, shape_free=False)
+        res.update(check_bf16_path(cfg, dev, b_eval=cfg.batch_size,
+                                   b_train=cfg.batch_size, b_flagship=None))
     res.pop("calls")
     res.update(tree=tree, card=card)
     if args.out:

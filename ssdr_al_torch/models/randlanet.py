@@ -49,6 +49,7 @@ from torch import nn
 
 from ssdr_al_torch.config import Config
 from ssdr_al_torch.ops.gather import (
+    WindowTranspose,
     gather_rows_fixed,
     gather_window,
     gather_window_auto,
@@ -324,9 +325,15 @@ class BuildingBlock(nn.Module):
 
     def forward(self, xyz, feature, neigh_idx, starts=None, window=0):
         if starts is not None:
+            # both gathers' backward sums through one transpose of the
+            # index set, built by the first of them to run (none without a
+            # backward)
+            tr = WindowTranspose(neigh_idx, starts, xyz.shape[1], window,
+                                 GATHER_TQ) if torch.is_grad_enabled() \
+                else None
             both = gather_window(torch.cat([xyz, self._f32(feature)], -1),
                                  neigh_idx, starts, window, GATHER_TQ,
-                                 self.dtype)
+                                 self.dtype, transpose=tr)
             neighbor_xyz, f_neighbours = both[..., :3], both[..., 3:]
         else:
             neighbor_xyz = None
@@ -339,7 +346,7 @@ class BuildingBlock(nn.Module):
         if starts is not None:
             f_neighbours = gather_window(self._f32(f_pc_agg), neigh_idx,
                                          starts, window, GATHER_TQ,
-                                         self.dtype)
+                                         self.dtype, transpose=tr)
         else:
             f_neighbours = gather_neighbour(f_pc_agg, neigh_idx)
         return self.att_pooling_2(torch.cat([f_neighbours, f_xyz], -1))

@@ -266,9 +266,9 @@ def gradient_errors(cfg, dev, seed, trace=False, pinned=False):
     grads, losses, k4_shapes = [], [], []
     kernel = ga.scatter_window
 
-    def recording(g, idx, starts, n, window, tq):
+    def recording(g, idx, starts, n, window, tq, transpose=None):
         k4_shapes.append((tuple(g.shape), n, window, tq))
-        return kernel(g, idx, starts, n, window, tq)
+        return kernel(g, idx, starts, n, window, tq, transpose=transpose)
 
     # the wrapper counts its launches on the module's name for it, which
     # is `recording` while it stands in

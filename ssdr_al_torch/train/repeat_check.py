@@ -57,12 +57,20 @@ import torch
 
 PATHS = ("host", "pool", "possibility")
 # the device kernels of K1, K2 and K4 that a trace of a replay must hold,
-# each with the launch counts (kernels/counts.py) of its launches: one K1
-# or K2 launch is one kernel, one K4 launch a fill and a sum
-TRACED = {"window_topk_kernel": ("window_topk", "window_topk_mxu"),
-          "gather_window_kernel": ("gather_window", "gather_window_bf16"),
-          "scatter_fill_kernel": ("scatter_window", "scatter_window_bf16"),
-          "scatter_sum_kernel": ("scatter_window", "scatter_window_bf16")}
+# each with its names in the trace and the launch counts
+# (kernels/counts.py) it stands for: one K1 or K2 launch is one kernel,
+# one K4 call one sum (through a transpose, or the single-use path's), one
+# transpose of an index set one *_transpose_kernel (the place kernel of
+# plan tiles, or the batch kernel)
+TRACED = {"window_topk": (("window_topk_kernel",), ("window_topk",
+                                                    "window_topk_mxu")),
+          "gather_window": (("gather_window_kernel",),
+                            ("gather_window", "gather_window_bf16")),
+          "scatter_window": (("scatter_sum_kernel",
+                              "scatter_bins_sum_kernel"),
+                             ("scatter_window", "scatter_window_bf16")),
+          "scatter_window_transpose": (("_transpose_kernel",),
+                                       ("scatter_window_transpose",))}
 S3DIS_ROOMS, S3DIS_ROOM_POINTS = 4, 150_000
 S3D_CLOUDS, S3D_CLOUD_POINTS = 3, 300_000
 
@@ -208,28 +216,38 @@ def path_steps(dev, paths=PATHS, **kw):
     return out
 
 
+def traced_names(fn) -> list:
+    """The device kernels' names in a torch.profiler trace of fn() on the
+    card. The trace starts on an idle card, and fn() starts after a short
+    device sleep under the profiler, so that the tracer is live before
+    fn()'s first kernel (a trace that started with the step once held two
+    of a replayed step's five K1 kernels, on an H100)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def traced_kernels(fn) -> dict:
     """{kernel: device launches} of TRACED's kernels in a torch.profiler
     trace of fn() on the card."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    found = dict.fromkeys(TRACED, 0)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for name in TRACED:
-                found[name] += name in e.name
-    return found
+    names = traced_names(fn)
+    return {k: sum(any(s in n for s in subs) for n in names)
+            for k, (subs, _) in TRACED.items()}
 
 
 def counted_kernels(launches: dict) -> dict:
     """{kernel of TRACED: the device launches that `launches` (kernel
     launch counts) stand for}."""
     return {name: sum(launches.get(k, 0) for k in keys)
-            for name, keys in TRACED.items()}
+            for name, (_, keys) in TRACED.items()}
 
 
 def replay_check(trainer, path, pool, draws) -> dict:
@@ -326,15 +344,8 @@ EVAL_ENGINES = ("window", "pallas")
 
 def traced_eval_kernels(fn) -> dict:
     """{EVAL_TRACED kernel: device launches} in a torch.profiler trace of
-    fn() on the card."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    fn() on the card (traced_names)."""
+    names = traced_names(fn)
     return {k: sum(any(s in n for s in subs) for n in names)
             for k, (subs, _) in EVAL_TRACED.items()}
 

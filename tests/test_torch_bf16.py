@@ -98,8 +98,10 @@ def test_k4_bf16_plain_bitwise_equals_jax_vjp(c, window, tq):
 def test_bf16_plans():
     """K2-bf16 stores 16-byte units of 8 where rows·c % 8 == 0, else 8-byte
     units of 4; f32 keeps float4s. K4's group covers a bf16 row's 16-byte
-    units (c/8), or its 8-byte units (c/4) where c % 8 != 0; other rows
-    keep the f32 rule."""
+    units (c/8), or its 8-byte units (c/4) where c % 8 != 0, or its spans
+    of 8 channels where c % 4 != 0 (one lane a row at 8 channels, at most
+    4 lanes a row); f32
+    rows keep float4s, or single floats at 4 or 32 lanes."""
     plan = tg.gather_plan
     assert plan(8, 40960, 16, 11, 2048, 512, out_dtype=BF16) == \
         (False, 2048, 256, 8)
@@ -110,9 +112,9 @@ def test_bf16_plans():
     with pytest.raises(TypeError, match="dtype"):
         plan(1, 8, 1, 5, 8, 4, out_dtype=torch.float16)
     sp = tg.scatter_plan
-    for c, f32, bf16 in ((8, 2, 2), (11, 4, 4), (32, 8, 4), (35, 32, 32),
+    for c, f32, bf16 in ((8, 2, 1), (11, 4, 2), (32, 8, 4), (35, 32, 4),
                          (64, 16, 8), (128, 32, 16), (256, 32, 32),
-                         (12, 4, 4), (20, 8, 8)):
+                         (12, 4, 4), (20, 8, 8), (67, 32, 4)):
         assert sp(6, 4096, 4096, 16, c, 1024, 512)[0] == f32, c
         assert sp(6, 4096, 4096, 16, c, 1024, 512, BF16)[0] == bf16, c
 

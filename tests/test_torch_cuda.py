@@ -487,32 +487,84 @@ _FIRST_K4 = """
 import numpy as np, torch
 from ssdr_al_torch.ops import gather as ga
 rng = np.random.RandomState(0)
-b, n, nq, k, c, window, tq = 1, 4096, 1024, 16, 256, 4096, 128
-idx = torch.from_numpy(rng.randint(0, n, (b, nq, k)).astype(np.int32))
+b, n, nq, k, c, window, tq = {shape}
+idx = torch.from_numpy(rng.randint(0, window, (b, nq, k)).astype(np.int32))
 starts = torch.zeros((b, nq // tq), dtype=torch.int32)
-g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))
-got = ga.scatter_window(g.cuda(), idx.cuda(), starts.cuda(), n, window, tq)
+g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32)){cast}
+i_d, s_d = idx.cuda(), starts.cuda()
+tr = ga.WindowTranspose(i_d, s_d, n, window, tq) if {shared} else None
+got = ga.scatter_window(g.cuda(), i_d, s_d, n, window, tq, transpose=tr)
+assert ga.window_transpose.launches == {transposes}
+if {transposes}:
+    assert ga.transpose_plan(b, n, nq, k, window, tq)[3] == {whole}
 assert torch.equal(got.cpu(), ga.scatter_window(g, idx, starts, n, window,
                                                 tq))
 print("ok")
 """
 
 
-def test_scatter_window_first_launch_at_48_kib(dev):
-    """Semantic3D's first K4 call of a backward, [1, 1024, 16, 256] into
-    4096 rows with a 4096-row window (tq=128), asks the fill kernel for
-    exactly 48 KiB of dynamic shared memory, which with its static scan
-    buffer needs the opt-in attribute. As the first K4 launch of a fresh
-    process (the attribute persists once set) it launches and equals the
-    plain version."""
+def _first_k4(shape, bf16=False, shared=False, transposes=0, whole=False):
+    """Runs one K4 call as the first K4 launch of a fresh process (a
+    kernel's shared-memory opt-in persists once set): at `shape` (b, n,
+    nq, k, c, window, tq), through a WindowTranspose where `shared`, with
+    `transposes` transpose launches on the `whole` (batch) or tile plan;
+    it must equal the plain version."""
     import os
     import subprocess
     import sys
 
+    script = _FIRST_K4.format(
+        shape=", ".join(map(str, shape)), shared=shared,
+        cast=".to(torch.bfloat16)" if bf16 else "", transposes=transposes,
+        whole=whole)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, "-c", _FIRST_K4], cwd=root,
+    out = subprocess.run([sys.executable, "-c", script], cwd=root,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# Semantic3D's first K4 call of a backward, a pool gather's
+S3D_POOL = (1, 4096, 1024, 16, 256, 4096, 128)
+
+
+def test_scatter_window_first_launch_at_48_kib(dev):
+    """Semantic3D's first K4 call of a backward, [1, 1024, 16, 256] into
+    4096 rows with a 4096-row window (tq=128), takes the single-use path
+    (no shared transpose, tiles of 2048 entries): it asks the fill kernel
+    for exactly 48 KiB of dynamic shared memory, which with its static
+    part needs the opt-in attribute. As the first K4 launch of a fresh
+    process it launches and equals the plain version."""
+    _first_k4(S3D_POOL)
+
+
+def test_scatter_window_first_launch_under_48_kib(dev):
+    """The bf16 step's L2 pool index set, [6, 640, 16, 256] into 2560 rows,
+    through a WindowTranspose: its 10 240 ids take the batch transpose
+    kernel (scatter_batch_transpose_kernel), which asks for ~21 KiB of
+    dynamic shared memory, under the 48 KiB default. As the first K4
+    launch of a fresh process it launches and equals the plain version."""
+    _first_k4((6, 2560, 640, 16, 256, 2560, 128), shared=True,
+              transposes=1, whole=True)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("plan,shape,shared", [
+    # 65 536 ids in tiles of 8 192: the tile kernels, the place kernel
+    # asking ~90 KiB (a window of 2048 rows, 1024 threads)
+    ("tile", (1, 4096, 4096, 16, 8, 2048, 512), True),
+    # the L0 1-NN upsample's 40 960 ids in tiles of 128, no shared
+    # transpose: the batch kernel asking ~85 KiB
+    ("batch", (1, 10240, 40960, 1, 32, 1152, 128), False)])
+def test_scatter_window_first_transpose_past_48_kib(dev, plan, shape,
+                                                    shared, bf16):
+    """A transpose as the first K4 launch of a fresh process, on the tile
+    plan (scatter_hist_kernel, scatter_scan_kernel,
+    scatter_place_transpose_kernel) and on the batch plan
+    (scatter_batch_transpose_kernel), each asking for more than 48 KiB of
+    dynamic shared memory: the kernels opt in at first use, launch, and
+    the sum after them equals the plain version."""
+    _first_k4(shape, bf16=bf16, shared=shared, transposes=1,
+              whole=plan == "batch")
 
 
 @pytest.mark.parametrize("tq", [512, 128])
@@ -520,16 +572,20 @@ def test_scatter_window_first_launch_at_48_kib(dev):
 def test_scatter_window_every_channel_count(dev, c, tq):
     """K4 at every channel count the model scatters and both tile sizes
     (the LFA gathers' and gather_window_auto's), starts past both ends
-    and indices outside their windows: bitwise equal to the CPU plain
+    and indices outside their windows, on both paths (the single-use
+    path, and a shared transpose's sum): bitwise equal to the CPU plain
     version and to a second launch."""
     rng = np.random.RandomState(c + tq)
     b, n, k, window = 2, 4096, 16, 1024
     g, idx, starts = _scatter_inputs(rng, b, n, n, k, c, window, tq)
     want = ga.scatter_window(g, idx, starts, n, window, tq)
     args = (g.to(dev), idx.to(dev), starts.to(dev), n, window, tq)
+    tr = ga.WindowTranspose(*args[1:])
     got, again = ga.scatter_window(*args), ga.scatter_window(*args)
+    shared = [ga.scatter_window(*args, transpose=tr) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    assert all(torch.equal(x, got) for x in shared)
 
 
 def test_scatter_window_auto_gradient(dev):
@@ -630,9 +686,9 @@ def test_gather_window_bf16_units_and_ties(dev, rows_c):
 @pytest.mark.parametrize("tq", [512, 128])
 @pytest.mark.parametrize("c", [8, 11, 32, 35, 64, 67, 128, 256])
 def test_scatter_window_bf16_every_channel_count(dev, c, tq):
-    """K4 with a bf16 cotangent at every channel count the model scatters:
-    bitwise equal to index_add_ of g.float() on the CPU (the plain
-    version) and to a second launch; f32 dv."""
+    """K4 with a bf16 cotangent at every channel count the model scatters,
+    on both paths: bitwise equal to index_add_ of g.float() on the CPU
+    (the plain version) and to a second launch; f32 dv."""
     rng = np.random.RandomState(c + tq + 2)
     b, n, k, window = 2, 4096, 16, 1024
     g, idx, starts = _scatter_inputs(rng, b, n, n, k, c, window, tq)
@@ -642,31 +698,20 @@ def test_scatter_window_bf16_every_channel_count(dev, c, tq):
     assert torch.equal(want, ga.scatter_window(g.float(), idx, starts, n,
                                                window, tq))
     args = (g.to(dev), idx.to(dev), starts.to(dev), n, window, tq)
+    tr = ga.WindowTranspose(*args[1:])
     got, again = ga.scatter_window(*args), ga.scatter_window(*args)
+    shared = [ga.scatter_window(*args, transpose=tr) for _ in range(2)]
     torch.cuda.synchronize()
     assert got.dtype == torch.float32
     assert torch.equal(got.cpu(), want) and torch.equal(got, again)
-
-
-_FIRST_K4_BF16 = _FIRST_K4.replace(
-    "g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))",
-    "g = torch.from_numpy(rng.randn(b, nq, k, c).astype(np.float32))"
-    ".to(torch.bfloat16)")
+    assert all(torch.equal(x, got) for x in shared)
 
 
 def test_scatter_window_bf16_first_launch_at_48_kib(dev):
     """test_scatter_window_first_launch_at_48_kib with a bf16 cotangent:
-    the fill kernel's 48 KiB opt-in as the first K4 launch of a fresh
-    process, and the bf16 sum kernel after it."""
-    import os
-    import subprocess
-    import sys
-
-    assert "bfloat16" in _FIRST_K4_BF16
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, "-c", _FIRST_K4_BF16], cwd=root,
-                         capture_output=True, text=True, timeout=600)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    the single-use path's fill kernel's opt-in as the first K4 launch of a
+    fresh process, and its bf16 sum kernel after it."""
+    _first_k4(S3D_POOL, bf16=True)
 
 
 def test_gather_window_bf16_backward(dev):
@@ -694,6 +739,147 @@ def test_gather_window_bf16_backward(dev):
         counts[0] + 1, counts[1] + 1, counts[2], counts[3])
     assert grads[1].dtype == torch.float32
     assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("c8", [8, 11])
+def test_scatter_window_shared_transpose_matches_none(dev, c8):
+    """Two K4 calls of one index set at the L0 LFA shape through one
+    WindowTranspose (a bf16 cotangent of 11 and one of c8 channels, as a
+    layer's two LFA gathers): one transpose built (two kernels, one count),
+    each sum bitwise equal to the call without a shared transpose and to
+    the CPU plain version; the transpose equal to its plain version."""
+    rng = np.random.RandomState(20 + c8)
+    b, n, k, window, tq = 2, 40960, 16, 2048, 512
+    g, idx, starts = _scatter_inputs(rng, b, n, n, k, 11, window, tq)
+    g2 = torch.from_numpy(rng.randn(b, n, k, c8).astype(np.float32))
+    cots = [x.to(torch.bfloat16) for x in (g, g2)]
+    i, st = idx.to(dev), starts.to(dev)
+    tr = ga.WindowTranspose(i, st, n, window, tq)
+    before = (ga.window_transpose.launches, ga.scatter_window.launches_bf16)
+    shared = [ga.scatter_window(x.to(dev), i, st, n, window, tq,
+                                transpose=tr) for x in cots]
+    assert (ga.window_transpose.launches,
+            ga.scatter_window.launches_bf16) == (before[0] + 1,
+                                                 before[1] + 2)
+    own = [ga.scatter_window(x.to(dev), i, st, n, window, tq) for x in cots]
+    torch.cuda.synchronize()
+    for x, a, o in zip(cots, shared, own):
+        assert torch.equal(a, o)
+        assert torch.equal(a.cpu(), ga.scatter_window(x, idx, starts, n,
+                                                      window, tq))
+    rp, ids = tr.csr()
+    rp0, ids0 = ga._window_transpose_plain(idx, starts, n, window, tq)
+    assert torch.equal(rp.cpu(), rp0)
+    for j, m in enumerate(rp0.reshape(b, n + 1)[:, n].tolist()):
+        assert torch.equal(ids[j * n * k:j * n * k + m].cpu(),
+                           ids0[j * n * k:j * n * k + m])
+
+
+@pytest.mark.parametrize("n,tq,window", [(8192, 512, 2048),
+                                         (32768, 1024, 16384)])
+def test_scatter_window_long_rows(dev, n, tq, window):
+    """Rows with thousands of ids (piles of 3000 and 1500 entries on two
+    rows, four tiles' entries on 64 rows of one window) and, at tq = 1024
+    and a 16 384-row window, tiles cut into runs of entries and of window
+    rows (transpose_plan's parts and pieces 2 and 2): bitwise equal to
+    the plain version on both paths, f32 and bf16, run to run."""
+    rng = np.random.RandomState(21)
+    b, k, c = 2, 16, 32
+    g, idx, starts = _scatter_inputs(rng, b, n, n, k, c, window, tq)
+    lo = int(torch.clamp(starts[0, 3], 0, n - window))
+    starts[0, 3:7] = lo
+    e0, ne = 3 * tq * k, tq * k
+    flat = idx[0].reshape(-1)
+    flat[e0:e0 + 4 * ne] = torch.from_numpy(
+        rng.randint(lo, lo + 64, 4 * ne).astype(np.int32))
+    flat[e0:e0 + 3000] = lo + 5
+    flat[e0 + 3000:e0 + 4500] = lo + 900
+    i, inside = ga._window_mask(idx, starts, n, window, tq)
+    assert torch.bincount(i[0][inside[0]], minlength=n).max() > 3000
+    assert ga.transpose_plan(b, n, n, k, window, tq)[:2] == \
+        ((1, 1) if tq == 512 else (2, 2))
+    for cot in (g, g.to(torch.bfloat16)):
+        want = ga.scatter_window(cot, idx, starts, n, window, tq)
+        args = (cot.to(dev), idx.to(dev), starts.to(dev), n, window, tq)
+        tr = ga.WindowTranspose(*args[1:])
+        got, again = ga.scatter_window(*args), ga.scatter_window(*args)
+        shared = ga.scatter_window(*args, transpose=tr)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+        assert torch.equal(shared, got)
+
+
+@pytest.mark.parametrize("n,n_sub,c", [(40960, 10240, 32),
+                                       (10240, 2560, 128)])
+def test_scatter_window_k1_bf16_against_scatter_rows(dev, n, n_sub, c):
+    """K4 at k = 1 with a bf16 cotangent at the upsample windows (the
+    sorted pyramid's, through gather_window_auto's starts) and
+    scatter_rows, the bf16 model's upsample backward, on the same rows:
+    both bitwise equal to index_add_ of g.float() on the CPU."""
+    feat, idx = _upsample_case(np.random.RandomState(22), 2, n, n_sub, c)
+    w = 1024 + 128
+    starts = ga.tile_min_starts(idx, n_sub, w, 128)
+    g = torch.randn(2, n, 1, c, generator=torch.Generator().manual_seed(3)
+                    ).to(torch.bfloat16)
+    want = ga.scatter_window(g, idx, starts, n_sub, w, 128)
+    got = ga.scatter_window(g.to(dev), idx.to(dev), starts.to(dev), n_sub, w,
+                            128)
+    rows = ga.scatter_rows(g.to(dev)[:, :, 0], idx.to(dev)[..., 0], n_sub)
+    torch.cuda.synchronize()
+    assert ga.window_violations(idx, w) == 0
+    assert torch.equal(got.cpu(), want) and torch.equal(rows.cpu(), want)
+
+
+def test_scatter_window_capture_matches_eager(dev):
+    """A layer's two LFA gathers sharing one WindowTranspose, forward and
+    backward captured in a CUDA graph (the transpose built inside the
+    capture, from the graph's pool) and replayed on new values and
+    cotangents: the gradient bitwise equal to the eager step's, replay
+    after replay."""
+    rng = np.random.RandomState(23)
+    b, n, k, window, tq = 2, 8192, 16, 2048, 512
+    _, idx, starts = _scatter_inputs(rng, b, n, n, k, 11, window, tq)
+    i, st = idx.to(dev), starts.to(dev)
+    v = torch.zeros(b, n, 11, device=dev, requires_grad=True)
+    g1 = torch.zeros(b, n, k, 11, device=dev, dtype=torch.bfloat16)
+    g2 = torch.zeros(b, n, k, 8, device=dev, dtype=torch.bfloat16)
+
+    def step():
+        v.grad = None
+        tr = ga.WindowTranspose(i, st, n, window, tq)
+        a = ga.gather_window(v, i, st, window, tq, torch.bfloat16,
+                             transpose=tr)
+        w = ga.gather_window(v[..., :8].contiguous(), i, st, window, tq,
+                             torch.bfloat16, transpose=tr)
+        torch.autograd.backward([a, w], [g1, g2])
+        return v.grad
+
+    def fill(seed):
+        r = np.random.RandomState(seed)
+        with torch.no_grad():
+            v.copy_(torch.from_numpy(r.randn(b, n, 11).astype(np.float32)))
+            g1.copy_(torch.from_numpy(r.randn(*g1.shape).astype(np.float32)))
+            g2.copy_(torch.from_numpy(r.randn(*g2.shape).astype(np.float32)))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fill(0)
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    fill(0)
+    with torch.cuda.graph(graph):
+        out = step()
+    for seed in (1, 2):
+        fill(seed)
+        graph.replay()
+        got = out.clone()
+        fill(seed)
+        want = step().clone()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 # --------------------------------------- the comparison branches' loops ---

@@ -510,8 +510,10 @@ def test_replay_trace_holds_the_counted_kernels(dev, rooms, tmp_path):
     assert res["equal"], res["differing"]
     assert res["replays"] == 4
     assert res["traced_ok"], (res["traced"], res["counted"])
-    assert res["traced"]["scatter_fill_kernel"] == \
+    assert res["traced"]["scatter_window"] == \
         res["launches"]["scatter_window"]
+    assert res["traced"]["scatter_window_transpose"] == \
+        res["launches"]["scatter_window_transpose"]
 
 
 @pytest.mark.cuda
