@@ -812,12 +812,19 @@ def partition_path(dev, work):
               f"{idx.numel()} entries differ); geof card vs CPU max diff "
               f"{[f'{v:.2e}' for v in dmax]}, {100 * share:.3f} % of "
               f"entries within 2e-5 ({100 * tight:.1f} % held to it)")
-    k64 = measure.check_k6(measure.partition_call(dev, clouds[0].xyz))
+    call = measure.partition_call(dev, clouds[0].xyz)
+    k64 = measure.check_k6(call)
+    k64.update(measure.k6_split(call))
     print(f"K6 knn_tiled_k64 at the partition's call {k64['shape']} "
           f"(route {k64['route']}): equal to the plain version, "
-          f"{k64['ms']:.3f} ms (plain {k64['plain_ms']:.3f} ms, cdist+topk "
-          f"{k64['library_ms']:.3f} ms, bound {k64['bound_ms']:.4f} ms by "
-          f"{k64['bound_by']}; pairs {100 * k64['pair_share']:.3f} %)")
+          f"{k64['ms']:.3f} ms (the walk {k64['walk_ms']:.4f} ms, K6's "
+          f"codes and layout {k64['kernel_ms'] - k64['walk_ms']:.4f}, the "
+          f"sort and the rest {k64['other_ms']:.4f}; plain "
+          f"{k64['plain_ms']:.3f} ms, cdist+topk {k64['library_ms']:.3f} "
+          f"ms, bound {k64['bound_ms']:.4f} ms by {k64['bound_by']}; pairs "
+          f"{100 * k64['pair_share']:.3f} %, a {k64['walk_per']} "
+          + json.dumps({n: round(v, 2) for n, v in k64["walk"].items()})
+          + ")")
 
     depth = ["--max_epoch", str(PART_EPOCHS), "--train_steps",
              str(PART_STEPS), "--val_steps", str(VAL_STEPS)]

@@ -15,19 +15,20 @@
 // Design:
 //  - The support and the queries of a batch row are sorted along the
 //    morton curve over one box that holds both (for more than
-//    ops/knn.py::KNN_SORT_MIN support points: on smaller clouds the sorts
-//    cost more than the boxes save): knn_codes_kernel computes
+//    ops/knn.py::KNN_SORT_MIN[K] support points: on smaller clouds the
+//    sorts cost more than the boxes save): knn_codes_kernel computes
 //    the codes of ops/knn.py::morton_codes bit for bit, torch.sort sorts
 //    them stably, and knn_layout_kernel lays the sorted support out by
 //    groups of four points with its original indices and gives each block
 //    of 32 sorted points a bounding box, each super-block of 32 blocks one
 //    more (ops/knn.py::knn_sorted_inputs is the plain version of these
-//    steps). The walk copies the tables into shared memory where three
+//    steps). The K = 1 and 16 walk copies the tables into shared memory where three
 //    CTAs an SM still fit (at ~20 000 points and fewer for k=16; beyond,
 //    it reads the block boxes through L1, 9 % faster at 40960 points than
 //    two CTAs with the tables, kernels/measure.py --k6-only), and reads
 //    each query through its sort order.
-//  - A warp owns 32 consecutive sorted queries. It starts at the block of
+//  - K = 1 and 16 (knn_walk_kernel): a warp owns 32 consecutive sorted
+//    queries, a lane each. It starts at the block of
 //    its middle query's rank in the support (its own rank on a
 //    self-search, else a 32-way search of the sorted codes), fills its
 //    top-k from that block at once (a bitonic sort), then spirals over
@@ -55,12 +56,30 @@
 // KNN_K). A call with k runs the least K >= k and writes the first k keys
 // of each query's list: the keys (d2, original index) are a total order,
 // so the first k of the top-K are the top-k. K = 64 serves the partition's
-// 46-NN graph (partition/superpoint.py::knn_graph, k_geof + 1). Its list
-// of 64 keys takes 128 registers a thread, so its walk runs one CTA an SM
-// (ops/knn.py::KNN_CTAS) with up to 255 registers, where K = 1 and 16 run
-// three; its first fill takes one block of 32 candidates, half the list,
-// so its skip bound stays open until 64 candidates have entered (right,
-// and slower to prune; a faster K = 64 is later work).
+// 46-NN graph (partition/superpoint.py::knn_graph, k_geof + 1), ~140 000
+// queries a room. A lane-per-query list of 64 keys takes 128 registers a
+// thread (one CTA an SM, 8 warps to hide a chain of dependent steps), a
+// 63-step insertion a key, a skip bound at the 64th key where the output
+// needs the kout-th, and box tests that keep what any of 32 queries needs;
+// so K = 64 has a walk of its own (knn_walk64_kernel): a warp a query.
+//  - Its list is warp_topk.cuh's WarpTopK64: 64 keys over the 32 lanes (2
+//    registers' worth a lane), candidates merged a block at a time.
+//  - The fill takes the query's block and its neighbour on the side of the
+//    query's rank, 64 candidates sorted at once: the bound is finite
+//    before the walk starts (with fewer real candidates, the empty key
+//    (+inf, 0) fills the rest, and a slot past Ns reads index 0).
+//  - The lanes test 32 super-boxes at a time (in spiral order from the
+//    query's super-block), then, in a kept super-block, its 32 block boxes
+//    at once; each level is visited nearest box first (a warp minimum of
+//    the box_lb bits, then the lowest lane holding it), so the bound
+//    tightens soonest, and ends at the first box whose box_lb is strictly
+//    above the kout-th key's d2: every later box of the level is as far.
+//    Each test is the query's own: no union of 32 queries, no divergence.
+//  - A kept block's 32 points are keyed a lane each (coalesced reads of the
+//    groups and original indices) and offered to the list.
+//  - 128 threads a CTA (4 queries), 9 CTAs an SM, with no dynamic shared
+//    memory: the boxes are read through L1, and ~140 000 queries make
+//    ~35 000 small CTAs that fill every SM evenly.
 //
 // Numerics: d2 = (dx*dx + dy*dy) + dz*dz with round-to-nearest intrinsics
 // and no FMA contraction, as the plain PyTorch version
@@ -73,6 +92,7 @@
 #include <math.h>
 
 #include "key_topk.cuh"
+#include "warp_topk.cuh"
 
 namespace {
 
@@ -269,12 +289,12 @@ __device__ __forceinline__ int warp_lower_bound(const int* codes, int n,
 // row. stats, when given, gains [the (query, candidate) pairs
 // evaluated, blocks kept, block box tests (each a warp's), keys buffered
 // (each a lane's), insertion rounds (each a warp's)]; each query's first
-// kout <= K keys are written. For K <= 16 at most 85 registers a thread,
-// so that three CTAs fit on an SM; K = 64 keeps 64 keys in registers and
-// runs one CTA an SM (ops/knn.py::knn_tiled_plan keeps the box tables in
-// shared memory only where that many CTAs still fit).
+// kout <= K keys are written. K = 1 and 16 (K = 64 has knn_walk64_kernel):
+// at most 85 registers a thread, so that three CTAs fit on an SM
+// (ops/knn.py::knn_tiled_plan keeps the box tables in shared memory only
+// where that many CTAs still fit).
 template <int K>
-__global__ void __launch_bounds__(kThreads, K > 16 ? 1 : 3)
+__global__ void __launch_bounds__(kThreads, 3)
     knn_walk_kernel(const float* __restrict__ groups,
                     const int* __restrict__ order,
                     const float* __restrict__ boxes,
@@ -428,11 +448,150 @@ __global__ void __launch_bounds__(kThreads, K > 16 ? 1 : 3)
   }
 }
 
+// The K = 64 walk: a warp a query, kQ64 queries a CTA of kThreads64.
+constexpr int kThreads64 = 128;
+constexpr int kQ64 = kThreads64 / 32;
+constexpr unsigned kDone = 0xffffffffu;  // a box visited, or no box
+
+// The t-th of [0, n) in spiral order from c0: c0, c0 + 1, c0 - 1, c0 + 2,
+// c0 - 2, ..., and once one side ends, the other side on its own.
+__device__ __forceinline__ int spiral_at(int t, int c0, int n) {
+  const int below = c0, above = n - 1 - c0, m = min(below, above);
+  if (t <= 2 * m) return (t & 1) ? c0 + ((t + 1) >> 1) : c0 - (t >> 1);
+  return above > below ? c0 + (t - m) : c0 - (t - m);
+}
+
+// K6 for 16 < k <= 64 (the partition's k = 46): the arguments as
+// knn_walk_kernel's; a warp a query (its rank r in the sorted queries), a
+// WarpTopK64 list. The fill takes the query's block blk0 (that of its own
+// rank on a self-search, else of the 32-way search of the sorted codes, 0
+// in the clouds' own order) and its neighbour on the side of the query's
+// rank within it (blk0 - 1 for the first half, blk0 + 1 for the second, the
+// other one at either end). Then the super-blocks, 32 at a time in spiral
+// order from blk0's, each group nearest box first, and in each kept
+// super-block its blocks but the fill's, nearest box first; a level ends
+// at the first box whose box_lb is strictly above the list's kout-th d2.
+// stats, when given, gains [pairs evaluated, blocks kept, box tests, keys
+// merged, merges], each summed over the queries. At most 64 registers a
+// thread (56 with nvcc 12.8), so 9 CTAs of 4 warps an SM: 128-thread CTAs
+// fit 36 warps where 256-thread ones fit 32, and timed faster on the
+// H100; 64-thread ones timed as 128, fewer registers spilled.
+__global__ void __launch_bounds__(kThreads64, 8)
+    knn_walk64_kernel(const float* __restrict__ groups,
+                      const int* __restrict__ order,
+                      const float* __restrict__ boxes,
+                      const float* __restrict__ query,
+                      const long long* __restrict__ qorder,
+                      const int* __restrict__ scodes,
+                      const int* __restrict__ qcodes, int* __restrict__ out,
+                      u64* __restrict__ stats, int ns, int nq, int kout,
+                      int nblk, int nsup, int self_search) {
+  __shared__ u64 slots[kQ64][64];
+  __shared__ u64 tally[5];
+  const int b = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kQ64 + warp;  // the warp's sorted query
+  if (stats) {
+    if (threadIdx.x < 5) tally[threadIdx.x] = 0;
+    __syncthreads();
+  }
+  if (r < nq) {  // warp-uniform
+    const int row = qorder ? (int)qorder[(size_t)b * nq + r] : r;
+    const float* qp = query + ((size_t)b * nq + row) * 3;
+    const float qx = qp[0], qy = qp[1], qz = qp[2];
+    const int p0 = self_search ? r
+                   : scodes    ? warp_lower_bound(scodes + (size_t)b * ns, ns,
+                                                  qcodes[(size_t)b * nq + r],
+                                                  lane)
+                               : 0;
+    const int blk0 = min(p0 / kBlk, nblk - 1);
+    int fa = blk0, fb = blk0 + 1;  // fa = -1 where nblk == 1
+    if (((p0 & (kBlk - 1)) < kBlk / 2 && blk0 > 0) || fb >= nblk) {
+      fa = blk0 - 1;
+      fb = blk0;
+    }
+    const float4* sup =
+        reinterpret_cast<const float4*>(boxes) + (size_t)b * (nsup + nblk) * 2;
+    const float4* bbox = sup + 2 * nsup;
+    const float* gb = groups + (size_t)b * nblk * 96;
+    const int* ob = order + (size_t)b * nblk * kBlk;
+    // this lane's candidate of block blk (pad where blk has no such point)
+    auto key_of = [&](int blk, u64 pad) -> u64 {
+      const int rank = blk * kBlk + lane;
+      if (blk < 0 || rank >= ns) return pad;
+      const float* g = gb + (size_t)blk * 96 + (lane >> 2) * 12 + (lane & 3);
+      return make_key(sq_dist(qx, qy, qz, __ldg(g), __ldg(g + 4),
+                              __ldg(g + 8)),
+                      (unsigned)__ldg(ob + rank));
+    };
+    auto real = [&](int blk) { return blk < 0 ? 0 : min(kBlk, ns - blk * kBlk); };
+
+    WarpTopK64 top;
+    top.slots = slots[warp];
+    top.kout = kout;
+    top.lane = lane;
+    top.fill(key_of(fa, kEmpty), key_of(fb, kEmpty));
+    // what the walk did, for `stats` (the same on every lane)
+    u64 pairs = real(fa) + real(fb);
+    unsigned kept = 0, tests = 0, keys = 0, merges = 0;
+    const int sb0 = blk0 / kSup;
+    for (int t0 = 0; t0 < nsup; t0 += 32) {
+      const int t = t0 + lane;
+      const int sb = t < nsup ? spiral_at(t, sb0, nsup) : 0;
+      unsigned lbs = kDone;
+      if (t < nsup)
+        lbs = __float_as_uint(
+            box_lb(__ldg(sup + 2 * sb), __ldg(sup + 2 * sb + 1), qx, qy, qz));
+      tests += min(32, nsup - t0);
+      for (;;) {
+        const unsigned ms = __reduce_min_sync(kFull, lbs);
+        if (ms == kDone || __uint_as_float(ms) > top.thr_d) break;
+        const int js = __ffs(__ballot_sync(kFull, lbs == ms)) - 1;
+        if (lane == js) lbs = kDone;
+        const int blk = __shfl_sync(kFull, sb, js) * kSup + lane;
+        const bool open = blk < nblk && blk != fa && blk != fb;
+        unsigned lbb = kDone;
+        if (open)
+          lbb = __float_as_uint(box_lb(__ldg(bbox + 2 * blk),
+                                       __ldg(bbox + 2 * blk + 1), qx, qy, qz));
+        tests += __popc(__ballot_sync(kFull, open));
+        for (;;) {
+          const unsigned mb = __reduce_min_sync(kFull, lbb);
+          if (mb == kDone || __uint_as_float(mb) > top.thr_d) break;
+          const int jb = __ffs(__ballot_sync(kFull, lbb == mb)) - 1;
+          if (lane == jb) lbb = kDone;
+          const int vb = __shfl_sync(kFull, blk, jb);
+          const int entered = top.offer(key_of(vb, ~0ull));
+          ++kept;
+          pairs += real(vb);
+          keys += entered;
+          merges += entered > 0;
+        }
+      }
+    }
+    if (stats && lane == 0) {
+      atomicAdd(tally, pairs);
+      atomicAdd(tally + 1, (u64)kept);
+      atomicAdd(tally + 2, (u64)tests);
+      atomicAdd(tally + 3, (u64)keys);
+      atomicAdd(tally + 4, (u64)merges);
+    }
+    int* o = out + ((size_t)b * nq + row) * kout;
+    if (lane < kout) o[lane] = (int)(unsigned)top.a;
+    if (32 + lane < kout) o[32 + lane] = (int)(unsigned)top.b;
+  }
+  if (stats) {
+    __syncthreads();
+    if (threadIdx.x < 5) atomicAdd(stats + threadIdx.x, tally[threadIdx.x]);
+  }
+}
+
 // Dynamic shared memory of the walk (ops/knn.py::knn_tiled_plan computes
-// the same; the launcher refuses a launch where the two differ): the box
-// tables (only the super-blocks' where both do not fit), a stage a warp,
-// and the candidate buffers for k > 1.
+// the same; the launcher refuses a launch where the two differ): for
+// K = 1 and 16 the box tables (only the super-blocks' where both do not
+// fit), a stage a warp, and the candidate buffers for k > 1; none for
+// K = 64 (its 2 KiB of list slots are static, its boxes read through L1).
 size_t knn_walk_smem(int nblk, int nsup, int k, int boxes_in_smem) {
+  if (k > 16) return 0;
   return (size_t)(boxes_in_smem ? nsup + nblk : nsup) * 8 * sizeof(float) +
          (size_t)(kThreads / 32) * kStage * sizeof(float) +
          (k > 1 ? (size_t)kThreads * kBuf6 * sizeof(u64) : 0);
@@ -627,9 +786,11 @@ extern "C" int knn_tiled_launch(const void* support, const void* query,
                                 int k, int threads, int boxes_in_smem,
                                 int self_search, int smem, void* stream) {
   const int nblk = (ns + kBlk - 1) / kBlk, nsup = (nblk + kSup - 1) / kSup;
-  if (B < 1 || B > 65535 || nq < 1 || ns < 1 || threads != kThreads ||
-      !kernel_k(k) || (self_search && nq != ns) ||
+  if (B < 1 || B > 65535 || nq < 1 || ns < 1 || !kernel_k(k) ||
+      threads != (kernel_k(k) == 64 ? kThreads64 : kThreads) ||
+      (self_search && nq != ns) ||
       !sorder != !qorder || !sorder != !scodes || !sorder != !qcodes ||
+      (k > 16 && boxes_in_smem) ||
       (size_t)smem != knn_walk_smem(nblk, nsup, k, boxes_in_smem))
     return (int)cudaErrorInvalidValue;
   cudaStream_t cs = (cudaStream_t)stream;
@@ -657,8 +818,9 @@ extern "C" int knn_tiled_launch(const void* support, const void* query,
                                   nq, k, nblk, nsup, boxes_in_smem,
                                   self_search, smem, cs);
     default:
-      return (int)launch_walk<64>(g, o, bx, q, qo, sc, qc, out_i, st, B, ns,
-                                  nq, k, nblk, nsup, boxes_in_smem,
-                                  self_search, smem, cs);
+      knn_walk64_kernel<<<dim3((nq + kQ64 - 1) / kQ64, B), kThreads64, 0,
+                          cs>>>(g, o, bx, q, qo, sc, qc, out_i, st, ns, nq,
+                                k, nblk, nsup, self_search);
+      return (int)cudaGetLastError();
   }
 }

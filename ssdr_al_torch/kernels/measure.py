@@ -2,7 +2,8 @@
 make.
 
     python3 ssdr_al_torch/kernels/measure.py [--tree DIR] [--out PATH]
-        [--dataset S3DIS|Semantic3D|SemanticKITTI] [--k4-only | --k4-routes | --k6-only]
+        [--dataset S3DIS|Semantic3D|SemanticKITTI]
+        [--k4-only | --k4-routes | --k6-only]
 
 One eval-mode forward of RandLA-Net at ConfigS3DIS width (B=8 × 40960,
 `window` engine, weights and cloud drawn from a seed; with `--dataset
@@ -62,11 +63,17 @@ batch and on the tile plan, the sum pass alone), two turns each, for the
 margins of the wrapper's choices.
 `--k6-only` runs only the K6 calls, and the partition's (`partition_call`:
 the k = 46 self-search over one prepared S3DIS-sized room, K6's K = 64
-instantiation), each also on every route of the wrapper (the brute-force
-loop, the walk over the clouds in their own order, the walk over the
-curve-sorted clouds; ops/knn.py::knn_tiled_route picks one by the
-support's size) and split by kernel under torch.profiler. `chip_smoke.py`
-checks the partition's call on a room its partition phase prepared.
+instantiation) over random subsets of that room (46, 700, 3000, 6000,
+10 000 and 20 000 points), the room itself and a flagship room
+(139 686 points, as scripts/flagship.py makes it), each also on every
+route of the wrapper (the brute-force loop, the walk over the clouds in
+their own order, the walk over the curve-sorted clouds;
+ops/knn.py::knn_tiled_route picks one by the support's size and k) and
+split by kernel under torch.profiler (the walk apart from the codes,
+sorts and layout). Its walk counters are a warp's for K = 1 and 16 and
+a query's for K = 64 (a warp a query). Before them it times the six
+flagship rooms' `knn_ms` as cli.superpoint does. `chip_smoke.py` checks
+the partition's call on a room its partition phase prepared.
 
 `--tree DIR` measures the `ssdr_al_torch` package under DIR (for example
 a `git archive` of another commit) with this file's inputs and timing, so
@@ -294,6 +301,10 @@ def check_k6(call, reps=10, plain_reps=1, lib_reps=2):
     if hasattr(kn, "knn_tiled_stats"):
         walk = kn.knn_tiled_stats(s, q, k)[1]
         pairs = walk.pop("pairs")
+    # the walk's counters per warp (K = 1 and 16, and K = 64 on a tree
+    # whose K = 64 walk is a lane per query), or per query (the warp per
+    # query of knn_walk64_kernel)
+    per_query = kn.knn_kernel_k(k) == 64 and hasattr(kn, "KNN_WALK64_QUERIES")
     nb = nbytes(s, got) + (0 if self_search else nbytes(q))
     bd = bound(nb, 9 * b * nq * min(k, ns))
     return dict(shape=name, route=kn.knn_tiled_route(ns, k)
@@ -307,7 +318,9 @@ def check_k6(call, reps=10, plain_reps=1, lib_reps=2):
                 bound_ms_all_pairs=bound(0, 9 * b * ns * nq)[0],
                 library_ms=device_ms(lambda: cdist_topk(s, q, k), lib_reps),
                 pairs=pairs, pair_share=pairs / (b * ns * nq),
-                walk={key: v / -(-nq // 32) / b for key, v in walk.items()})
+                walk_per="query" if per_query else "warp",
+                walk={key: v / (nq if per_query else -(-nq // 32)) / b
+                      for key, v in walk.items()})
 
 
 def k6_routes(call, reps=10):
@@ -327,13 +340,85 @@ def k6_routes(call, reps=10):
             raise AssertionError(f"K6 on the {route} route differs")
         out[route] = dict(ms=device_ms(lambda: kn._knn_tiled(
             s, q, k, route=route), reps), pairs=st["pairs"])
+    out = dict(routes=out)
+    out.update(k6_split(call))
+    return out
+
+
+def k6_split(call):
+    """K6's call on the route the wrapper picks, split by kernel under
+    torch.profiler: `walk_ms` the walk (knn_walk*), `kernel_ms` every K6
+    kernel (the walk, codes, bounds, layout), `other_ms` the rest (the
+    stable torch.sort of the codes, allocations' fills)."""
+    from ssdr_al_torch.ops import knn as kn
+
+    s, q, k = call["support"], call["query"], call["k"]
     parts, launches = device_breakdown(lambda: kn.knn_tiled(s, q, k))
     ours = sum(v for n, v in parts.items() if "knn_" in n)
-    return dict(routes=out, kernel_ms=ours,
-                other_ms=sum(parts.values()) - ours,
+    return dict(walk_ms=sum(v for n, v in parts.items() if "knn_walk" in n),
+                kernel_ms=ours, other_ms=sum(parts.values()) - ours,
                 device_launches=launches,
                 top_kernels_ms={n[:60]: round(v, 4)
                                 for n, v in list(parts.items())[:6]})
+
+
+# the support sizes at which --k6-only times every route of K6's K = 64
+# walk (k = 46) below the partition's room: random subsets of it
+K64_ROUTE_SIZES = (46, 700, 3000, 6000, 10000, 20000)
+
+
+def flagship_rooms():
+    """The xyz of scripts/flagship.py's six training rooms: cli.common.
+    setup_experiment's synthetic set at 6 hard rooms of 150 000 points
+    (139 686 each after the generator)."""
+    from ssdr_al_torch.data.synthetic import make_dataset
+
+    return [np.asarray(room.xyz, np.float32) for room in make_dataset(
+        num_train=6, num_val=1, num_points=150_000, hard=True)[0]]
+
+
+def flagship_knn_ms(dev, rooms):
+    """Each flagship training room's `knn_ms` as cli.superpoint records it
+    (partition/superpoint.py::partition_cloud: CUDA events around the
+    K = 64 search of `_neighbours`), the rooms in the flagship's order in
+    this process: room 0 takes the K = 64 walk's first launch (cold)."""
+    from ssdr_al_torch.partition import superpoint as sp
+
+    out = []
+    for xyz in rooms:
+        timer = sp._Timer(dev)
+        xyz_t = torch.from_numpy(xyz).to(dev)
+        timer.mark("start")
+        sp._neighbours(xyz_t, xyz, PARTITION_K, 10, "device", timer)
+        torch.cuda.synchronize()
+        out.append(timer.ms("start", "knn"))
+    return out
+
+
+def k64_calls(dev, flagship_xyz):
+    """The partition's K6 call at K64_ROUTE_SIZES (subsets of a prepared
+    room), at a prepared room and at a flagship room."""
+    room = partition_call(dev)
+    x = room["support"][0].cpu().numpy()
+    rng = np.random.RandomState(1)
+    calls = [partition_call(dev, x[np.sort(rng.choice(len(x), n, False))])
+             for n in K64_ROUTE_SIZES]
+    return calls + [room, partition_call(dev, flagship_xyz)]
+
+
+def k6_line(r) -> str:
+    """One K6 call of --k6-only as a line."""
+    return (f"K6 {r['shape']}: equal, {r['ms']:.4f} ms on route "
+            f"{r['route']} (walk {r['walk_ms']:.4f}, K6 kernels "
+            f"{r['kernel_ms']:.4f}, the rest {r['other_ms']:.4f} ms; pairs "
+            f"{100 * r['pair_share']:.3f} %; bound {r['bound_ms']:.4f} ms, "
+            f"ops of the pairs evaluated {r['ops_ms_evaluated']:.4f}; "
+            f"plain {r['plain_ms']:.3f}, cdist+topk {r['library_ms']:.3f}); "
+            "every route " + json.dumps({n: round(v["ms"], 4)
+                                         for n, v in r["routes"].items()})
+            + f"; a {r['walk_per']} " + json.dumps(
+                {n: round(v, 2) for n, v in r["walk"].items()})
+            + " " + json.dumps(r["top_kernels_ms"]))
 
 
 def record_train_backward(cfg, dev, b=6, seed=0):
@@ -1175,8 +1260,10 @@ def main() -> int:
                          "at the flagship's batch, two turns each")
     ap.add_argument("--k6-only", action="store_true",
                     help="only K6 at every call of one exact pyramid and "
-                         "at the partition's call (k = 46 over one "
-                         "prepared room), on each of its routes")
+                         "at the partition's call (k = 46) over subsets of "
+                         "a prepared room, the room and a flagship room, "
+                         "on each of its routes, after the flagship "
+                         "rooms' knn_ms")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -1233,21 +1320,18 @@ def main() -> int:
     elif args.k6_only:
         cfg = config.get_config(args.dataset)
         res = {"knn_tiled": []}
+        rooms = flagship_rooms()
+        res["flagship_knn_ms"] = flagship_knn_ms(dev, rooms)
+        print("knn_ms of the flagship's rooms as cli.superpoint times them "
+              "(room 0 cold): " + json.dumps(
+                  [round(t, 4) for t in res["flagship_knn_ms"]]))
         calls = record_exact_path(cfg, dev, b=8 if args.dataset == "S3DIS"
                                   else cfg.batch_size)
-        for call in calls + [partition_call(dev)]:
+        for call in calls + k64_calls(dev, rooms[0]):
             r = check_k6(call)
             r.update(k6_routes(call))
             res["knn_tiled"].append(r)
-            print(f"K6 {r['shape']}: equal, {r['ms']:.4f} ms on route "
-                  f"{r['route']} (kernels {r['kernel_ms']:.4f}, the rest "
-                  f"{r['other_ms']:.4f} ms; pairs "
-                  f"{100 * r['pair_share']:.3f} %); every route "
-                  + json.dumps({n: round(v["ms"], 4)
-                                for n, v in r["routes"].items()})
-                  + "; a warp " + json.dumps(
-                      {n: round(v, 1) for n, v in r["walk"].items()})
-                  + " " + json.dumps(r["top_kernels_ms"]))
+            print(k6_line(r))
         res["calls"] = None
     elif args.dataset == "S3DIS":
         res = check_main_path(config.ConfigS3DIS, dev)

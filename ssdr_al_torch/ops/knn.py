@@ -220,30 +220,41 @@ def _knn_tiled_plain(support, query, k, query_chunk=1024):
 
 # K6's walk (csrc/knn_tiled.cu): blocks of KNN_BLOCK sorted support
 # points, super-blocks of KNN_SUPER blocks, each with a 32-byte box;
-# KNN_THREADS threads a CTA, a warp per 32 sorted queries, each warp
-# staging a kept block in KNN_STAGE floats and each thread buffering
-# KNN_BUF candidate keys of 8 bytes (k > 1). The kernel's registers allow
-# KNN_CTAS[K] CTAs an SM; the box tables take shared memory only where as
-# many still fit beside the stages and buffers. K6 is instantiated for
-# the widths KNN_K (the 1-NN upsample, k_n, and the partition's
-# k_geof + 1 = 46 neighbours); a call with k runs the least width at or
-# above k and keeps the first k columns. The 64 keys a thread of K = 64
-# take 128 registers, so its walk runs one CTA an SM.
+# KNN_THREADS threads a CTA. K6 is instantiated for the widths KNN_K (the
+# 1-NN upsample, k_n, and the partition's k_geof + 1 = 46 neighbours); a
+# call with k runs the least width at or above k and keeps the first k
+# columns. K = 1 and 16 (knn_walk_kernel): a warp per 32 sorted queries,
+# each warp staging a kept block in KNN_STAGE floats and each thread
+# buffering KNN_BUF candidate keys of 8 bytes (k > 1); the kernel's
+# registers allow KNN_CTAS[K] CTAs an SM, and the box tables take shared
+# memory only where as many still fit beside the stages and buffers.
+# K = 64 (knn_walk64_kernel): a warp per sorted query, KNN_WALK64_QUERIES
+# queries a CTA of KNN_WALK64_THREADS threads, the list of 64 keys spread
+# over the warp's lanes (csrc/warp_topk.cuh), at most 64 registers a
+# thread (nine CTAs an SM), no dynamic shared memory (the boxes read
+# through L1).
 KNN_BLOCK, KNN_SUPER, KNN_THREADS, KNN_STAGE, KNN_BUF = 32, 32, 256, 128, 24
 KNN_K = (1, 16, 64)
-KNN_CTAS = {1: 3, 16: 3, 64: 1}
+KNN_CTAS = {1: 3, 16: 3}
+KNN_WALK64_THREADS = 128
+KNN_WALK64_QUERIES = KNN_WALK64_THREADS // 32
 # K6's route by the support's size (knn_tiled_route): a thread per query
 # over every support point at most KNN_BRUTE_MAX[K] points, the walk over
-# the clouds in their own order at most KNN_SORT_MIN, the walk over the
+# the clouds in their own order at most KNN_SORT_MIN[K], the walk over the
 # curve-sorted clouds beyond. Set from kernels/measure.py --k6-only, which
 # times every route at every call of the three exact pyramids (H100): for
 # k=1 the brute force is fastest up to 4096 points (0.135 against the
 # sorted walk's 0.194 ms) and the sorted walk from 10240 (0.497 against
 # 1.490); for k=16 the walk in the clouds' own order up to 704 points
 # (0.093 against 0.107), the sorted walk from 1024 (0.115 against 0.116).
-# K = 64 takes the same walk thresholds as K = 16 (not timed per route)
+# K = 64 (measure.py --k6-only, k = 46 over random subsets of a prepared
+# room, which keep its grid order): the walk in the room's own order up to
+# 6000 points (46: 0.0069 ms against the sorted walk's 0.0256 and the
+# brute force's 0.0452; 700: 0.0204 / 0.0488; 3000: 0.0402 / 0.0616;
+# 6000: 0.0662 / 0.0922), the sorted walk from 10 000 (0.1063 against
+# 0.1095; 20 000: 0.1420 against 0.1992); the brute force is never fastest
 KNN_BRUTE_MAX = {1: 4096, 16: 0, 64: 0}
-KNN_SORT_MIN = 896
+KNN_SORT_MIN = {1: 896, 16: 896, 64: 8192}
 KNN_ROUTES = ("brute", "walk", "sorted")
 SMEM_DEFAULT = 48 * 1024   # dynamic shared memory a launch has without
                            # the opt-in attribute
@@ -265,12 +276,17 @@ def knn_kernel_k(k: int) -> int:
 
 def knn_tiled_plan(ns: int, k: int):
     """(nblk, nsup, boxes_in_smem, smem bytes) of K6's walk over ns support
-    points: both box tables go to shared memory where KNN_CTAS[K] CTAs an
-    SM still fit with them, else only the super-blocks' do and the walk
-    reads the block boxes through L1. A launch above SMEM_DEFAULT sets the
-    opt-in attribute (the kernel has no static shared memory)."""
+    points. K = 1 and 16: both box tables go to shared memory where
+    KNN_CTAS[K] CTAs an SM still fit with them, else only the
+    super-blocks' do and the walk reads the block boxes through L1; a
+    launch above SMEM_DEFAULT sets the opt-in attribute (the kernel has no
+    static shared memory). K = 64: no dynamic shared memory at any size
+    (its list slots are 2 KiB of static shared memory, its boxes read
+    through L1), so no opt-in ever."""
     nblk = -(-ns // KNN_BLOCK)
     nsup = -(-nblk // KNN_SUPER)
+    if knn_kernel_k(k) == 64:
+        return nblk, nsup, False, 0
     fixed = KNN_THREADS // 32 * KNN_STAGE * 4 \
         + (KNN_THREADS * KNN_BUF * 8 if k > 1 else 0)
     both = fixed + (nsup + nblk) * 32
@@ -286,7 +302,7 @@ def knn_tiled_route(ns: int, k: int) -> str:
     the boxes save) or "sorted" (the walk over the curve-sorted clouds)."""
     if ns <= KNN_BRUTE_MAX[knn_kernel_k(k)]:
         return "brute"
-    return "walk" if ns <= KNN_SORT_MIN else "sorted"
+    return "walk" if ns <= KNN_SORT_MIN[knn_kernel_k(k)] else "sorted"
 
 
 def knn_sorted_inputs(support: torch.Tensor, query: torch.Tensor,
@@ -304,7 +320,7 @@ def knn_sorted_inputs(support: torch.Tensor, query: torch.Tensor,
     query's rank in the sorted support: its own on a self-search, else its
     searchsorted position). The rows keep their values: every d² is the
     plain version's. sort=False keeps both clouds in their own order (the
-    kernel's path for at most KNN_SORT_MIN support points): identity
+    kernel's path for at most KNN_SORT_MIN[K] support points): identity
     orders, qpos its own rank on a self-search, else 0."""
     b, ns, _ = support.shape
     if not sort:
@@ -372,8 +388,11 @@ def knn_tiled_stats(support: torch.Tensor, query: torch.Tensor, k: int,
     """knn_tiled on CUDA tensors, on its own route (knn_tiled_route) or
     the one given, and what it did: {"pairs" (query, support) evaluated
     (of Nq·Ns a batch row; all of them on the brute-force route), and on
-    a walk "blocks_kept" and "block_tests" by the warps, "keys_buffered"
-    by the lanes, "insert_rounds" of the warps}."""
+    a walk KNN_WALK_STATS[K]: for K = 1 and 16 "blocks_kept" and
+    "block_tests" by the warps, "keys_buffered" by the lanes,
+    "insert_rounds" of the warps; for K = 64 "blocks_kept", "box_tests"
+    (super-blocks' and blocks'), "keys_merged" and "merges" (blocks with an
+    entrant) summed over the queries}."""
     return _knn_tiled(support, query, k, with_stats=True, route=route)
 
 
@@ -431,14 +450,21 @@ def _knn_tiled(support, query, k, with_stats=False, route=None):
         support.data_ptr(), query.data_ptr(), *sorts,
         groups.data_ptr(), order.data_ptr(), boxes.data_ptr(),
         out.data_ptr(), None if stats is None else stats.data_ptr(), b, ns,
-        nq, k, KNN_THREADS, int(in_smem), int(self_search), smem, stream)
+        nq, k, KNN_WALK64_THREADS if knn_kernel_k(k) == 64 else KNN_THREADS,
+        int(in_smem), int(self_search), smem, stream)
     _kb.check(err, "knn_tiled")
     _count_launch(k)
     if stats is None:
         return out, None
-    return out, dict(zip(("pairs", "blocks_kept", "block_tests",
-                          "keys_buffered", "insert_rounds"),
+    return out, dict(zip(("pairs",) + KNN_WALK_STATS[knn_kernel_k(k)],
                          stats.tolist()))
+
+
+# the walk's counters after "pairs" (knn_tiled_stats), by width
+KNN_WALK_STATS = {
+    1: ("blocks_kept", "block_tests", "keys_buffered", "insert_rounds"),
+    16: ("blocks_kept", "block_tests", "keys_buffered", "insert_rounds"),
+    64: ("blocks_kept", "box_tests", "keys_merged", "merges")}
 
 
 def _knn_codes(support, query, self_search, stream=None):

@@ -216,29 +216,32 @@ def path_steps(dev, paths=PATHS, **kw):
     return out
 
 
-def traced_names(fn) -> list:
+def traced_names(fn, warm=None) -> list:
     """The device kernels' names in a torch.profiler trace of fn() on the
-    card. The trace starts on an idle card, and fn() starts after a short
-    device sleep under the profiler, so that the tracer is live before
-    fn()'s first kernel (a trace that started with the step once held two
-    of a replayed step's five K1 kernels, on an H100)."""
-    from torch.profiler import ProfilerActivity, profile
+    card. warm() (fn() if None) runs first, in the profiler's warm-up
+    step, whose records are dropped: on an H100 a trace now and then
+    loses the first part of its device records (a replayed step's trace
+    that began after a device sleep has started far into the step, the
+    sleep and every K1 kernel gone), and the warm-up step takes that
+    loss."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1_000_000)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for f in (warm or fn, fn):
+            f()
+            torch.cuda.synchronize()
+            prof.step()
     return [e.name for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def traced_kernels(fn) -> dict:
+def traced_kernels(fn, warm=None) -> dict:
     """{kernel: device launches} of TRACED's kernels in a torch.profiler
-    trace of fn() on the card."""
-    names = traced_names(fn)
+    trace of fn() on the card, after warm() (traced_names)."""
+    names = traced_names(fn, warm)
     return {k: sum(any(s in n for s in subs) for n in names)
             for k, (subs, _) in TRACED.items()}
 
@@ -277,18 +280,20 @@ def replay_check(trainer, path, pool, draws) -> dict:
             graphs.append(fn)
         losses = []
 
-        def one():
-            losses.append(fn()["loss"].clone())
-
-        for i, d in enumerate(draws):
+        def one(d):
             if inputs is not None:
                 inputs.stage(d)
             set_lr(ts)
-            if graphed and i == len(draws) - 1:
-                traced.update(traced_kernels(one))
-            else:
-                one()
+            losses.append(fn()["loss"].clone())
             ts.step += 1
+
+        last = len(draws) - 1
+        for d in draws[:last - 1] if graphed else draws:
+            one(d)
+        if graphed:
+            # the replay before the last warms the tracer up
+            traced.update(traced_kernels(lambda: one(draws[last]),
+                                         lambda: one(draws[last - 1])))
         return torch.stack(losses)
 
     def restore():
@@ -337,15 +342,16 @@ EVAL_TRACED = {
                                               "window_topk_mxu")),
     "gather_window": (("gather_window_kernel",), ("gather_window",
                                                   "gather_window_bf16")),
-    "knn_tiled": (("knn_walk_kernel", "knn_brute_kernel"),
+    "knn_tiled": (("knn_walk_kernel", "knn_walk64_kernel",
+                   "knn_brute_kernel"),
                   ("knn_tiled", "knn_tiled_k64"))}
 EVAL_ENGINES = ("window", "pallas")
 
 
-def traced_eval_kernels(fn) -> dict:
+def traced_eval_kernels(fn, warm=None) -> dict:
     """{EVAL_TRACED kernel: device launches} in a torch.profiler trace of
-    fn() on the card (traced_names)."""
-    names = traced_names(fn)
+    fn() on the card, after warm() (traced_names)."""
+    names = traced_names(fn, warm)
     return {k: sum(any(s in n for s in subs) for n in names)
             for k, (subs, _) in EVAL_TRACED.items()}
 
@@ -395,10 +401,17 @@ def eval_replay_check(dev, cfg, engine, clouds, batches, seed=0) -> dict:
         for m, step in steps.items():
             last = m == "graph" and i == len(batches) - 1
             if last:
-                before = counts.read()
-                traced = traced_eval_kernels(lambda: out.update(
-                    graph=step(state, batch)))
-                launched = counts.since(before)
+                launched = {}
+
+                def traced_call(step=step, batch=batch):
+                    before = counts.read()
+                    out["graph"] = step(state, batch)
+                    launched.update(counts.since(before))
+
+                # one more eager call on the batch warms the tracer up
+                traced = traced_eval_kernels(
+                    traced_call, lambda batch=batch:
+                    steps["eager"](state, batch))
                 counted = {k: sum(launched[c] for c in keys)
                            for k, (_, keys) in EVAL_TRACED.items()}
                 continue

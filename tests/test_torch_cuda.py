@@ -179,6 +179,100 @@ def test_knn_tiled_every_route_any_k(dev, route, k):
     assert 0 < stats["pairs"] <= 2000 * 1500
 
 
+K64 = [17, 33, 46, 64]      # widths served by K6's K = 64 walk
+
+
+def _k64_case(s, q, k, routes=("walk", "sorted")):
+    """K6 at 16 < k <= 64 on each given route equal to the plain version
+    index for index, each launch counted once in launches_k64; returns
+    the last route's result and pair count."""
+    want = kn._knn_tiled_plain(s, q, k)
+    for route in routes:
+        before = (kn.knn_tiled.launches, kn.knn_tiled.launches_k64)
+        got, stats = kn.knn_tiled_stats(s, q, k, route=route)
+        torch.cuda.synchronize()
+        assert (kn.knn_tiled.launches, kn.knn_tiled.launches_k64) == \
+            (before[0], before[1] + 1)
+        assert got.shape == want.shape
+        assert torch.equal(got, want), (route, (got != want).sum().item())
+    return got, stats
+
+
+@pytest.mark.parametrize("k", K64)
+@pytest.mark.parametrize("ns", [33, 63, 64, 65, 96])
+def test_knn_tiled_k64_around_the_fill(dev, k, ns):
+    """The K = 64 walk where its fill of two blocks holds every support
+    point (Ns <= 64; Ns < k among them, the slots past Ns index 0) or all
+    but a few (65, 96), on both walk routes: a self-search over two batch
+    rows and 70 queries apart from the support."""
+    rng = np.random.RandomState(ns * 100 + k)
+    s = torch.from_numpy(rng.randn(2, ns, 3).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.randn(2, 70, 3).astype(np.float32)).to(dev)
+    got, _ = _k64_case(s, s, k)
+    if ns < k:
+        assert (got[..., ns:] == 0).all()
+    _k64_case(s, q, k)
+
+
+@pytest.mark.parametrize("k", K64)
+@pytest.mark.parametrize("shape", ["ragged", "batch", "one point", "plane"])
+def test_knn_tiled_k64_shapes(dev, k, shape):
+    """The K = 64 walk on shapes its plan meets: 3001 queries (not a
+    multiple of the KNN_WALK64_QUERIES a CTA takes) against 5000 support
+    points; B = 2 self-searches; a cloud of one repeated point (every d²
+    ties, so the order is by index, and no box excludes anything: every
+    pair is evaluated); a planar cloud (z constant: every box flat)."""
+    rng = np.random.RandomState(k)
+    assert 3001 % kn.KNN_WALK64_QUERIES
+    if shape == "ragged":
+        s = _cloud_of("duplicates", rng, 5000).to(dev)
+        _k64_case(s, _cloud_of("random", rng, 3001).to(dev), k)
+        return
+    if shape == "batch":
+        s = torch.cat([_cloud_of("random", rng, 6000) for _ in range(2)]
+                      ).to(dev)
+    elif shape == "one point":
+        s = torch.full((1, 3000, 3), 1.5, device=dev)
+    else:
+        xy = (rng.rand(1, 8000, 2) * 6).astype(np.float32)
+        s = torch.from_numpy(np.concatenate(
+            [xy, np.full((1, 8000, 1), 0.8, np.float32)], -1)).to(dev)
+    got, stats = _k64_case(s, s, k)
+    if shape == "one point":
+        assert torch.equal(got[0], torch.arange(k, dtype=torch.int32,
+                                                device=dev).expand(3000, k))
+        assert stats["pairs"] == 3000 ** 2
+
+
+_FIRST_K64 = """
+import numpy as np, torch
+from ssdr_al_torch.ops import knn as kn
+n = 200_000
+assert kn.knn_tiled_plan(n, 46) == (6250, 196, False, 0)
+x = (np.random.RandomState(0).rand(1, n, 3) * [12, 12, 3]).astype(np.float32)
+x = torch.from_numpy(x).cuda()
+assert torch.equal(kn.knn_tiled(x, x, 46), kn._knn_tiled_plain(x, x, 46))
+assert kn.knn_tiled.launches_k64 == 1
+print("ok")
+"""
+
+
+def test_knn_tiled_k64_first_launch_at_its_largest(dev):
+    """The K = 64 walk's first launch in a fresh process at 200 000
+    points, past the flagship's rooms: its plan takes no dynamic shared
+    memory at any size (2 KiB of static list slots), so no opt-in is
+    needed; equal to the plain version, one launch counted."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FIRST_K64], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        out.stderr[-2000:]
+
+
 def _far_sorted_cloud(rng, b, n, offset):
     """A sorted cloud 6 m wide whose coordinates sit `offset` m from the
     origin, where K5's expanded d² rounds most."""

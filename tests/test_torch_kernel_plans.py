@@ -279,33 +279,53 @@ def test_k6_width_of_every_k():
     assert tk.knn_tiled_counter(16) == tk.knn_tiled_counter(1) == "launches"
 
 
-@pytest.mark.parametrize("ns,in_smem", [
-    (60000, True),     # a prepared S3DIS room (0.04 grid, ~6 x 6 x 3 m)
-    (150000, True),    # a room at its raw 150 000 points
-    (200000, False),   # past the tables' room beside one CTA's buffers
-    (700, True), (46, True)])
-def test_k6_k64_shared_memory_plan(ns, in_smem):
-    """The K = 64 walk (k = 46): one CTA an SM (its 64 keys a thread take
-    128 registers), so both box tables stay in shared memory up to ~170 000
-    points, where K = 16's three CTAs an SM keep them only below ~20 000;
-    the stages and the candidate buffers are K = 16's; every launch fits
-    one CTA's limit."""
-    nblk, nsup, got_in, smem = tk.knn_tiled_plan(ns, 46)
-    assert tk.KNN_CTAS[64] == 1 and tk.KNN_CTAS[16] == 3
-    fixed = 8 * 512 + 256 * 24 * 8
-    assert got_in == in_smem
-    assert smem == (nblk + nsup if in_smem else nsup) * 32 + fixed
-    assert smem + 1024 <= 228 * 1024 and smem <= tk.SMEM_LIMIT
-    if ns == 60000:
-        assert not tk.knn_tiled_plan(ns, 16)[2]
-    assert tk.knn_tiled_plan(ns, 64) == (nblk, nsup, got_in, smem)
+@pytest.mark.parametrize("ns", [
+    60000,     # a prepared S3DIS room (0.04 grid, ~6 x 6 x 3 m)
+    96728,     # the smoke's prepared partition room
+    139686,    # a flagship room (scripts/flagship.py)
+    150000,    # a room at its raw 150 000 points
+    200000,    # past the rooms: no size needs the opt-in
+    700, 46])
+def test_k6_k64_plan(ns):
+    """The K = 64 walk (k = 46): a warp a query, KNN_WALK64_QUERIES = 4
+    queries a CTA of KNN_WALK64_THREADS = 128 threads, at every support
+    size no
+    dynamic shared memory (the boxes are read through L1, the list slots
+    are static) and so never the opt-in, where K = 16 keeps its box
+    tables in shared memory below ~20 000 points; every width above 16
+    has the same plan."""
+    nblk, nsup, in_smem, smem = tk.knn_tiled_plan(ns, 46)
+    assert nblk == -(-ns // 32) and nsup == -(-nblk // 32)
+    assert tk.KNN_WALK64_QUERIES == tk.KNN_WALK64_THREADS // 32 == 4
+    assert 64 not in tk.KNN_CTAS and tk.KNN_CTAS[16] == 3
+    assert not in_smem and smem == 0 <= tk.SMEM_DEFAULT
+    for k in (17, 33, 64):
+        assert tk.knn_tiled_plan(ns, k) == (nblk, nsup, False, 0)
+    if ns <= 700:
+        assert tk.knn_tiled_plan(ns, 16)[2]
 
 
-@pytest.mark.parametrize("ns,route", [(46, "walk"), (700, "walk"),
-                                      (896, "walk"), (897, "sorted"),
-                                      (60000, "sorted")])
+def test_k6_k64_walk_counters():
+    """knn_tiled_stats names the K = 64 walk's counters (summed over its
+    queries) apart from the lane-per-query walk's (summed over warps and
+    lanes)."""
+    assert tk.KNN_WALK_STATS[64] == ("blocks_kept", "box_tests",
+                                     "keys_merged", "merges")
+    assert tk.KNN_WALK_STATS[1] == tk.KNN_WALK_STATS[16] == (
+        "blocks_kept", "block_tests", "keys_buffered", "insert_rounds")
+
+
+@pytest.mark.parametrize("ns,route", [
+    (46, "walk"), (700, "walk"), (3000, "walk"), (6000, "walk"),
+    (8192, "walk"), (8193, "sorted"), (10000, "sorted"), (20000, "sorted"),
+    (96728, "sorted"), (139686, "sorted")])
 def test_k6_k64_route(ns, route):
-    """K = 64 takes K = 16's routes: never the thread-per-query loop by
-    default (its 64 keys a thread spill there), the walk in the cloud's
-    own order up to KNN_SORT_MIN points, the sorted walk beyond."""
+    """K = 64 has routes of its own (kernels/measure.py --k6-only at the
+    partition's call over subsets of a prepared room, H100): never the
+    thread-per-query loop (0.045 ms at 46 points against the walk's
+    0.007), the walk in the cloud's own order up to KNN_SORT_MIN[64] =
+    8192 points (faster up to 6000), the sorted walk beyond (faster from
+    10 000); K = 1 and 16 keep theirs."""
     assert tk.knn_tiled_route(ns, 46) == route
+    assert tk.knn_tiled_route(ns, 64) == route
+    assert tk.KNN_SORT_MIN[1] == tk.KNN_SORT_MIN[16] == 896

@@ -2,12 +2,13 @@
 
 - K6 (csrc/knn_tiled.cu) walks the curve-sorted support by blocks of 32
   points with two levels of bounding boxes, skipping a (super-)block when
-  the least d² to its box is strictly above every lane's k-th best, and
-  keys candidates by (d², original index). A numpy twin of that walk, on
-  the inputs the wrapper builds (ops/knn.py::knn_sorted_inputs) and with
-  its rows written back by original query index, equals the plain
-  version index for index on random, duplicated, coarse-grid and Ns < k
-  clouds.
+  the least d² to its box is strictly above the k-th best key's d², and
+  keys candidates by (d², original index). Numpy twins of its two walks
+  (K = 1 and 16: a lane per query; K = 64: a warp per query, pruned at
+  the kout-th key), on the inputs the wrapper builds
+  (ops/knn.py::knn_sorted_inputs) and with their rows written back by
+  original query index, equal the plain version index for index on
+  random, duplicated, coarse-grid and Ns < k clouds.
 - K5 (csrc/window_topk.cu) skips a block of its window when the real least
   d² to the block's box in centred coordinates, rounded down, less the
   rounding error of the expanded d², is above every lane's k-th best: a
@@ -51,7 +52,9 @@ def _box_lb(lo, hi, q):
 
 
 def walk_twin(groups, order, q_xyz, q_order, q_pos, ns, k, strict=True):
-    """K6's walk for one batch row, in numpy, at the kernel's width
+    """K6's lane-per-query walk (knn_walk_kernel, K = 1 and 16; at k > 16
+    the K = 64 walk it ran before knn_walk64_kernel, kept as the yardstick
+    of the new one's pairs) for one batch row, in numpy, at the width
     K = knn_kernel_k(k): a warp per 32 sorted queries starting at the
     block of its middle query's rank, the first min(K, 32) candidates of
     that block taken at once, then the spiral over
@@ -128,6 +131,125 @@ def walk_twin(groups, order, q_xyz, q_order, q_pos, ns, k, strict=True):
     return out, pairs
 
 
+def _spiral(t, c0, n):
+    """knn_tiled.cu::spiral_at: the t-th of [0, n) in spiral order from c0
+    (c0, c0 + 1, c0 - 1, ..., then the longer side on its own)."""
+    below, above = c0, n - 1 - c0
+    m = np.minimum(below, above)
+    near = np.where(t & 1, c0 + ((t + 1) >> 1), c0 - (t >> 1))
+    far = np.where(above > below, c0 + (t - m), c0 - (t - m))
+    return np.where(t <= 2 * m, near, far)
+
+
+NEVER = np.uint64(0xFFFFFFFFFFFFFFFF)   # a pad of a walked block: no entry
+DONE = np.int64(1) << np.int64(32)      # a box visited, or no box
+
+
+def walk64_twin(groups, order, q_xyz, q_order, q_pos, ns, k, strict=True):
+    """K6's K = 64 walk (knn_walk64_kernel, 16 < k <= 64) for one batch
+    row, in numpy, every query at once: a warp a query; the fill of the
+    query's block and its neighbour on the side of its rank (64
+    candidates, the empty key for each missing one); then the super-blocks
+    in chunks of 32 in spiral order from the query's, each chunk nearest
+    box first, and in a kept super-block its blocks but the fill's, nearest
+    box first (ties to the lower lane); a level ends at the first box whose
+    box_lb is above the list's kout-th d² (strict=False: at or above it,
+    the skip that loses ties). A block's candidates below the kout-th key
+    enter together. Returns (out [nq, k] by original query row, pairs
+    evaluated)."""
+    kout = k
+    pts = groups.transpose(0, 2, 1).reshape(-1, 3)
+    nblk = pts.shape[0] // tk.KNN_BLOCK
+    nsup = -(-nblk // tk.KNN_SUPER)
+    blocks = pts.reshape(nblk, tk.KNN_BLOCK, 3)
+    with np.errstate(invalid="ignore"):
+        blo, bhi = np.nanmin(blocks, 1), np.nanmax(blocks, 1)
+    slo = np.stack([blo[i * tk.KNN_SUPER:(i + 1) * tk.KNN_SUPER].min(0)
+                    for i in range(nsup)])
+    shi = np.stack([bhi[i * tk.KNN_SUPER:(i + 1) * tk.KNN_SUPER].max(0)
+                    for i in range(nsup)])
+    nq = q_xyz.shape[0]
+    lanes = np.arange(32)
+    p0 = q_pos.astype(np.int64)
+    blk0 = np.minimum(p0 // 32, nblk - 1)
+    back = (((p0 & 31) < 16) & (blk0 > 0)) | (blk0 + 1 >= nblk)
+    fa, fb = np.where(back, blk0 - 1, blk0), np.where(back, blk0, blk0 + 1)
+
+    def block_keys(blk, qs, pad):
+        """[n, 32] keys of each query's block blk (pad past Ns or for
+        blk < 0) and the real candidates of each."""
+        ranks = blk[:, None] * 32 + lanes
+        real = (blk[:, None] >= 0) & (ranks < ns)
+        r = np.clip(ranks, 0, pts.shape[0] - 1)
+        with np.errstate(invalid="ignore"):
+            d = qs[:, None, :] - pts[r]
+            d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+                + d[..., 2] * d[..., 2]
+        return np.where(real, _keys(d2, order[r]), pad), real.sum(1)
+
+    c0, n0 = block_keys(fa, q_xyz, EMPTY)
+    c1, n1 = block_keys(fb, q_xyz, EMPTY)
+    best = np.sort(np.concatenate([c0, c1], 1), 1)
+    pairs = int(n0.sum() + n1.sum())
+
+    def thr_d(rows):
+        return (best[rows, kout - 1] >> np.uint64(32)).astype(
+            np.uint32).view(F32)
+
+    def keep(lb, rows):
+        """Whether each box of bits lb (DONE: none) is visited against the
+        threshold of rows as it stands."""
+        lv = lb.astype(np.uint32).view(F32)
+        with np.errstate(invalid="ignore"):
+            near = (lv <= thr_d(rows)) if strict else (lv < thr_d(rows))
+        return (lb != DONE) & near
+
+    def bits(lb):
+        return lb.view(np.uint32).astype(np.int64)
+
+    sb0 = blk0 // tk.KNN_SUPER
+    every = np.arange(nq)
+    for t0 in range(0, nsup, 32):
+        t = t0 + lanes
+        sb = _spiral(np.minimum(t, nsup - 1)[None], sb0[:, None], nsup)
+        lbs = np.where(t[None] < nsup,
+                       bits(_box_lb_rows(slo[sb], shi[sb], q_xyz)), DONE)
+        for js in np.argsort(lbs, 1, kind="stable").T:
+            go = keep(lbs[every, js], every)
+            if not go.any():
+                break
+            rows = every[go]
+            blk = sb[rows, js[go]][:, None] * tk.KNN_SUPER + lanes
+            open_ = (blk < nblk) & (blk != fa[rows, None]) \
+                & (blk != fb[rows, None])
+            bc = np.minimum(blk, nblk - 1)
+            lbb = np.where(open_, bits(_box_lb_rows(blo[bc], bhi[bc],
+                                                    q_xyz[rows])), DONE)
+            for jb in np.argsort(lbb, 1, kind="stable").T:
+                on = keep(lbb[np.arange(len(rows)), jb], rows)
+                if not on.any():
+                    break
+                sub = rows[on]
+                vb = blk[np.arange(len(rows))[on], jb[on]]
+                keys, n = block_keys(vb, q_xyz[sub], NEVER)
+                keys = np.where(keys < best[sub, kout - 1, None], keys,
+                                NEVER)
+                best[sub] = np.sort(np.concatenate([best[sub], keys], 1),
+                                    1)[:, :64]
+                pairs += int(n.sum())
+    out = np.zeros((nq, kout), np.int64)
+    out[q_order] = (best[:, :kout] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return out, pairs
+
+
+def _box_lb_rows(lo, hi, q):
+    """[n, m] key_topk.cuh::box_lb of query row i to its boxes lo / hi
+    [n, m, 3], in float32."""
+    e = np.maximum(np.maximum(lo - q[:, None], q[:, None] - hi), F32(0.0))
+    return (e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1]) \
+        + e[..., 2] * e[..., 2]
+
+
 def _cloud(kind, n, rng):
     if kind == "random":
         return (rng.rand(n, 3) * 6).astype(F32)
@@ -139,17 +261,20 @@ def _cloud(kind, n, rng):
     raise ValueError(kind)
 
 
-def _twin_knn(s, q, k, self_search, strict=True, sort=True):
+def _twin_knn(s, q, k, self_search, strict=True, sort=True, lane=False):
     """The wrapper's inputs for [B, Ns, 3] / [B, Nq, 3] tensors (sorted, or
-    in their own order as for at most KNN_SORT_MIN support points), each
-    batch row through walk_twin: [B, Nq, k] and the pairs evaluated."""
+    in their own order as for at most KNN_SORT_MIN[K] support points), each
+    batch row through the twin of the kernel's walk at k (walk64_twin for
+    16 < k, walk_twin below; lane=True: walk_twin at any k): [B, Nq, k]
+    and the pairs evaluated."""
     groups, order, qx, qo, qp = tk.knn_sorted_inputs(s, q, self_search,
                                                      sort)
+    twin = walk64_twin if k > 16 and not lane else walk_twin
     outs, pairs = [], 0
     for bi in range(s.shape[0]):
-        o, p = walk_twin(groups[bi].numpy(), order[bi].numpy(),
-                         qx[bi].numpy(), qo[bi].numpy(), qp[bi].numpy(),
-                         s.shape[1], k, strict)
+        o, p = twin(groups[bi].numpy(), order[bi].numpy(),
+                    qx[bi].numpy(), qo[bi].numpy(), qp[bi].numpy(),
+                    s.shape[1], k, strict)
         outs.append(o)
         pairs += p
     return np.stack(outs), pairs
@@ -168,10 +293,10 @@ def test_k6_walk_twin_equals_plain(kind, k, ns, nq, self_search, sort):
     """The walk over the sorted clouds (or the clouds in their own order),
     keyed on the original index and written back by the original query
     row, equals _knn_tiled_plain index for index, ties included, at the
-    widths K = 1, 16 and (for k = 46, the partition's) 64; on random
-    sorted clouds it evaluates a fraction of the pairs for k <= 16 (at
-    k = 46 a query's neighbourhood is a large part of these small
-    clouds)."""
+    widths K = 1, 16 (the lane-per-query walk) and, for k = 46, the
+    partition's, 64 (the warp-per-query walk); on random sorted clouds it
+    evaluates a fraction of the pairs for k <= 16 (at k = 46 a query's
+    neighbourhood is a large part of these small clouds)."""
     rng = np.random.RandomState(ns + nq + k)
     b = 2
     s = torch.from_numpy(np.stack([_cloud(kind, ns, rng) for _ in range(b)]))
@@ -227,6 +352,57 @@ def test_k6_walk_twin_fewer_support_than_k(ns, nq, sort):
     got, pairs = _twin_knn(s, q, 16, False, sort=sort)
     np.testing.assert_array_equal(got, want)
     assert (got[..., ns:] == 0).all() and pairs == 2 * ns * nq
+
+
+@pytest.mark.parametrize("k", [17, 46, 64])
+@pytest.mark.parametrize("ns", [33, 63, 64, 65, 96])
+def test_k6_walk64_twin_around_the_fill(ns, k):
+    """The K = 64 walk where its two-block fill holds every support point
+    (Ns <= 64: Ns < k among them, the slots past Ns index 0) or all but a
+    few (65, 96: the walk visits what the fill left), a self-search and
+    an upsample-shaped search on each route's inputs, equal to the plain
+    version."""
+    rng = np.random.RandomState(ns + k)
+    s = torch.from_numpy(rng.randn(2, ns, 3).astype(F32))
+    q = torch.from_numpy(rng.randn(2, 70, 3).astype(F32))
+    for sup, qry, self_search in ((s, s, True), (s, q, False)):
+        want = tk._knn_tiled_plain(sup, qry, k).numpy()
+        for sort in (False, True):
+            got, pairs = _twin_knn(sup, qry, k, self_search, sort=sort)
+            np.testing.assert_array_equal(got, want)
+            assert pairs <= 2 * ns * qry.shape[1]
+        if ns < k:
+            assert (got[..., ns:] == 0).all()
+
+
+def test_k6_walk64_twin_strict_skip_keeps_ties():
+    """At k = 46 on a coarse grid the least d² to a box often equals the
+    list's kout-th d² while the box holds a candidate at that d² with a
+    lower index: the warp walk's strict skip keeps the box and equals the
+    plain version, a skip on equality loses the candidate."""
+    rng = np.random.RandomState(3)
+    s = torch.from_numpy(np.stack([_cloud("grid", 1500, rng)]))
+    want = tk._knn_tiled_plain(s, s, 46).numpy()
+    got, _ = _twin_knn(s, s, 46, True)
+    np.testing.assert_array_equal(got, want)
+    loose, _ = _twin_knn(s, s, 46, True, strict=False)
+    assert (loose != want).any()
+
+
+def test_k6_walk64_twin_evaluates_fewer_pairs():
+    """On a random 4096-point cloud at k = 46 the warp-per-query walk
+    (pruned at the 46th key, each query's own boxes, a 64-candidate fill)
+    evaluates fewer pairs than the lane-per-query walk at K = 64 it
+    replaced (pruned at the 64th key, boxes kept for any of 32 queries),
+    both equal to the plain version."""
+    rng = np.random.RandomState(12)
+    s = torch.from_numpy((rng.rand(1, 4096, 3) * 6).astype(F32))
+    want = tk._knn_tiled_plain(s, s, 46).numpy()
+    new, new_pairs = _twin_knn(s, s, 46, True)
+    old, old_pairs = _twin_knn(s, s, 46, True, lane=True)
+    np.testing.assert_array_equal(new, want)
+    np.testing.assert_array_equal(old, want)
+    assert new_pairs < 0.6 * old_pairs, (new_pairs, old_pairs)
 
 
 def test_k6_sorted_inputs_keep_rows():
