@@ -1,6 +1,7 @@
 """Smoke run of ssdr_al_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version at the main path's shapes
 (K1, its centred-product form K5 and K2 at every call of one forward,
+K1 and K5 also at every call of the flagship's [2 × 40960] forward,
 both K2 sources, K6 at every call of one exact pyramid, tie-heavy inputs,
 K4 at every call of one train step, bitwise, with its transposes, each
 at S3DIS, Semantic3D [4 × 65536] and SemanticKITTI [6 × 45056] width,
@@ -386,6 +387,17 @@ def check_kernels(cfg, dev):
               f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
     out["window_topk"]["window_og"] = og
+    # K1 and K5 at every K1 call of the flagship's [2 x 40960] forward
+    flag = []
+    for call in measure.record_main_path(cfg, dev, b=2)[0]:
+        r = measure.check_k1(call)
+        r5 = measure.check_k1(call, mxu=True)
+        flag.append(dict(r, k5_ms=r5["ms"]))
+        print(f"K1 window_topk flagship {r['shape']}: equal, {r['ms']:.4f} "
+              f"ms (plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} "
+              f"ms); K5 equal, {r5['ms']:.4f} ms")
+    print(measure.k1_forward_line("[2 x 40960]", flag))
+    out["window_topk"]["shapes_flagship"] = flag
 
     # K5: K1 with the centred-product distance and its own block skip, at
     # every K1 call of the three forwards (measure.check_main_path); the

@@ -46,6 +46,11 @@ SIGNATURES = {
     # split, queries per CTA, threads, self-search, shared bytes, stream
     "window_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _P],
+    # support, queries, starts, out, B, ns, nq, window, k, tq, split,
+    # queries per CTA, threads, self-search, shared bytes, counters, cut,
+    # stream (K1's counter build)
+    "window_topk_stats_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _P, _I, _P],
     # support, query, bounds, support codes, query codes, B, ns, nq,
     # self-search, stream
     "knn_codes_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

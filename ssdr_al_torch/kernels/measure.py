@@ -3,7 +3,7 @@ make.
 
     python3 ssdr_al_torch/kernels/measure.py [--tree DIR] [--out PATH]
         [--dataset S3DIS|Semantic3D|SemanticKITTI]
-        [--k4-only | --k4-routes | --k6-only]
+        [--k1-only | --k4-only | --k4-routes | --k6-only]
 
 One eval-mode forward of RandLA-Net at ConfigS3DIS width (B=8 × 40960,
 `window` engine, weights and cloud drawn from a seed; with `--dataset
@@ -61,6 +61,13 @@ bf16 at S3DIS width and at the flagship's batch) on each of its routes
 (`k4_routes`: the single-use path, a transpose of the call's own on the
 batch and on the tile plan, the sum pass alone), two turns each, for the
 margins of the wrapper's choices.
+`--k1-only` runs only K1 and K5 at every K1 call of one forward at [8,
+6 and 2 × 40960] (the eval step, the S3DIS train step's batch and the
+flagship's; with `--dataset`, that dataset's batch), each beside its
+plain version and bound, and K1's counter build (ops/knn.py::
+window_topk_stats) at each: its counters a warp beside the numpy twin's
+(kernels/k1_twin.py) on sampled tiles, equal where the twin walks every
+tile, and its time whole, after the staging only and after the fill.
 `--k6-only` runs only the K6 calls, and the partition's (`partition_call`:
 the k = 46 self-search over one prepared S3DIS-sized room, K6's K = 64
 instantiation) over random subsets of that room (46, 700, 3000, 6000,
@@ -827,6 +834,105 @@ def check_k1(call, mxu=False, reps=20, plain_reps=3):
     return out
 
 
+def k1_counters(call, twin_tiles=8, every_tile=24, reps=20):
+    """K1's counter build (ops/knn.py::window_topk_stats) at one recorded
+    call: equal to the plain version; its counters a warp (and a query for
+    the keys) beside the numpy twin's of the same walk
+    (kernels/k1_twin.py, "new") on `twin_tiles` tiles drawn from a seed
+    (every tile where the call has at most `every_tile`, and then the
+    counters they differ in are returned); the counter build's time
+    whole, cut after
+    the staging and cut after the fill, and the parent design's counters
+    by the twin on the same tiles. None where the tree has no counter
+    build."""
+    from ssdr_al_torch.ops import knn as kn
+
+    if not hasattr(kn, "window_topk_stats"):
+        return None
+    from ssdr_al_torch.kernels import k1_twin
+
+    s, q, st = call["support"], call["queries"], call["starts"]
+    k, w, tq = call["k"], call["window"], call["tq"]
+    b, nq = q.shape[:2]
+    got, chip = kn.window_topk_stats(s, q, st, k, w, tq)
+    if not torch.equal(got, kn._window_topk_plain(s, q, st, k, w, tq)):
+        raise AssertionError("K1's counter build differs from the plain "
+                             "version")
+    nt = nq // tq
+    rng = np.random.RandomState(1)
+    pick = rng.choice(b * nt, b * nt if b * nt <= every_tile
+                      else twin_tiles, replace=False)
+    tiles = np.stack([pick // nt, pick % nt], 1)
+    plan = kn.window_topk_plan(b, nq, w, tq)
+    host = [x.cpu().numpy() for x in (s, q, st)]
+    twin = {pol: k1_twin.walk(*host[:2], host[2].astype(np.int64), k, w, tq,
+                              plan, call["self"], pol, tiles)[1]
+            for pol in ("new", "parent")}
+    # where the twin walked every tile: the counters it differs in
+    diff = None if len(tiles) < b * nt else {
+        n: (chip[n], twin["new"][n]) for n in kn.K1_STATS
+        if chip[n] != twin["new"][n]}
+
+    def per(c, queries):
+        return {n: c[n] / (queries if n.startswith("keys") else c["warps"])
+                for n in kn.K1_STATS if n != "warps"}
+
+    times = {f"cut{cut}_ms": device_ms(
+        lambda cut=cut: kn.window_topk_stats(s, q, st, k, w, tq, cut,
+                                             read=False), reps)
+        for cut in (0, 1, 2)}
+    return dict(chip=per(chip, b * nq),
+                twin=per(twin["new"], twin["new"]["queries"]),
+                twin_parent=per(twin["parent"], twin["parent"]["queries"]),
+                twin_differs=diff,
+                twin_lone_blocks=twin["new"]["lone_blocks"]
+                / twin["new"]["queries"],
+                twin_tiles=len(tiles), chip_totals=chip, **times)
+
+
+def k1_forward_line(name, rows, key="ms"):
+    return (f"K1 over the {len(rows)} calls of one {name} forward: "
+            f"{sum(r[key] for r in rows):.4f} ms (bound "
+            f"{sum(r['bound_ms'] for r in rows):.4f} ms)")
+
+
+def check_k1_only(cfg, dev, batches, log=print):
+    """K1 and K5 at every K1 call of one eval-mode forward [b ×
+    cfg.num_points] for each b: equal to their plain versions, timed
+    beside the plain version and the bound, with the counter build's
+    figures (k1_counters) where the tree has it; then each forward's K1
+    and K5 totals."""
+    out = {}
+    for b in batches:
+        k1_calls, _ = record_main_path(cfg, dev, b=b)
+        rows = []
+        for call in k1_calls:
+            r = check_k1(call)
+            r5 = check_k1(call, mxu=True)
+            r.update(k5_ms=r5["ms"], k5_plain_ms=r5["plain_ms"],
+                     counters=k1_counters(call))
+            rows.append(r)
+            c = r["counters"]
+            cl = "" if c is None else (
+                f"; counter build {c['cut0_ms']:.4f} ms, staging only "
+                f"{c['cut1_ms']:.4f}, staging and fill {c['cut2_ms']:.4f}"
+                f"; a warp (twin on {c['twin_tiles']} tiles, parent's "
+                f"walk): " + ", ".join(
+                    f"{n} {c['chip'][n]:.2f} ({c['twin'][n]:.2f}, "
+                    f"{c['twin_parent'][n]:.2f})" for n in c["chip"])
+                + f", a lone query's blocks {c['twin_lone_blocks']:.2f}"
+                + ("" if c["twin_differs"] is None else
+                   f"; every tile: the twin differs in {c['twin_differs']}"))
+            log(f"K1 {cfg.name} {r['shape']}: equal, {r['ms']:.4f} ms "
+                f"(plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} "
+                f"ms by {r['bound_by']}, plan {r.get('plan')}); K5 equal, "
+                f"{r['k5_ms']:.4f} ms{cl}")
+        log(k1_forward_line(f"{cfg.name} [{b} x {cfg.num_points}]", rows)
+            + f"; K5 {sum(r['k5_ms'] for r in rows):.4f} ms")
+        out[f"{cfg.name} b={b}"] = rows
+    return out
+
+
 def knn_window_calls(dev, b=6, n=40960, seed=0):
     """The knn_window calls of the smoke's phase on b synthetic rooms of n
     points (data/synthetic.py::make_room): the self-search at k = 16,
@@ -1258,6 +1364,11 @@ def main() -> int:
                          "call of one f32 train step of each dataset's "
                          "width, and of one bf16 step at S3DIS width and "
                          "at the flagship's batch, two turns each")
+    ap.add_argument("--k1-only", action="store_true",
+                    help="only K1 and K5 at every K1 call of one forward "
+                         "[8, 6 and 2 x 40960] (at the dataset's batch "
+                         "for Semantic3D and SemanticKITTI) with the "
+                         "counter build's figures beside the twin's")
     ap.add_argument("--k6-only", action="store_true",
                     help="only K6 at every call of one exact pyramid and "
                          "at the partition's call (k = 46) over subsets of "
@@ -1316,6 +1427,12 @@ def main() -> int:
                 if not r["bitwise"]:
                     raise AssertionError(f"K4 {r['shape']}: a route is not "
                                          "bitwise equal to the plain version")
+        res["calls"] = None
+    elif args.k1_only:
+        cfg = config.get_config(args.dataset)
+        res = {"k1": check_k1_only(
+            cfg, dev, (8, 6, 2) if args.dataset == "S3DIS"
+            else (cfg.batch_size,))}
         res["calls"] = None
     elif args.k6_only:
         cfg = config.get_config(args.dataset)

@@ -589,12 +589,14 @@ def window_topk_smem(window: int, k: int, split: int, threads: int,
                      mxu: bool) -> int:
     """Dynamic shared memory of a K1/K5 launch, in bytes: the window padded
     to groups of 4·split candidates, 3 floats each (K5: 4, with |s'|²), the
-    32-byte box of each block of 8 such groups, and for k > 1 TOPK_BUF
-    keys of 8 bytes a thread. Above SMEM_DEFAULT the launch sets the
-    opt-in attribute (the kernel has no static shared memory)."""
+    32-byte box of each block of 8 such groups (two sub-boxes a block at
+    split 8, reduced over a warp each), and for k > 1 TOPK_BUF keys of 8
+    bytes a thread. Above SMEM_DEFAULT the launch sets the opt-in
+    attribute (the kernel has no static shared memory)."""
     wpad = _round_up(window, 4 * split)
     nblk = -(-(wpad // (4 * split)) // 8)
-    return wpad * (4 if mxu else 3) * 4 + nblk * 32 \
+    boxes = nblk * (2 if split == 8 else 1)
+    return wpad * (4 if mxu else 3) * 4 + boxes * 32 \
         + (threads * TOPK_BUF * 8 if k > 1 else 0)
 
 
@@ -648,6 +650,45 @@ def window_topk(support: torch.Tensor, queries: torch.Tensor,
 
 window_topk.launches = 0
 window_topk.launches_mxu = 0
+
+# the counters of K1's counter build (window_topk_stats), in its order
+K1_STATS = ("box_tests", "blocks_visited", "warp_groups",
+            "warp_groups_passed", "keys_buffered", "keys_kept", "flushes",
+            "insert_rounds", "warps")
+
+
+def window_topk_stats(support: torch.Tensor, queries: torch.Tensor,
+                      starts: torch.Tensor, k: int, window: int,
+                      tq: int = QUERY_TILE, cut: int = 0,
+                      read: bool = True):
+    """K1's counter build on CUDA tensors, for measurement only (the main
+    path never launches it, and it counts in no launch count): window_topk's
+    result and {K1_STATS counter: its sum over the warps}, the box tests,
+    blocks visited and groups a warp visits or passes (in some lane), the
+    keys a lane buffers and keeps, a warp's flushes and insertion rounds
+    (kernels/k1_twin.py counts the same). cut 1 ends every CTA after the
+    staging of its window, 2 after the fill of its lists: their times
+    are the walk's share; nothing is written to `out` then. read=False
+    returns the counters as a tensor on the card, unread (a timed launch
+    must not wait for the host)."""
+    b, ns, _ = support.shape
+    nq = queries.shape[1]
+    if k not in KERNEL_K or queries.shape[0] != b or nq % tq or \
+            starts.shape != (b, nq // tq) or cut not in (0, 1, 2):
+        raise ValueError("window_topk_stats: bad arguments")
+    _kb.require_cuda("window_topk_stats", support, queries, starts)
+    split, qpc, threads = window_topk_plan(b, nq, window, tq)
+    out = torch.empty((b, nq, k), dtype=torch.int32, device=support.device)
+    stats = torch.zeros(len(K1_STATS), dtype=torch.int64,
+                        device=support.device)
+    err = _kb.library().window_topk_stats_launch(
+        support.data_ptr(), queries.data_ptr(), starts.data_ptr(),
+        out.data_ptr(), b, ns, nq, window, k, tq, split, qpc, threads,
+        int(support.data_ptr() == queries.data_ptr() and ns == nq),
+        window_topk_smem(window, k, split, threads, False), stats.data_ptr(),
+        cut, ctypes.c_void_p(_kb.stream_ptr(support.device)))
+    _kb.check(err, "window_topk_stats")
+    return out, dict(zip(K1_STATS, stats.tolist())) if read else stats
 
 
 @dataclasses.dataclass

@@ -106,6 +106,102 @@ def test_window_topk_mxu_matches_plain(dev, n, window, k):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.fixture(scope="module")
+def flagship_k1_calls(dev):
+    """The 5 K1 calls of one [2 × 40960] forward (the flagship's batch),
+    built as models/randlanet.py builds them (kernels/k1_twin.py)."""
+    from ssdr_al_torch.kernels import k1_twin
+
+    out = []
+    for name, s, q, st, k, w, self_ in k1_twin.pyramid_calls(2):
+        x = torch.from_numpy(s).to(dev)
+        out.append((name, x, x if self_ else torch.from_numpy(q).to(dev),
+                    torch.from_numpy(st).int().to(dev), k, w))
+    return out
+
+
+@pytest.mark.parametrize("i", range(5))
+@pytest.mark.parametrize("mxu", [False, True])
+def test_window_topk_flagship_calls_match_plain(dev, flagship_k1_calls, i,
+                                                mxu):
+    """K1 (and K5) at each of the 5 calls of a [2 × 40960] forward: equal
+    to the plain version index for index, one launch counted."""
+    name, s, q, st, k, w = flagship_k1_calls[i]
+    want = kn._window_topk_plain(s, q, st, k, w, kn.QUERY_TILE, mxu)
+    attr = "launches_mxu" if mxu else "launches"
+    before = getattr(kn.window_topk, attr)
+    got = kn.window_topk(s, q, st, k, w, mxu=mxu)
+    torch.cuda.synchronize()
+    assert getattr(kn.window_topk, attr) == before + 1, name
+    assert torch.equal(got, want), name
+
+
+def test_window_topk_counter_build_equals_twin(dev, flagship_k1_calls):
+    """K1's counter build at the [2 × 2560] L2 self-search (20 tiles, the
+    twin walks them all) and the L1 upsample: its result equals the plain
+    version, no launch is counted, and at L2 its counters equal the numpy
+    twin's (kernels/k1_twin.py, "new") exactly; cut 1 and 2 run."""
+    from ssdr_al_torch.kernels import k1_twin
+
+    for name, s, q, st, k, w in (flagship_k1_calls[4],
+                                 flagship_k1_calls[3]):
+        before = kn.window_topk.launches
+        got, chip = kn.window_topk_stats(s, q, st, k, w)
+        assert kn.window_topk.launches == before
+        assert torch.equal(got, kn._window_topk_plain(s, q, st, k, w,
+                                                      kn.QUERY_TILE)), name
+        for cut in (1, 2):
+            kn.window_topk_stats(s, q, st, k, w, cut=cut)
+        torch.cuda.synchronize()
+        if q.shape[1] == 2560:
+            plan = kn.window_topk_plan(2, 2560, w, kn.QUERY_TILE)
+            _, twin = k1_twin.walk(s.cpu().numpy(), q.cpu().numpy(),
+                                   st.cpu().numpy().astype(np.int64), k, w,
+                                   kn.QUERY_TILE, plan, True, "new")
+            assert {n: twin[n] for n in kn.K1_STATS} == chip
+
+
+_FIRST_K1 = """
+import numpy as np, torch
+from ssdr_al_torch.ops import knn as kn
+rng = np.random.RandomState(0)
+for b, n, w in ((2, 40960, 4096), (1, 4096, 4096)):
+    xyz = torch.from_numpy((rng.rand(b, n, 3) * 6).astype(np.float32))
+    lo, hi = xyz.amin(1, keepdim=True), xyz.amax(1, keepdim=True)
+    x = kn.sort_by_codes(kn.morton_codes(xyz, lo, hi), xyz)[2].cuda()
+    x = x.contiguous()
+    st = kn.self_query_starts(n, n, w, device=x.device).expand(b, -1)
+    st = st.contiguous()
+    split, qpc, threads = kn.window_topk_plan(b, n, w, kn.QUERY_TILE)
+    assert (split, threads) == ((1, 128) if b == 2 else (8, 64))
+    for mxu in (False, True):
+        smem = kn.window_topk_smem(w, 16, split, threads, mxu)
+        assert smem > kn.SMEM_DEFAULT or b == 1
+        got = kn.window_topk(x, x, st, 16, w, mxu=mxu)
+        want = kn._window_topk_plain(x, x, st, 16, w, kn.QUERY_TILE, mxu)
+        assert torch.equal(got, want), (b, n, w, mxu)
+print("ok")
+"""
+
+
+def test_window_topk_first_launch_at_its_largest(dev):
+    """K1's and K5's first launches in a fresh process (the opt-in
+    attribute persists once set) at the largest shared memory the main
+    paths plan, the `window_og` L0 self-search at W = 4096 at the
+    flagship's batch [2 × 40960] (77 824 bytes for K1, 94 208 for K5),
+    then at split 8 (a block's box united from two warps' sub-boxes)
+    [1 × 4096]: each equals its plain version."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FIRST_K1], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        out.stderr[-2000:]
+
+
 @pytest.mark.parametrize("b,ns,nq,k", [(2, 40960, 40960, 16),
                                        (2, 10240, 40960, 1),
                                        (1, 300, 130, 16), (1, 5, 40, 16)])

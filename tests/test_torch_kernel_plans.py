@@ -140,13 +140,20 @@ def test_k1_filter_and_box_bounds_are_safe():
     assert (lb > 0).mean() > 0.5                     # the bound does prune
 
 
+@pytest.mark.parametrize("b", [2, 4, 6, 8])
 @pytest.mark.parametrize("nq,window", K1_MAIN)
-def test_window_topk_plan_at_main_path_shapes(nq, window):
+def test_window_topk_plan_at_main_path_shapes(nq, window, b):
     """split threads per query, qpc queries per CTA, whole warps of at most
     TOPK_THREADS; the main path's grids get TOPK_MIN_WARPS warps and
-    TOPK_MIN_CTAS CTAs, or as close as the limits allow."""
-    b, tq = 8, tk.QUERY_TILE
+    TOPK_MIN_CTAS CTAs, or as close as the limits allow, at the eval
+    step's batch, the train steps' and the flagship's; the shared memory
+    of K1 and K5 at both widths within one CTA's 227 KB."""
+    tq = tk.QUERY_TILE
     split, qpc, threads = tk.window_topk_plan(b, nq, window, tq)
+    for k in tk.KERNEL_K:
+        for mxu in (False, True):
+            assert 0 < tk.window_topk_smem(window, k, split, threads,
+                                           mxu) <= tk.SMEM_LIMIT
     assert split in (1, 2, 4, 8) and 1 <= qpc <= tq
     assert threads % 32 == 0 and qpc * split <= threads <= tk.TOPK_THREADS
     parts = -(-tq // qpc)

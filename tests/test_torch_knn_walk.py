@@ -16,12 +16,18 @@
   in the block, far from the origin included.
 - The shared-memory arithmetic of both launches (knn_tiled_plan,
   window_topk_smem), which the launchers recompute and refuse on mismatch.
+- K1 (csrc/window_topk.cu): a numpy twin of its walk (kernels/k1_twin.py,
+  the redesign's and the parent's, and the candidates its counters
+  turned down) equals the plain version index for index on random and
+  tie-heavy clouds at the main path's windows, and the redesign's
+  bounded flushes run fewer insertion rounds than the parent's.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ssdr_al_torch.kernels import k1_twin
 from ssdr_al_torch.ops import knn as tk
 
 torch.set_num_threads(1)
@@ -603,15 +609,125 @@ def test_k6_shared_memory_plan_far_past_the_tables():
     (1792, 1, 256, False, 1792 * 12 + 56 * 32 + 256 * 24 * 8),
     (1792, 1, 256, True, 1792 * 16 + 56 * 32 + 256 * 24 * 8),
     (2560, 4, 128, True, 2560 * 16 + 20 * 32 + 128 * 24 * 8),
+    (2560, 8, 64, False, 2560 * 12 + 10 * 2 * 32 + 64 * 24 * 8),
     (4096, 1, 256, True, 4096 * 16 + 128 * 32 + 256 * 24 * 8),
     (100, 2, 64, False, 104 * 12 + 2 * 32 + 64 * 24 * 8),
 ])
 def test_window_topk_shared_memory(window, split, threads, mxu, want):
     """K1/K5's dynamic shared memory: the window padded to groups of
     4·split, 12 bytes a candidate (K5: 16, with |s'|²), a 32-byte box per
-    block of 8 groups of split (K5's holds its largest |s'|² too), 24
-    keys of 8 bytes a thread; all within one CTA's limit."""
+    block of 8 groups of split (K5's holds its largest |s'|² too; two
+    sub-boxes a block at split 8, each reduced over a warp), 24 keys of 8
+    bytes a thread; all within one CTA's limit."""
     got = tk.window_topk_smem(window, 16, split, threads, mxu)
     assert got == want and got <= tk.SMEM_LIMIT
     assert tk.window_topk_smem(window, 1, split, threads, mxu) == \
         want - threads * 24 * 8
+
+
+# ------------------------------------------------------------ K1's walk ---
+
+def _sorted_tie_cloud(kind, b, n, rng):
+    """[b, n, 3] curve-sorted clouds: random, every point four times, or
+    points on a coarse grid."""
+    x = np.stack([_cloud(kind, n, rng) for _ in range(b)])
+    xt = torch.from_numpy(x)
+    lo, hi = xt.amin(1, keepdim=True), xt.amax(1, keepdim=True)
+    return tk.sort_by_codes(tk.morton_codes(xt, lo, hi), xt)[2].contiguous()
+
+
+K1_WALKS = [
+    (4096, 1792, 16, 1),     # L0's window
+    (2048, 768, 16, 2),      # L1's
+    (2560, 2560, 16, 8),     # L2's (the whole layer), as at b = 2
+    (2048, 2048, 16, 4),
+    (4096, 1024, 16, 1),     # the upsamples' window, k = 16 too
+]
+
+
+@pytest.mark.parametrize("kind", ["random", "duplicates", "grid"])
+@pytest.mark.parametrize("policy", ["new", "parent"])
+@pytest.mark.parametrize("n,window,k,split", K1_WALKS)
+def test_k1_walk_twin_equals_plain(kind, policy, n, window, k, split):
+    """The twin of K1's walk (kernels/k1_twin.py), the redesign's and the
+    parent's, equals _window_topk_plain index for index on random and
+    tie-heavy sorted self-searches at the main path's windows, with the
+    starts clamped past the cloud's end; split lanes share their k-th
+    best."""
+    _k1_walk_case(kind, policy, n, window, k, split)
+
+
+@pytest.mark.parametrize("kind", ["random", "grid"])
+@pytest.mark.parametrize("policy", ["every_block", "supers",
+                                    "nearest_box", "own_fill"])
+@pytest.mark.parametrize("n,window,k,split", [K1_WALKS[0], K1_WALKS[2]])
+def test_k1_turned_down_walks_are_safe(kind, policy, n, window, k, split):
+    """The candidates the counters turned down keep the plain version's
+    indices too: their skip rules (a super-block's box past every lane's
+    k-th best; the least d² from the warp's query box, in sorted order,
+    past every lane's k-th best, which ends the chunk; each lane's own
+    fill, skipped later by that lane only) never drop a candidate of the
+    top-k nor take one twice, ties included."""
+    _k1_walk_case(kind, policy, n, window, k, split)
+
+
+def _k1_walk_case(kind, policy, n, window, k, split):
+    rng = np.random.RandomState(n + window + split)
+    xs = _sorted_tie_cloud(kind, 2, n, rng)
+    st = tk.self_query_starts(n, n, window).expand(2, -1).contiguous()
+    st[:, -1] = n                       # clamped to n - window
+    want = tk._window_topk_plain(xs, xs, st, k, window, tk.QUERY_TILE)
+    plan = (split, tk.QUERY_TILE // split, tk.QUERY_TILE)
+    x = xs.numpy()
+    got, c = k1_twin.walk(x, x, st.numpy().astype(np.int64), k, window,
+                          tk.QUERY_TILE, plan, True, policy)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert c["queries"] == 2 * n and c["keys_kept"] <= c["keys_buffered"]
+    assert c["blocks_visited"] <= c["box_tests"] or policy == "nearest_box"
+
+
+@pytest.mark.parametrize("kind", ["random", "grid"])
+@pytest.mark.parametrize("policy", ["new", "parent"])
+def test_k1_walk_twin_upsample_equals_plain(kind, policy):
+    """The 1-NN upsample (k = 1, W = 1024, starts from the kept ranks as
+    models/randlanet.py computes them; the walk starts at the nearest of
+    32 samples of the window): the twin equals the plain version."""
+    rng = np.random.RandomState(5)
+    n = 4096
+    xs = _sorted_tie_cloud(kind, 2, n, rng)
+    kept = torch.from_numpy(np.stack([rng.permutation(n) < n // 4
+                                      for _ in range(2)]))
+    sub = torch.stack([xs[i][kept[i]] for i in range(2)]).contiguous()
+    ranks = torch.cumsum(kept.int(), 1) - 1
+    centers = torch.arange(n // 256) * 256 + 128
+    st = torch.clamp(ranks[:, centers] - 512, 0, n // 4 - 1024)
+    st = ((st // 128) * 128).int().contiguous()
+    want = tk._window_topk_plain(sub, xs, st, 1, 1024, tk.QUERY_TILE)
+    got, c = k1_twin.walk(sub.numpy(), xs.numpy(),
+                          st.numpy().astype(np.int64), 1, 1024,
+                          tk.QUERY_TILE, (2, 128, 256), False, policy)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert c["flushes"] == 0 and c["keys_kept"] == c["keys_buffered"]
+
+
+@pytest.mark.parametrize("call", [0, 2, 4])
+def test_k1_twin_counts_at_the_main_path(call):
+    """At the L0, L1 and L2 self-searches of the flagship's [2 × 40960]
+    forward (sampled tiles) the redesign's walk, whose flushes run at
+    most 8 rounds of the lanes' newest keys, runs fewer insertion rounds
+    than the parent's, which inserted every lane's whole buffer, for the
+    same lists; and a lone query needs fewer blocks than a warp visits
+    (the union of its 32 queries)."""
+    name, s, q, st, k, w, self_ = k1_twin.pyramid_calls(2)[call]
+    assert "self" in name and k == 16
+    plan = tk.window_topk_plan(2, q.shape[1], w, tk.QUERY_TILE)
+    nt = q.shape[1] // tk.QUERY_TILE
+    tiles = [(0, 0), (0, nt // 2), (1, nt - 1)]
+    out, new = k1_twin.walk(s, q, st, k, w, tk.QUERY_TILE, plan, self_,
+                            "new", tiles)
+    ref, old = k1_twin.walk(s, q, st, k, w, tk.QUERY_TILE, plan, self_,
+                            "parent", tiles)
+    np.testing.assert_array_equal(out, ref)
+    assert new["insert_rounds"] < old["insert_rounds"]
+    assert new["lone_blocks"] / new["queries"] < \
+        new["blocks_visited"] / new["warps"]
