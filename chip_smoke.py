@@ -90,12 +90,13 @@ forward and the farthest-feature loop replayed, K3 held to its plain
 version on a block of the round's call and timed on the whole call,
 K2-bf16 on the round's first gather), the JAX package's flagship AL
 run cut in depth (flagship_phase: the twin scripts/flagship.py through
-cli.superpoint, cli.seed and cli.al_loop, 2 hard rooms of 60 000 points,
-cut-pursuit at reg_strength 0.03, rounds 1-4 of 8 bf16 steps on
-40 960-point blocks and 2 val steps, 150 clicks a round; the reserved
-bytes at round 4's end within 5 % of round 3's, the live CUDA graphs
-bounded, every mIoU finite, K3 held to its plain version at round 4's
-call), one warm
+cli.superpoint, cli.seed and cli.al_loop, 2 hard rooms of 40 000 points,
+cut-pursuit at reg_strength 0.03, rounds 1-3 of 8 bf16 steps on
+40 960-point blocks and 2 val steps, 150 clicks a round, trials 0 and 1
+of the default pool and trial 0 of the sorted-block control from one
+shared seed round; the reserved bytes at round 3's end within 5 % of
+round 2's, the live CUDA graphs bounded, every mIoU finite, K3 held to
+its plain version at the last round's call), one warm
 train step under
 utils/logging.py::device_trace (its Chrome trace under build/ must name
 K2's and K4's kernels), and the sampler ablation twin
@@ -118,8 +119,9 @@ cli.al_loop round on that cut-pursuit registry.
 Needs a CUDA device and nvcc; exits non-zero without them. Prints the
 card's name and power limit, the build time, each kernel's check, times
 and bound, the training and selection phases with their kernel launch
-counts, a JSON line of kernel results, and as its last line
-{"ok": true, "device": {...}}. Works under <repo>/build/ only.
+counts, each phase's seconds ({"phase_s": ...}), a JSON line of kernel
+results, and as its last line {"ok": true, "device": {...}}. Works under
+<repo>/build/ only.
 
 --profile adds, after the checked loop, the breakdown of warm selection
 rounds (wall clock and phase times unprofiled, device busy time and top
@@ -211,10 +213,12 @@ S3D_SCALE_CLOUDS, S3D_SCALE_POINTS, S3D_SCALE_BUDGET = 4, 1_000_000, 1500
 S3D_SCALE_TARGET_SP, S3D_SCALE_SEED_DIV = 2048, 40
 # the JAX package's flagship run (scripts/flagship.py; results/
 # record_round_flagship/: 6 rooms of 150 000 points, rounds 1-10 of 500
-# steps) cut in depth: 2 rooms of 60 000 points, rounds 1-4 of 8 steps
-# and 2 val steps at full width (bf16, 40 960-point blocks), 150 clicks
-FLAG_ROOMS, FLAG_POINTS, FLAG_ROUNDS = 2, 60_000, 4
+# steps) cut in depth: 2 rooms of 40 000 points, rounds 1-3 of 8 steps
+# and 2 val steps at full width (bf16, 40 960-point blocks), 150 clicks,
+# trials 0 and 1 and one trial of the sorted-block control
+FLAG_ROOMS, FLAG_POINTS, FLAG_ROUNDS = 2, 40_000, 3
 FLAG_STEPS, FLAG_VAL_STEPS, FLAG_CLICKS = 8, 2, 150
+FLAG_TRIALS, FLAG_SORTED_TRIALS = (0, 1), (0,)
 # the end-of-round reserved bytes may grow by this share from round 3 on
 FLAG_RESERVED_GROWTH = 0.05
 # warm steps a mode of each training path (step_times.py measures 20),
@@ -2152,15 +2156,19 @@ def flagship_phase(dev, work):
     FLAG_POINTS points (and a validation room), the cut-pursuit partition
     at reg_strength 0.03, the 1 % seed round and cli.al_loop's rounds
     2..FLAG_ROUNDS in one call, FLAG_STEPS bf16 steps on 40 960-point
-    blocks, FLAG_VAL_STEPS val steps and FLAG_CLICKS clicks a round. Fails
-    unless every round's mIoU and losses are finite, every AL round buys
+    blocks, FLAG_VAL_STEPS val steps and FLAG_CLICKS clicks a round, for
+    the trials FLAG_TRIALS of the default pool and FLAG_SORTED_TRIALS of
+    the sorted-block control. Fails unless the trials share the one seed
+    round (its record and its files, left as they were), every round's
+    mIoU and losses are finite, every AL round of every trial buys
     FLAG_CLICKS clicks, each round's steps replay their StepGraph, the
     live CUDA graphs stay within FORWARD_GRAPHS and one StepGraph, and
-    round FLAG_ROUNDS ends with at most FLAG_RESERVED_GROWTH more
-    reserved bytes than round FLAG_ROUNDS - 1; the partition and the
-    rounds must launch K6-k64, K1, K2-bf16, K4-bf16 and K3 (counted by
-    the twin from 0 in each). K3 is held to its plain version at the last
-    round's call. Returns ({"flagship": launches}, K3's check)."""
+    the first trial's round FLAG_ROUNDS ends with at most
+    FLAG_RESERVED_GROWTH more reserved bytes than its round
+    FLAG_ROUNDS - 1; the partition and the rounds must launch K6-k64, K1,
+    K2-bf16, K4-bf16 and K3 (counted by the twin from 0 in each). K3 is
+    held to its plain version at the last round's call. Returns
+    ({"flagship": launches}, K3's check)."""
     from ssdr_al_torch.active import region_graph as rg
     from ssdr_al_torch.kernels import measure
     from ssdr_al_torch.ops import chamfer as ch
@@ -2181,6 +2189,9 @@ def flagship_phase(dev, work):
                        str(FLAG_POINTS), "--rounds", str(FLAG_ROUNDS),
                        "--train_steps", str(FLAG_STEPS), "--val_steps",
                        str(FLAG_VAL_STEPS), "--clicks", str(FLAG_CLICKS),
+                       "--trials", ",".join(map(str, FLAG_TRIALS)),
+                       "--sorted_trials",
+                       ",".join(map(str, FLAG_SORTED_TRIALS)),
                        "--work", os.path.join(work, "flagship"), "--out",
                        os.path.join(work, "flagship_out")], log=recs.append)
     finally:
@@ -2198,21 +2209,35 @@ def flagship_phase(dev, work):
                      ("knn_tiled_k64", "window_topk", "gather_window_bf16",
                       "scatter_window_bf16", "chamfer_sums"))
     require_replayed("flagship", g0, FLAG_ROUNDS)
-    bad = [r["round"] for r in rounds
+    bad = [(r["arm"], r["trial"], r["round"]) for r in rounds
            if not (np.isfinite(r["miou"]) and np.isfinite(r["oa"])
                    and r["losses_finite"] and r["replays"] >= 1
                    and r["live_graphs"] <= FORWARD_GRAPHS + 1
                    and (r["round"] == 1
                         or r["stats"]["gcn_sp_num"] == FLAG_CLICKS))]
-    if [r["round"] for r in rounds] != list(range(1, FLAG_ROUNDS + 1)) or \
-            bad:
+    want = [(None, None, 1)] + [
+        (arm, t, r) for arm, ts in (("shuffled", FLAG_TRIALS),
+                                    ("sorted", FLAG_SORTED_TRIALS))
+        for t in ts for r in range(2, FLAG_ROUNDS + 1)]
+    if [(r["arm"], r["trial"], r["round"]) for r in rounds] != want or bad:
         raise AssertionError(f"flagship: rounds {bad} failed: {rounds}")
-    end = {r["round"]: r["end_reserved_bytes"] for r in rounds}
+    done = recs[-1]
+    logs = sorted(n for n in os.listdir(os.path.join(work, "flagship_out"))
+                  if n.endswith(".txt"))
+    if not done["seed_shared"] or len(logs) != 1 + len(FLAG_TRIALS) or \
+            sum("_seed_" in n for n in logs) != 1 or any(
+                c[0] != done["seed_miou"] for arm in done["curves"].values()
+                for c in arm.values()):
+        raise AssertionError(f"flagship: the trials do not share the seed "
+                             f"round: {logs}, {done}")
+    end = {r["round"]: r["end_reserved_bytes"] for r in rounds
+           if r["trial"] in (None, FLAG_TRIALS[0]) and r["arm"] != "sorted"}
     if end[FLAG_ROUNDS] > (1 + FLAG_RESERVED_GROWTH) * end[FLAG_ROUNDS - 1]:
         raise AssertionError(f"flagship: reserved bytes at the rounds' ends "
                              f"grew: {end}")
     for r in rounds:
-        print(f"flagship round {r['round']}: mIoU {r['miou']:.4f}, OA "
+        print(f"flagship {r['arm'] or 'seed'} trial {r['trial']} round "
+              f"{r['round']}: mIoU {r['miou']:.4f}, OA "
               f"{r['oa']:.4f}, wall {r['wall_s']:.2f} s (selection "
               f"{r['select_s']:.2f}, training {r['train_s']:.2f}, eval "
               f"{r['eval_s']:.2f}), warm step {r['warm_step_ms']:.3f} ms, "
@@ -2473,38 +2498,49 @@ def main() -> int:
 
     count_eval_graphs()
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    build.library()
-    print(f"kernel build (nvcc + load): {time.perf_counter() - t0:.2f} s")
+    phase_s = {}
+
+    def timed(name, fn, *fargs):
+        t = time.perf_counter()
+        try:
+            return fn(*fargs)
+        finally:
+            phase_s[name] = round(time.perf_counter() - t, 1)
+
+    timed("kernel_build", build.library)
+    print(f"kernel build (nvcc + load): {phase_s['kernel_build']:.2f} s")
     cfg = dataclasses.replace(ConfigS3DIS, max_epoch=TRAIN_EPOCHS,
                               train_steps=TRAIN_STEPS, val_steps=VAL_STEPS)
-    checks = check_kernels(cfg, dev)
-    check_upsample_windows(dev)
-    window_paths = knn_window_phase(dev)
+    checks = timed("check_kernels", check_kernels, cfg, dev)
+    timed("upsample_windows", check_upsample_windows, dev)
+    window_paths = timed("knn_window", knn_window_phase, dev)
 
     work = os.path.join(root, "build", "smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        paths, checks["knn_tiled_k64"] = partition_path(
-            dev, os.path.join(work, "partition"))
+        paths, checks["knn_tiled_k64"] = timed(
+            "partition", partition_path, dev, os.path.join(work, "partition"))
         paths.update(window_paths)
-        paths.update(al_loop(cfg, dev, work, args.profile))
-        paths.update(semantic3d_loop(dev, os.path.join(work, "semantic3d")))
-        warm_steps(dev, work)
-        paths.update(repeat_phase(dev, work))
-        paths.update(replay_phase(dev, work))
-        paths.update(eval_replay_phase(dev))
-        scale_paths, _ = selection_scale_phase(dev, work)
+        paths.update(timed("al_loop", al_loop, cfg, dev, work, args.profile))
+        paths.update(timed("semantic3d_loop", semantic3d_loop, dev,
+                           os.path.join(work, "semantic3d")))
+        timed("warm_steps", warm_steps, dev, work)
+        paths.update(timed("repeat", repeat_phase, dev, work))
+        paths.update(timed("replay", replay_phase, dev, work))
+        paths.update(timed("eval_replay", eval_replay_phase, dev))
+        scale_paths, _ = timed("selection_scale", selection_scale_phase, dev,
+                               work)
         paths.update(scale_paths)
-        s3d_paths, s3d_checks = semantic3d_scale_phase(dev, work)
+        s3d_paths, s3d_checks = timed("semantic3d_scale",
+                                      semantic3d_scale_phase, dev, work)
         paths.update(s3d_paths)
         for name, c in s3d_checks.items():
             checks[name]["semantic3d_scale"] = c
-        flag_paths, checks["chamfer_sums"]["flagship"] = flagship_phase(
-            dev, work)
+        flag_paths, checks["chamfer_sums"]["flagship"] = timed(
+            "flagship", flagship_phase, dev, work)
         paths.update(flag_paths)
-        paths.update(trace_phase(dev, root))
-        paths.update(ablation_phase(dev, work))
+        paths.update(timed("trace", trace_phase, dev, root))
+        paths.update(timed("ablation", ablation_phase, dev, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print("eval graphs of the smoke: " + json.dumps(EVAL_GRAPHS))
@@ -2532,6 +2568,7 @@ def main() -> int:
         raise AssertionError(f"the port imported {jax_side[:5]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s wall, the kernels' "
           "build included")
+    print(json.dumps({"phase_s": phase_s}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -74,9 +74,10 @@ def build_sampler_args(args) -> list:
 def run_al_loop(args, observe=None):
     """Rounds args.round..last of the loop; returns [(miou, oa)] a round.
     observe(event, info), for measurement (scripts/flagship.py), is
-    called with ("setup", {trainer, sampler}) before the first
-    round and with ("round", {round, stats, select_s, train_s, miou, oa})
-    after each round's training."""
+    called with ("setup", {trainer, sampler, pool}) before the first
+    round (pool: the device training pool, or None) and with ("round",
+    {round, stats, select_s, train_s, miou, oa}) after each round's
+    training."""
     return run_ranks(functools.partial(_run_al_loop, observe=observe), args)
 
 
@@ -132,7 +133,7 @@ def _run_al_loop(group, args, observe=None):
     last = args.rounds if args.rounds else exp.cfg.al_rounds[1]
 
     if observe is not None:
-        observe("setup", dict(trainer=trainer, sampler=sampler))
+        observe("setup", dict(trainer=trainer, sampler=sampler, pool=pool))
     results = []
     for r in range(args.round, last + 1):
         trainer.restore_model(r - 1)

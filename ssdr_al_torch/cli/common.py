@@ -245,17 +245,21 @@ def make_evaluator(exp: Experiment, group=None) -> Evaluator:
     return Evaluator(exp.cfg, exp.val_clouds, group=group)
 
 
+def record_name(args, sampler_args, suffix="") -> str:
+    """The file name of the run's record_round/ log."""
+    return (f"{args.dataset}_{args.test_area}_"
+            f"{sampler_args_str(sampler_args)}_{args.reg_strength}"
+            f"{suffix}.txt")
+
+
 def make_record_file(args, sampler_args, suffix="", group=None):
     """The record_round/ log of the run, appended to; None on the ranks
     other than 0."""
     if group is not None and not group.lead:
         return None
     os.makedirs("record_round", exist_ok=True)
-    path = os.path.join(
-        "record_round",
-        f"{args.dataset}_{args.test_area}_{sampler_args_str(sampler_args)}"
-        f"_{args.reg_strength}{suffix}.txt")
-    return open(path, "a")
+    return open(os.path.join("record_round", record_name(
+        args, sampler_args, suffix)), "a")
 
 
 def write_grid_superpoints(state: ALState, clouds, target_sp: int) -> dict:

@@ -68,6 +68,9 @@ plain version and bound, and K1's counter build (ops/knn.py::
 window_topk_stats) at each: its counters a warp beside the numpy twin's
 (kernels/k1_twin.py) on sampled tiles, equal where the twin walks every
 tile, and its time whole, after the staging only and after the fill.
+`--k2-only` runs only K2 (the f32 model's) and K2-bf16 (the bf16
+model's) at every K2 call of one forward at the flagship run's batch
+[2 × 40960], each checked and timed as above.
 `--k6-only` runs only the K6 calls, and the partition's (`partition_call`:
 the k = 46 self-search over one prepared S3DIS-sized room, K6's K = 64
 instantiation) over random subsets of that room (46, 700, 3000, 6000,
@@ -1369,6 +1372,10 @@ def main() -> int:
                          "[8, 6 and 2 x 40960] (at the dataset's batch "
                          "for Semantic3D and SemanticKITTI) with the "
                          "counter build's figures beside the twin's")
+    ap.add_argument("--k2-only", action="store_true",
+                    help="only K2 and K2-bf16 at every K2 call of one "
+                         "forward at the flagship's batch [2 x 40960] "
+                         "(S3DIS width), f32 and bf16 models")
     ap.add_argument("--k6-only", action="store_true",
                     help="only K6 at every call of one exact pyramid and "
                          "at the partition's call (k = 46) over subsets of "
@@ -1433,6 +1440,27 @@ def main() -> int:
         res = {"k1": check_k1_only(
             cfg, dev, (8, 6, 2) if args.dataset == "S3DIS"
             else (cfg.batch_size,))}
+        res["calls"] = None
+    elif args.k2_only:
+        import dataclasses
+
+        res = {}
+        for key, dt in (("gather_window", "float32"),
+                        ("gather_window_bf16", "bfloat16")):
+            cfg = dataclasses.replace(config.ConfigS3DIS, compute_dtype=dt)
+            rows = res[key] = [check_k2(call) for call in
+                               record_main_path(cfg, dev, b=2)[1]]
+            for r in rows:
+                print(f"K2 {r['shape']}: bitwise equal, {r['ms']:.4f} ms "
+                      f"(plain {r['plain_ms']:.3f}, torch.gather "
+                      f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                      f"{r['bound_by']})")
+            print(f"{key} over the forward [2 x 40960]: {len(rows)} calls "
+                  + ", ".join(f"{name} {sum(r[k] for r in rows):.4f} ms"
+                              for name, k in (
+                                  ("kernel", "ms"), ("plain", "plain_ms"),
+                                  ("torch.gather", "library_ms"),
+                                  ("bound", "bound_ms"))))
         res["calls"] = None
     elif args.k6_only:
         cfg = config.get_config(args.dataset)

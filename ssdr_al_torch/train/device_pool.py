@@ -17,7 +17,9 @@ steps then shuffle each block (`shuffle_blocks`), as the host pipeline
 does: the pyramid's subsample is the prefix of a block's rows
 (RandLA-Net's random downsampling), and the prefix of a block in
 distance order is its nearest points, a disk around the pick. The JAX
-pooled step feeds the sorted order to its pyramid (ROADMAP.md §3).
+pooled step feeds the sorted order to its pyramid (ROADMAP.md §3); a
+pool whose `blocks` is "sorted" feeds that order too, a control that
+only scripts/flagship.py sets.
 
 Layout: the clouds' rows concatenated, f32 xyz [T, 3] and f32 planes
 [T, 6] = [rgb, label, activation, pseudo label], with per-cloud row
@@ -37,6 +39,10 @@ import torch
 from ssdr_al_torch.data.cloud import Cloud
 from ssdr_al_torch.device import DEFAULT_DEVICE, resolve_device
 
+# the row order a pooled step feeds its pyramid: "shuffled" (the default,
+# the host pipeline's) or "sorted" (extract_blocks' distance order, the
+# JAX pooled step's)
+BLOCK_ORDERS = ("shuffled", "sorted")
 # the share of the card's free memory (torch.cuda.mem_get_info, read when
 # the pool is built) that the resident clouds and one step's extraction
 # temporaries may take; the rest is the model's
@@ -145,7 +151,10 @@ class DeviceTrainPool:
     centre point, N(0, noise_init/10) pick jitter, all from one
     RandomState(seed). `available` is False when the resident clouds and
     one step's extraction would take more than device_budget(device);
-    callers then keep the host pipeline."""
+    callers then keep the host pipeline. `blocks` (BLOCK_ORDERS) is the
+    row order the pooled steps made after it is set feed their pyramid."""
+
+    blocks = "shuffled"
 
     def __init__(self, clouds: List[Cloud], cfg, *,
                  pseudo_gt: Optional[Dict[str, np.ndarray]] = None,

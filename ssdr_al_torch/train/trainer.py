@@ -70,7 +70,7 @@ from ssdr_al_torch.models.randlanet import (
 )
 from ssdr_al_torch.ops import gather as gather_ops
 from ssdr_al_torch.ops import knn as knn_ops
-from ssdr_al_torch.train.device_pool import shuffle_blocks
+from ssdr_al_torch.train.device_pool import BLOCK_ORDERS, shuffle_blocks
 from ssdr_al_torch.train.flax_snapshot import load_flax_snapshot
 from ssdr_al_torch.train.graphs import ForwardGraphs, StepGraph
 from ssdr_al_torch.train.possibility_pool import (
@@ -298,7 +298,9 @@ def make_static_step(model: RandLANet, cfg: Config, weights: np.ndarray,
     _advance, which also counts the step); generator draws the dropout
     mask. The pooled blocks are extracted (extract_blocks) at the pool's
     static window (pool.window, as JAX's jitted step reads it) and
-    shuffled (shuffle_blocks), both drawing from the pool's generator; the
+    shuffled (shuffle_blocks), both drawing from the pool's generator, or
+    left in their distance order where pool.blocks is "sorted" when the
+    step is made (a graph captured from it keeps that order); the
     possibility path runs the B-block schedule (possibility_extract,
     augmented when pool.augment). On a sorted pyramid the loss is taken in
     morton-sorted row order, with pseudo, labels and activation permuted
@@ -324,11 +326,16 @@ def make_static_step(model: RandLANet, cfg: Config, weights: np.ndarray,
             return tuple(inputs[k] for k in HOST_INPUTS)
     elif path == "pool":
         inputs = StagedInputs(device, POOL_INPUTS)
+        if pool.blocks not in BLOCK_ORDERS:
+            raise ValueError(f"unknown block order {pool.blocks!r}; "
+                             f"options: {BLOCK_ORDERS}")
+        shuffled = pool.blocks == "shuffled"
 
         def blocks():
-            return shuffle_blocks(pool.extract(
-                inputs["cloud_ids"], inputs["picks"], group, pool.window),
-                pool.generator, group)
+            out = pool.extract(inputs["cloud_ids"], inputs["picks"], group,
+                               pool.window)
+            return shuffle_blocks(out, pool.generator, group) if shuffled \
+                else out
     else:
         def blocks():
             new_poss, *out = possibility_extract(

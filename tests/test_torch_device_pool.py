@@ -279,6 +279,53 @@ def test_shuffled_blocks_subsample_the_whole_block():
     assert (r_shuf[:, :quarter].amax(1) > 0.9 * r_shuf.amax(1)).all()
 
 
+def test_sorted_control_feeds_the_jax_pooled_steps_blocks(monkeypatch):
+    """A pool whose `blocks` is "sorted" (scripts/flagship.py's control)
+    feeds its step body the JAX pooled step's blocks: every plane equal
+    to jp.extract_blocks' (d², index) order on exact clouds. The default
+    pool feeds each block shuffled (a permutation of the same rows);
+    an unknown order is refused."""
+    arrays, pseudo = exact_clouds(12, [900, 1300, 700])
+    tc, jc = both(arrays)
+    want_pool = jp.DeviceTrainPool(jc, J_TINY, pseudo_gt=pseudo, seed=0)
+    fed = []
+
+    def body_maker(*args, **kwargs):
+        return lambda state, *blocks: fed.append(blocks)
+
+    monkeypatch.setattr(tt, "_make_step_body", body_maker)
+    for order in ("sorted", "shuffled"):
+        pool = DeviceTrainPool(tc, TINY, pseudo_gt=pseudo, seed=0,
+                               device="cpu")
+        if order == "sorted":
+            pool.blocks = "sorted"
+        inputs, step = tt.make_static_step(None, TINY, None, path="pool",
+                                           pool=pool, device="cpu")
+        ids, picks = want_pool.sample_indices(4)
+        inputs.stage({"cloud_ids": ids, "picks": picks})
+        step(None, None)
+        want = jax_extract(want_pool, ids, picks)
+        got = [x.numpy() for x in fed[-1][:5]]
+        if order == "sorted":
+            for name, g, w in zip(("xyz", "features", "labels",
+                                   "activation", "pseudo"), got, want):
+                assert g.shape == w.shape, name
+                np.testing.assert_array_equal(g, w, err_msg=name)
+            continue
+        assert not np.array_equal(got[0], want[0])
+        key = np.concatenate([got[1], got[2][..., None], got[3][..., None],
+                              got[4][..., None]], -1)
+        wkey = np.concatenate([want[1], want[2][..., None],
+                               want[3][..., None], want[4][..., None]], -1)
+        for b in range(4):
+            np.testing.assert_array_equal(
+                np.unique(key[b], axis=0), np.unique(wkey[b], axis=0))
+    pool.blocks = "unsorted"
+    with pytest.raises(ValueError):
+        tt.make_static_step(None, TINY, None, path="pool", pool=pool,
+                            device="cpu")
+
+
 def test_pooled_train_step_matches_jax(monkeypatch):
     """One pooled step from converted weights, dropout off, on the exact
     pyramid. The port's step trains on the pool's blocks (JAX's blocks:

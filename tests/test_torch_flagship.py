@@ -10,9 +10,13 @@ optimizer's lazy import of torch._dynamo used to keep the frames on its
 stack, and with them the first Trainer of a process and its eval graphs,
 alive); the StepGraph's step records and the process's live graphs
 (train/graphs.py::record_steps, live_graphs) through a CPU stand-in for a
-capture."""
+capture. With trials: two trials of the default pool and one of the
+sorted-block control share one partition and one seed round, each passes
+its index to cli.al_loop as --t, reads no other trial's files, and the
+control's pooled steps feed their blocks unshuffled."""
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -22,8 +26,10 @@ import sys
 import pytest
 import torch
 
+from ssdr_al_torch.cli import al_loop
 from ssdr_al_torch.scripts import flagship
 from ssdr_al_torch.train import graphs
+from ssdr_al_torch.train import trainer as tt
 
 torch.set_num_threads(1)
 
@@ -31,10 +37,10 @@ SSDR = "t0-sb-clsbal-gcn_fps-WetSU-NAIL-0.9-1-1-0"
 SMALL = ["--device", "cpu", "--rooms", "2", "--points", "3000", "--rounds",
          "3", "--train_steps", "2", "--val_steps", "1", "--clicks", "10",
          "--num_points", "512", "--compute_dtype", "float32"]
-ROUND_FIELDS = ("round", "wall_s", "select_s", "phase_times", "stats",
-                "train_s", "train_steps_s", "eval_s", "steps", "loss_first",
-                "loss_last", "losses_finite", "miou", "oa", "k3",
-                "live_graphs", "graph_pool_bytes")
+ROUND_FIELDS = ("round", "arm", "trial", "wall_s", "select_s",
+                "phase_times", "stats", "train_s", "train_steps_s", "eval_s",
+                "steps", "loss_first", "loss_last", "losses_finite", "miou",
+                "oa", "k3", "live_graphs", "graph_pool_bytes")
 CARD_FIELDS = ("warm_step_ms", "replays", "peak_bytes",
                "peak_reserved_bytes", "end_reserved_bytes",
                "end_allocated_bytes", "launches")
@@ -42,12 +48,39 @@ CARD_FIELDS = ("warm_step_ms", "replays", "peak_bytes",
 
 @pytest.fixture(scope="module")
 def twin(tmp_path_factory):
-    """(records, out dir, work dir) of the twin at the small size."""
+    """(records, out dir, work dir, live graphs) of the twin at the small
+    size; live graphs: those of the process before the twin ran (stand-ins
+    that other test files' captures left alive)."""
     root = tmp_path_factory.mktemp("flagship")
     work, out = str(root / "work"), str(root / "out")
     recs = []
+    gc.collect()
+    live = len(graphs.live_graphs())
     flagship.main(SMALL + ["--work", work, "--out", out], log=recs.append)
-    return recs, out, work
+    return recs, out, work, live
+
+
+@pytest.fixture(scope="module")
+def trials(tmp_path_factory):
+    """(records, out dir, work dir, shuffled steps) of the twin at the
+    small size with trials 0 and 1 of the default pool and trial 0 of the
+    sorted-block control; shuffled steps: the pooled steps that shuffled
+    their blocks."""
+    root = tmp_path_factory.mktemp("trials")
+    work, out = str(root / "work"), str(root / "out")
+    recs, shuffled = [], []
+    fn = tt.shuffle_blocks
+
+    def counted(*args, **kwargs):
+        shuffled.append(1)
+        return fn(*args, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tt, "shuffle_blocks", counted)
+        flagship.main(SMALL + ["--trials", "0,1", "--sorted_trials", "0",
+                               "--work", work, "--out", out],
+                      log=recs.append)
+    return recs, out, work, len(shuffled)
 
 
 def by_hand(root):
@@ -87,7 +120,7 @@ def _record_lines(directory):
 
 
 def test_twin_writes_what_the_cli_chain_writes(twin, tmp_path, monkeypatch):
-    _, out, work = twin
+    _, out, work, _ = twin
     monkeypatch.chdir(tmp_path)         # record_round/ goes to the cwd
     by_hand(str(tmp_path))
     reg = os.path.join("data", "S3DIS", "0.03")
@@ -113,7 +146,7 @@ def test_twin_writes_what_the_cli_chain_writes(twin, tmp_path, monkeypatch):
 
 
 def test_record_parses_as_the_jax_record(twin):
-    _, out, _ = twin
+    _, out, _, _ = twin
     jax = flagship.read_record(flagship.JAX_RECORD)
     assert sorted(jax) == list(range(11))
     assert jax[0]["total_sp_num"] == 29379 and jax[0]["seeding"] == 293
@@ -129,7 +162,7 @@ def test_record_parses_as_the_jax_record(twin):
 
 
 def test_round_records_have_their_fields(twin):
-    recs, out, _ = twin
+    recs, out, _, live = twin
     with open(os.path.join(out, "rounds.jsonl")) as f:
         assert [json.loads(line) for line in f] == json.loads(
             json.dumps(recs))
@@ -148,7 +181,7 @@ def test_round_records_have_their_fields(twin):
         assert set(ROUND_FIELDS) <= set(r), r["round"]
         assert not set(CARD_FIELDS) & set(r)       # the card's only
         assert r["steps"] == 2 and r["losses_finite"]
-        assert r["live_graphs"] == 0               # no graphs on the CPU
+        assert r["live_graphs"] == live            # no graphs on the CPU
     assert rounds[0]["phase_times"] == {} and rounds[0]["k3"] == {
         "calls": 0}
     for r in rounds[1:]:
@@ -159,7 +192,113 @@ def test_round_records_have_their_fields(twin):
     summary = open(os.path.join(out, "SUMMARY.md")).read()
     assert "| 10 | 0.8234 | - |" in summary and "Card: cpu." in summary
     assert recs[-1]["jax_miou"][-1] == 0.8234
-    assert recs[-1]["miou"] == [r["miou"] for r in rounds]
+    assert recs[-1]["curves"] == {"shuffled": {"0": [
+        r["miou"] for r in rounds]}}
+    assert recs[-1]["seed_shared"] and recs[-1]["seed_miou"] == \
+        rounds[0]["miou"]
+    assert [(r["arm"], r["trial"]) for r in rounds] == [
+        (None, None), ("shuffled", 0), ("shuffled", 0)]
+
+
+def _trial_files(work, trial):
+    """{path: file} of trial `trial`'s AL state and snapshots."""
+    reg = os.path.join(work, "data", "S3DIS", "0.03")
+    sampler = SSDR.replace("t0", f"t{trial}", 1)
+    return {os.path.join(top, k): v for top in ("sampling", "saver")
+            for k, v in _files(os.path.join(reg, top, sampler)).items()}
+
+
+def test_trials_share_the_partition_and_the_seed_round(trials):
+    recs, out, work, _ = trials
+    kinds = [r["event"] for r in recs]
+    assert kinds == ["flags", "partition"] + ["round"] * 7 + ["done"]
+    rounds = [(r["arm"], r["trial"], r["round"]) for r in recs
+              if r["event"] == "round"]
+    assert rounds == [(None, None, 1)] + [
+        (arm, t, r) for arm, t in (("shuffled", 0), ("shuffled", 1),
+                                   ("sorted", 0)) for r in (2, 3)]
+    done = recs[-1]
+    assert done["seed_shared"]
+    assert sorted(done["curves"]) == ["shuffled", "sorted"]
+    assert sorted(done["curves"]["shuffled"]) == ["0", "1"]
+    for arm in done["curves"].values():
+        for curve in arm.values():
+            assert len(curve) == 3 and curve[0] == done["seed_miou"]
+    seed_log = "S3DIS_5_seed_0.03.txt"
+    logs = [f"S3DIS_5_{SSDR.replace('t0', f't{t}', 1)}_0.03.txt"
+            for t in (0, 1)]
+    assert sorted(os.listdir(out)) == sorted(
+        [seed_log] + logs + ["SUMMARY.md", "rounds.jsonl", "sorted"])
+    assert os.listdir(os.path.join(out, "sorted")) == logs[:1]
+    reg = os.path.join("data", "S3DIS", "0.03")
+    for where, samplers in ((work, ["seed", SSDR, SSDR.replace("t0", "t1")]),
+                            (os.path.join(work, "sorted"), ["seed", SSDR])):
+        for top in ("sampling", "saver"):
+            assert sorted(os.listdir(os.path.join(where, reg, top))) == \
+                sorted(samplers)
+    # the control's copy holds the partition and the seed round as they
+    # were: its superpoints and seed files equal the shared ones
+    for sub in ("superpoint", os.path.join("sampling", "seed"),
+                os.path.join("saver", "seed")):
+        a, b = (_files(os.path.join(w, reg, sub))
+                for w in (work, os.path.join(work, "sorted")))
+        assert sorted(a) == sorted(b) and a
+        for name in a:
+            with open(a[name], "rb") as fa, open(b[name], "rb") as fb:
+                assert fa.read() == fb.read(), name
+    summary = open(os.path.join(out, "SUMMARY.md")).read()
+    for col in ("shuffled t0", "shuffled t1", "sorted t0",
+                "shuffled min / median / max", "sorted min / median / max"):
+        assert col in summary
+    assert summary.count("\n| 2 |") == 3        # three tables
+
+
+def test_trials_pass_their_index_as_t():
+    argv = flagship.command_lines(flagship.parser().parse_args(
+        ["--device", "cpu"]))["al_loop"]
+    for t in (0, 1, 7):
+        args = al_loop.parser().parse_args(flagship.trial_flags(argv, t))
+        assert args.t == t
+        assert al_loop.build_sampler_args(args) == [f"t{t}"] + \
+            flagship.SSDR_ARGS[1:]
+    assert flagship.parse_trials("0,1,2") == [0, 1, 2]
+    assert flagship.parse_trials("") == []
+    with pytest.raises(ValueError):
+        flagship.parse_trials("1,1")
+
+
+def test_a_trial_reads_no_other_trials_files(trials, tmp_path):
+    """Trial 1 run alone writes what trial 1 wrote after trial 0: the
+    same state files, snapshots and record lines."""
+    _, out, work, _ = trials
+    alone_work, alone_out = str(tmp_path / "work"), str(tmp_path / "out")
+    recs = []
+    flagship.main(SMALL + ["--trials", "1", "--work", alone_work, "--out",
+                           alone_out], log=recs.append)
+    mine, theirs = _trial_files(work, 1), _trial_files(alone_work, 1)
+    assert sorted(mine) == sorted(theirs) and mine
+    for name in mine:
+        if "snapshots" in name:
+            a, b = (torch.load(p[name], weights_only=True)
+                    for p in (mine, theirs))
+            assert all(torch.equal(a[k], b[k]) for k in a), name
+        else:
+            with open(mine[name], "rb") as fa, open(theirs[name], "rb") as fb:
+                assert fa.read() == fb.read(), name
+    log = f"S3DIS_5_{SSDR.replace('t0', 't1')}_0.03.txt"
+    assert _record_lines(out)[log] == _record_lines(alone_out)[log]
+
+
+def test_the_sorted_control_feeds_its_blocks_unshuffled(trials):
+    """Only the default pool's steps shuffle (2 trials x 2 rounds x 2
+    steps; the seed round trains on the host pipeline); the control's
+    first step, from the same snapshot and the same draws as trial 0's,
+    takes another loss."""
+    recs, _, _, shuffled = trials
+    assert shuffled == 2 * 2 * 2
+    first = {(r["arm"], r["trial"]): r["loss_first"] for r in recs
+             if r["event"] == "round" and r["round"] == 2}
+    assert first[("sorted", 0)] != first[("shuffled", 0)]
 
 
 def test_cpu_only_when_asked():

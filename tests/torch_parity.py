@@ -114,6 +114,60 @@ def flax_param_dict(params, batch_stats):
         _plain_dict(jax_to_numpy(batch_stats))).items()}
 
 
+def flax_from_params(state_dict) -> dict:
+    """The port's RandLANet state_dict → flax variables {"params",
+    "batch_stats"} of ssdr_al_tpu's RandLANet (numpy leaves): the inverse
+    of params_from_flax. Linear weights [out, in] become Dense kernels
+    [in, out]."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach")
+                        else v, np.float32) for k, v in state_dict.items()}
+
+    def dense(prefix, bias=True):
+        d = {"kernel": sd[prefix + "weight"].T.copy()}
+        if bias:
+            d["bias"] = sd[prefix + "bias"]
+        return d
+
+    def bn(prefix):
+        return ({"scale": sd[prefix + "weight"], "bias": sd[prefix + "bias"]},
+                {"mean": sd[prefix + "running_mean"],
+                 "var": sd[prefix + "running_var"]})
+
+    def shared(prefix):
+        p, bs = {"Dense_0": dense(prefix + "dense.")}, {}
+        if prefix + "bn.weight" in sd:
+            p["BatchNorm_0"], bs["BatchNorm_0"] = bn(prefix + "bn.")
+        return p, bs
+
+    def att(prefix):
+        mp, mbs = shared(prefix + "mlp.")
+        return ({"Dense_0": dense(prefix + "dense.", bias=False), "mlp": mp},
+                {"mlp": mbs})
+
+    params, stats = {"fc0": dense("fc0.")}, {}
+    params["fc0_bn"], stats["fc0_bn"] = bn("fc0_bn.")
+    i = 0
+    while f"encoder.{i}.mlp1.dense.weight" in sd:
+        pre, p, bs = f"encoder.{i}.", {"lfa": {}}, {"lfa": {}}
+        for name in ("mlp1", "mlp2", "shortcut"):
+            p[name], bs[name] = shared(pre + name + ".")
+        for name in ("mlp1", "mlp2"):
+            p["lfa"][name], bs["lfa"][name] = shared(pre + f"lfa.{name}.")
+        for name in ("att_pooling_1", "att_pooling_2"):
+            p["lfa"][name], bs["lfa"][name] = att(pre + f"lfa.{name}.")
+        params[f"encoder_{i}"], stats[f"encoder_{i}"] = p, bs
+        i += 1
+    j = 0
+    while f"decoder.{j}.dense.weight" in sd:
+        params[f"decoder_{j}"], stats[f"decoder_{j}"] = shared(
+            f"decoder.{j}.")
+        j += 1
+    for name in ("fc1", "fc2"):
+        params[name], stats[name] = shared(name + ".")
+    params["fc"] = dense("fc.")
+    return {"params": params, "batch_stats": stats}
+
+
 def jax_to_numpy(tree):
     return {k: jax_to_numpy(v) if hasattr(v, "items") else np.asarray(v)
             for k, v in tree.items()}
