@@ -215,10 +215,13 @@ S3D_SCALE_TARGET_SP, S3D_SCALE_SEED_DIV = 2048, 40
 # record_round_flagship/: 6 rooms of 150 000 points, rounds 1-10 of 500
 # steps) cut in depth: 2 rooms of 40 000 points, rounds 1-3 of 8 steps
 # and 2 val steps at full width (bf16, 40 960-point blocks), 150 clicks,
-# trials 0 and 1 and one trial of the sorted-block control
+# trials 0 and 1 and one trial of the sorted-block control; seed trials 0
+# and 1 of arm all (the seed round with its streams from s), each with
+# round 2
 FLAG_ROOMS, FLAG_POINTS, FLAG_ROUNDS = 2, 40_000, 3
 FLAG_STEPS, FLAG_VAL_STEPS, FLAG_CLICKS = 8, 2, 150
 FLAG_TRIALS, FLAG_SORTED_TRIALS = (0, 1), (0,)
+FLAG_SEED_TRIALS, FLAG_SEED_ROUNDS = (0, 1), 2
 # the end-of-round reserved bytes may grow by this share from round 3 on
 FLAG_RESERVED_GROWTH = 0.05
 # warm steps a mode of each training path (step_times.py measures 20),
@@ -2158,14 +2161,19 @@ def flagship_phase(dev, work):
     2..FLAG_ROUNDS in one call, FLAG_STEPS bf16 steps on 40 960-point
     blocks, FLAG_VAL_STEPS val steps and FLAG_CLICKS clicks a round, for
     the trials FLAG_TRIALS of the default pool and FLAG_SORTED_TRIALS of
-    the sorted-block control. Fails unless the trials share the one seed
+    the sorted-block control, then the seed trials FLAG_SEED_TRIALS of arm
+    all, each in its own copy of the partition, with rounds
+    2..FLAG_SEED_ROUNDS. Fails unless the trials share the one seed
     round (its record and its files, left as they were), every round's
     mIoU and losses are finite, every AL round of every trial buys
     FLAG_CLICKS clicks, each round's steps replay their StepGraph, the
     live CUDA graphs stay within FORWARD_GRAPHS and one StepGraph, and
     the first trial's round FLAG_ROUNDS ends with at most
     FLAG_RESERVED_GROWTH more reserved bytes than its round
-    FLAG_ROUNDS - 1; the partition and the rounds must launch K6-k64, K1,
+    FLAG_ROUNDS - 1; seed trial 0 writes the shared seed round's files,
+    seed trial 1 draws another seed set, and every seed trial leaves the
+    partition's files as they were and passes the rounds' checks above;
+    the partition and the rounds must launch K6-k64, K1,
     K2-bf16, K4-bf16 and K3 (counted by the twin from 0 in each). K3 is
     held to its plain version at the last round's call. Returns
     ({"flagship": launches}, K3's check)."""
@@ -2177,9 +2185,15 @@ def flagship_phase(dev, work):
 
     t_phase = time.perf_counter()
     recs, k3_calls, cd_fn = [], [], rg.chamfer_pairwise_blocks
+    # the trials' AL rounds run before the seed trials': K3 is held at the
+    # last trial's last round, as before the seed trials
+    main_calls, n_calls = (len(FLAG_TRIALS) + len(FLAG_SORTED_TRIALS)) * (
+        FLAG_ROUNDS - 1), [0]
 
     def rec_cd(points, mask):
-        k3_calls[:] = [(points.contiguous(), mask.contiguous())]
+        n_calls[0] += 1
+        if n_calls[0] <= main_calls:
+            k3_calls[:] = [(points.contiguous(), mask.contiguous())]
         return cd_fn(points, mask)
 
     g0 = dict(EVAL_GRAPHS)
@@ -2192,13 +2206,18 @@ def flagship_phase(dev, work):
                        "--trials", ",".join(map(str, FLAG_TRIALS)),
                        "--sorted_trials",
                        ",".join(map(str, FLAG_SORTED_TRIALS)),
+                       "--seed_trials", ",".join(map(str, FLAG_SEED_TRIALS)),
+                       "--seed_arms", "all", "--seed_rounds",
+                       str(FLAG_SEED_ROUNDS),
                        "--work", os.path.join(work, "flagship"), "--out",
                        os.path.join(work, "flagship_out")], log=recs.append)
     finally:
         rg.chamfer_pairwise_blocks = cd_fn
     for r in recs:
         print("flagship " + json.dumps(r))
-    rounds = [r for r in recs if r.get("event") == "round"]
+    every = [r for r in recs if r.get("event") == "round"]
+    rounds = [r for r in every if "seed_trial" not in r]
+    seeded = [r for r in every if "seed_trial" in r]
     part = next(r for r in recs if r.get("event") == "partition")
     launches = dict.fromkeys(read_counts(), 0)
     for r in [part] + rounds:
@@ -2209,7 +2228,7 @@ def flagship_phase(dev, work):
                      ("knn_tiled_k64", "window_topk", "gather_window_bf16",
                       "scatter_window_bf16", "chamfer_sums"))
     require_replayed("flagship", g0, FLAG_ROUNDS)
-    bad = [(r["arm"], r["trial"], r["round"]) for r in rounds
+    bad = [(r["arm"], r["trial"], r["round"]) for r in every
            if not (np.isfinite(r["miou"]) and np.isfinite(r["oa"])
                    and r["losses_finite"] and r["replays"] >= 1
                    and r["live_graphs"] <= FORWARD_GRAPHS + 1
@@ -2230,13 +2249,28 @@ def flagship_phase(dev, work):
                 for c in arm.values()):
         raise AssertionError(f"flagship: the trials do not share the seed "
                              f"round: {logs}, {done}")
+    runs = {r["seed_trial"]: r for r in recs
+            if r.get("event") == "seed_trial"}
+    seed_sets = {s: next(v for d, v in run["seed_files"].items()
+                         if d.endswith(os.path.join("sampling", "seed")))
+                 for s, run in runs.items()}
+    if [(r["arm"], r["seed_trial"], r["round"]) for r in seeded] != [
+            ("seed_all", s, r) for s in FLAG_SEED_TRIALS
+            for r in range(1, FLAG_SEED_ROUNDS + 1)] or \
+            sorted(runs) != sorted(FLAG_SEED_TRIALS) or \
+            not all(run["partition_shared"] for run in runs.values()) or \
+            done.get("seed_zero_shared") is not True or \
+            seed_sets[1] == seed_sets[0]:
+        raise AssertionError(f"flagship: the seed trials: {seeded}, "
+                             f"{list(runs.values())}, {done}")
     end = {r["round"]: r["end_reserved_bytes"] for r in rounds
            if r["trial"] in (None, FLAG_TRIALS[0]) and r["arm"] != "sorted"}
     if end[FLAG_ROUNDS] > (1 + FLAG_RESERVED_GROWTH) * end[FLAG_ROUNDS - 1]:
         raise AssertionError(f"flagship: reserved bytes at the rounds' ends "
                              f"grew: {end}")
-    for r in rounds:
-        print(f"flagship {r['arm'] or 'seed'} trial {r['trial']} round "
+    for r in every:
+        print(f"flagship {r['arm'] or 'seed'} trial "
+              f"{r.get('seed_trial', r['trial'])} round "
               f"{r['round']}: mIoU {r['miou']:.4f}, OA "
               f"{r['oa']:.4f}, wall {r['wall_s']:.2f} s (selection "
               f"{r['select_s']:.2f}, training {r['train_s']:.2f}, eval "

@@ -34,7 +34,9 @@ from ssdr_al_torch.cli.common import (
 def run_seed(args, observe=None):
     """The seed round; returns its (miou, oa). observe(event, info), for
     measurement (scripts/flagship.py), is called with ("setup",
-    {trainer, sampler}) before the labelling and with
+    {trainer, sampler}) before the labelling (the seed trials reseed the
+    sampler's `rng`, the trainer's `init_seed`, which also seeds the
+    round's training pipeline, and its `dropout_gen` there) and with
     ("round", {round: 1, stats, select_s, train_s, miou, oa}) after the
     training."""
     return run_ranks(functools.partial(_run_seed, observe=observe), args)
@@ -71,7 +73,8 @@ def _run_seed(group, args, observe=None):
     round_dir = state.round_dir(1)
     pipe = make_training_pipeline(
         exp, pseudo_gt=pseudo_gt_for_round(state, round_dir,
-                                           exp.train_clouds))
+                                           exp.train_clouds),
+        seed=trainer.init_seed)
     trainer.init_state(pipe.sample_batch(exp.cfg.batch_size))
     evaluate = make_evaluator(exp, group)
     miou, oa = trainer.train_round(

@@ -5,6 +5,8 @@ port's own entry points, recorded beside JAX's record.
         [--rounds 10] [--train_steps 500] [--val_steps 40] [--clicks 150] \
         [--num_points 40960] [--compute_dtype bfloat16] \
         [--trials 0,1,2] [--sorted_trials 0,1,2] \
+        [--seed_trials 0,1,...,7] [--seed_arms all,set,model] \
+        [--seed_rounds 3] \
         [--out results/record_round_flagship_torch] [--work build/flagship] \
         [--busy_round 0] [--device cuda|cpu]
 
@@ -37,6 +39,28 @@ changes the AL rounds only. The control's trials run in `--work`/sorted,
 a copy of the work directory made after the seed round, and write their
 logs to `--out`/sorted.
 
+Seed trials vary the seed round itself: its seed set (SeedSampler's
+`rng`), and its model's streams: the initial weights (Trainer.init_seed,
+which also seeds the seed round's training pipeline) and the dropout
+generator, reseeded through run_seed's `observe` callback at its setup;
+no CLI flag reaches them, as none does in the JAX package. Arm `all`
+draws all four from s for each s of `--seed_trials`; arm `set` only the
+seed set, arm `model` only the model's three streams (the others at 0),
+for each of those s in ARM_SEEDS, 1-3 (their s = 0 is `all`'s:
+`--seed_trials 0,...,7 --seed_arms all,set,model` runs all at 0-7, set
+and model at 1-3). A seed trial runs in its own copy of the work
+directory, `--work`/seed_<arm>/s<s>, made from a copy of the data root
+taken right after the partition, so that every seed trial shares the
+partition byte for byte: there it runs the seed round, then cli.al_loop
+--t 0 for rounds 2..`--seed_rounds` (al_loop's own streams fixed), and
+the copy is removed once its logs (copied to `--out`/seed_<arm>/s<s>)
+and its seed files' digests are read. Its round records carry arm
+"seed_<arm>", seed_trial s and the seed round's labelled regions and
+points; one {"event": "seed_trial"} record a seed trial gives its
+streams, whether it left the partition's files as they were, and the
+digests of its seed files. Seed trials run after the trials, from the
+same partition.
+
 Writes to `--out`: the CLI's record_round/ logs (the reference format,
 beside JAX's and never over them), rounds.jsonl and SUMMARY.md (every
 trial's mIoU and labelled points a region by round beside JAX's, each
@@ -49,10 +73,11 @@ kernel launches), one {"event": "round"} a round (round_record's fields,
 with its arm and trial; none for the seed round), on the card {"event":
 "k3"} (K3 timed at the last round's chamfer call against its bound) and
 {"event": "done"} (the curves, and whether the seed round's files were
-left as they were). `--busy_round R` runs round R of the first trial
-under torch.profiler, whose record then gains the device-busy share of
-the round. The default device is the card; the CPU only with --device
-cpu.
+left as they were; with seed trials also each seed trial's figures and
+whether `all`'s s = 0 wrote the shared seed round's files).
+`--busy_round R` runs round R of the first trial under torch.profiler,
+whose record then gains the device-busy share of the round. The default
+device is the card; the CPU only with --device cpu.
 """
 
 from __future__ import annotations
@@ -68,6 +93,7 @@ import shutil
 import statistics
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -82,10 +108,35 @@ SSDR_FLAGS = ["--sampler", "T", "--t", "0", "--point_uncertainty_mode", "sb",
               "--classbal", "2", "--gcn_fps", "1", "--uncertainty_mode",
               "WetSU", "--oracle_mode", "NAIL", "--threshold", "0.9",
               "--min_size", "1", "--gcn_number", "1", "--gcn_top", "0"]
+# a seed trial's arm → its (seed set's seed, model streams' seed) at s
+SEED_ARMS = {"all": lambda s: (s, s), "set": lambda s: (s, 0),
+             "model": lambda s: (0, s)}
+# the seeds of arms set and model (their s = 0 is all's)
+ARM_SEEDS = (1, 2, 3)
+
+
+def flag_value(argv: list, flag: str, value) -> list:
+    """argv with `flag value`."""
+    i = argv.index(flag)
+    return argv[:i + 1] + [str(value)] + argv[i + 2:]
+
+
 def trial_flags(argv: list, trial: int) -> list:
     """cli.al_loop's argv with `--t trial`."""
-    i = argv.index("--t")
-    return argv[:i + 1] + [str(trial)] + argv[i + 2:]
+    return flag_value(argv, "--t", trial)
+
+
+def seed_trial_plan(args) -> list:
+    """[(arm, s)] of the seed trials, in the order they run: `all` at
+    each s of --seed_trials, `set` and `model` at each of those in
+    ARM_SEEDS."""
+    seeds = parse_trials(args.seed_trials)
+    arms = [a for a in args.seed_arms.split(",") if a]
+    if not arms or set(arms) - set(SEED_ARMS) or len(set(arms)) != len(arms):
+        raise ValueError(f"seed arms {args.seed_arms!r}: distinct names of "
+                         f"{sorted(SEED_ARMS)}")
+    return [(arm, s) for arm in arms for s in seeds
+            if arm == "all" or s in ARM_SEEDS]
 
 
 def parse_trials(text: str) -> list:
@@ -163,7 +214,11 @@ class Recorder:
     """The `observe` callback of cli.seed and cli.al_loop: one record a
     round (round_record) tagged with `arm` and `trial`, passed to `emit`.
     At an entry point's setup it sets the device pool's block order to
-    `blocks` (device_pool.BLOCK_ORDERS; the seed round has no pool). On the card it resets
+    `blocks` (device_pool.BLOCK_ORDERS; the seed round has no pool), and
+    at a seed round's setup it reseeds its streams from `streams` (the
+    seed set's seed and the model's; None: left at 0), then clears it.
+    While `seed_trial` is set, each round record carries it and the seed
+    round's labelled regions and points. On the card it resets
     the peak memory statistics and the kernel launch counts at each
     round's start, records the StepGraph's step events, and runs round
     `busy_round` under torch.profiler."""
@@ -176,6 +231,7 @@ class Recorder:
         self.trainer = self.sampler = None
         self.arm = self.trial = None
         self.blocks = "shuffled"
+        self.streams = self.seed_trial = self.seed_labelled = None
         self.next_round = 1
         self.prof = None
         self.steps = []
@@ -206,6 +262,12 @@ class Recorder:
             elif self.blocks != "shuffled":
                 raise RuntimeError("the sorted-block control needs the "
                                    "device pool")
+            if self.streams is not None:
+                set_seed, model_seed = self.streams
+                self.streams = None
+                self.sampler.rng = np.random.RandomState(set_seed)
+                self.trainer.init_seed = model_seed
+                self.trainer.dropout_gen.manual_seed(model_seed)
         else:
             self.emit(self.round_record(info))
             self.next_round = info["round"] + 1
@@ -229,7 +291,8 @@ class Recorder:
         self.t0 = time.perf_counter()
 
     def round_record(self, info: dict) -> dict:
-        """{round, arm, trial, wall_s (from the last round's record to
+        """{round, arm, trial, [seed_trial, seed_regions, seed_points,]
+        wall_s (from the last round's record to
         this one: the restore, the selection, the training and its
         evaluation), select_s (the log's selection costTime), phase_times
         (TSampler's), stats
@@ -266,6 +329,14 @@ class Recorder:
                    losses_finite=all(math.isfinite(x) for x in losses),
                    miou=info["miou"], oa=info["oa"],
                    k3=k3_summary(self.k3_calls))
+        if self.seed_trial is not None:
+            if info["round"] == 1:
+                st = info["stats"]
+                self.seed_labelled = (max(st.sp_num + st.sub_num, 1),
+                                      st.p_num + st.sub_p_num)
+            rec.update(seed_trial=self.seed_trial,
+                       seed_regions=self.seed_labelled[0],
+                       seed_points=self.seed_labelled[1])
         if self.cuda:
             times = graphs.step_ms(self.steps)
             replays = [ms for kind, ms in times if kind == "replay"]
@@ -381,12 +452,12 @@ def _spread(values):
 
 
 def write_summary(path, curves: dict, jax: dict, partition: dict, rounds,
-                  card: str, argv: dict):
+                  card: str, argv: dict, seed_rows=None):
     """SUMMARY.md: every trial's mIoU and labelled points a region by
     round beside JAX's (read_record of each), with each round's min,
     median and max over an arm's trials; each trial's round walls and
     warm steps (the round records); the superpoint counts, the card and
-    the command lines."""
+    the command lines; with seed trials, seed_trial_lines."""
     cols = [(arm, t) for arm, ts in curves.items() for t in ts]
     last = max([1] + [r for c in curves.values() for v in c.values()
                       for r in v] + [r for r in jax if r])
@@ -435,8 +506,149 @@ def write_summary(path, curves: dict, jax: dict, partition: dict, rounds,
               "ssdr_al_torch.cli.<name>; cli.al_loop with --t <trial>, the "
               "sorted arm's in the work directory's copy sorted/):", ""]
     lines += [f"- {name}: `{' '.join(a)}`" for name, a in argv.items()]
+    if seed_rows:
+        lines += [""] + seed_trial_lines(seed_rows, jax)
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def run_seed_trial(args, arm: str, s: int, work: str, out: str,
+                   argv_of: dict, recorder: Recorder, emit, seed_dirs: list,
+                   sp_dir: str, sp_files: dict) -> dict:
+    """Seed trial s of `arm` in its own copy of the partition's data root,
+    `work`/seed_<arm>/s<s>: the seed round with the arm's streams at s,
+    then cli.al_loop --t 0 for rounds 2..args.seed_rounds. Its logs go to
+    `out`/seed_<arm>/s<s> and the copy is removed; returns (and emits)
+    {"event": "seed_trial", arm, seed_trial, set_seed, model_seed,
+    partition_shared (the partition's files as they were), seed_files
+    (digests of the seed round's state and snapshot)}."""
+    from ssdr_al_torch.cli import al_loop, seed
+
+    where = os.path.join(work, f"seed_{arm}", f"s{s}")
+    shutil.copytree(os.path.join(work, "partition", "data"),
+                    os.path.join(where, "data"))
+    set_seed, model_seed = SEED_ARMS[arm](s)
+    recorder.arm, recorder.trial, recorder.seed_trial = f"seed_{arm}", \
+        None, s
+    recorder.streams = (set_seed, model_seed)
+    recorder.blocks = "shuffled"      # the default pool in rounds 2..
+    try:
+        with working_directory(where):
+            seed.run_seed(seed.parser().parse_args(argv_of["seed"]),
+                          observe=recorder)
+            recorder.release()
+            if args.seed_rounds >= 2:
+                recorder.trial = 0
+                al_loop.run_al_loop(al_loop.parser().parse_args(flag_value(
+                    trial_flags(argv_of["al_loop"], 0), "--rounds",
+                    args.seed_rounds)), observe=recorder)
+                recorder.release()
+                recorder.busy_round = 0
+            rec = dict(event="seed_trial", arm=arm, seed_trial=s,
+                       set_seed=set_seed, model_seed=model_seed,
+                       partition_shared=file_digests(sp_dir) == sp_files,
+                       seed_files={d: file_digests(d) for d in seed_dirs})
+    finally:
+        recorder.seed_trial = recorder.streams = None
+    dst = os.path.join(out, f"seed_{arm}", f"s{s}")
+    os.makedirs(dst)
+    src = os.path.join(where, "record_round")
+    for name in os.listdir(src):
+        shutil.copy(os.path.join(src, name), dst)
+    shutil.rmtree(where)
+    emit(rec)
+    return rec
+
+
+def seed_figures(rec: dict, rounds) -> dict:
+    """{seed: {miou, oa, regions, points}, rounds: {"r": {points_a_region,
+    miou}}} of a read_record result, at each of `rounds`."""
+    one = rec.get(1, {})
+    return dict(seed=dict(miou=one.get("best_miou"), oa=one.get("best_OA"),
+                          regions=one.get("labeling_region_num"),
+                          points=one.get("labeling_point_num")),
+                rounds={str(r): dict(points_a_region=rec.get(r, {}).get(
+                    "labeling mean point"), miou=rec.get(r, {}).get(
+                    "best_miou")) for r in rounds})
+
+
+def seed_trial_results(out: str, runs: list, seed_files: dict) -> dict:
+    """{seed_trials: [{arm, seed_trial, partition_shared, **seed_figures}]
+    from each seed trial's logs, seed_zero_shared: whether arm all's s = 0
+    wrote the shared seed round's files (None: it did not run)}."""
+    rows = []
+    for run in runs:
+        rec = read_record(os.path.join(out, f"seed_{run['arm']}",
+                                       f"s{run['seed_trial']}"))
+        rows.append(dict(arm=run["arm"], seed_trial=run["seed_trial"],
+                         partition_shared=run["partition_shared"],
+                         **seed_figures(rec, sorted(r for r in rec
+                                                    if r >= 2))))
+    zero = [run["seed_files"] == seed_files for run in runs
+            if (run["arm"], run["seed_trial"]) == ("all", 0)]
+    return {"seed_trials": rows, "seed_zero_shared": zero[0] if zero
+            else None}
+
+
+def seed_trial_lines(rows: list, jax: dict) -> list:
+    """SUMMARY.md's section of the seed trials: a row a seed trial beside
+    JAX's, each arm's min / median / max (arms set and model with all's
+    s = 0, which is theirs too), and whether each of JAX's seed mIoU,
+    round-2 points a region and round-2 mIoU lies within arm all's
+    [min, max]."""
+    last = max([1] + [int(r) for row in rows for r in row["rounds"]])
+    cols = [("seed mIoU", lambda d: d["seed"]["miou"], "{:.4f}"),
+            ("seed OA", lambda d: d["seed"]["oa"], "{:.4f}"),
+            ("seed regions", lambda d: d["seed"]["regions"], "{:.0f}"),
+            ("seed points", lambda d: d["seed"]["points"], "{:.0f}")]
+    for r in range(2, last + 1):
+        cols += [(f"round {r} points a region",
+                  lambda d, r=r: d["rounds"].get(str(r), {}).get(
+                      "points_a_region"), "{:.1f}"),
+                 (f"round {r} mIoU", lambda d, r=r: d["rounds"].get(
+                     str(r), {}).get("miou"), "{:.4f}")]
+    jrow = seed_figures(jax, range(2, last + 1))
+    head = ["arm", "s"] + [c[0] for c in cols]
+    lines = ["## Seed trials", "",
+             "Each seed trial runs the seed round in its own copy of the "
+             "one partition, its streams drawn from s (all: the seed set, "
+             "the initial weights, dropout and the seed round's pipeline; "
+             "set: the seed set only; model: the other three only; the "
+             "rest at 0), then cli.al_loop --t 0 (al_loop's own streams "
+             "fixed). Arms set and model share all's s = 0, which their "
+             "spreads include.", "",
+             "| " + " | ".join(head) + " |", "|" + " --- |" * len(head),
+             "| JAX | - | " + " | ".join(_fmt(k(jrow), f) for _, k, f in
+                                         cols) + " |"]
+    for row in rows:
+        lines.append(f"| {row['arm']} | {row['seed_trial']} | " + " | ".join(
+            _fmt(k(row), f) for _, k, f in cols) + " |")
+    zero = [row for row in rows if (row["arm"], row["seed_trial"]) ==
+            ("all", 0)]
+    arms = {}
+    for row in rows:
+        arms.setdefault(row["arm"], []).append(row)
+    for arm, members in arms.items():
+        if arm != "all":
+            members = zero + members
+        lines.append(f"| {arm} min / median / max | - | " + " | ".join(
+            _spread([k(m) for m in members]) for _, k, _ in cols) + " |")
+    every = arms.get("all", [])
+    if every:
+        lines += ["", "JAX's figure within arm all's [min, max] over its "
+                  f"{len(every)} seed trials:"]
+        # the decision's figures: the seed mIoU, round 2's points a
+        # region and mIoU
+        for name, key, _ in [cols[0]] + cols[4:6]:
+            v = [key(m) for m in every if key(m) is not None]
+            want = key(jrow)
+            inside = bool(v) and want is not None and \
+                min(v) <= want <= max(v)
+            lines.append(f"- {name} {_fmt(want, '{:g}')}: "
+                         f"{'inside' if inside else 'outside'} "
+                         f"[{_fmt(min(v, default=None), '{:g}')}, "
+                         f"{_fmt(max(v, default=None), '{:g}')}]")
+    return lines + [""]
 
 
 def card_line() -> str:
@@ -470,6 +682,17 @@ def parser():
     p.add_argument("--sorted_trials", default="",
                    help="comma-separated trials of the sorted-block "
                         "control (the JAX pooled step's block order)")
+    p.add_argument("--seed_trials", default="",
+                   help="comma-separated seeds s of the seed round's "
+                        "trials: arm all at each, set and model at those "
+                        "in 1-3 (each in its own copy of the partition, "
+                        "then cli.al_loop --t 0)")
+    p.add_argument("--seed_arms", default="all",
+                   help="comma-separated of all (every stream from s), "
+                        "set (the seed set) and model (the initial "
+                        "weights, dropout and the pipeline)")
+    p.add_argument("--seed_rounds", type=int, default=3,
+                   help="a seed trial's last round")
     p.add_argument("--out", default=os.path.join(
         REPO, "results", "record_round_flagship_torch"))
     p.add_argument("--work", default=os.path.join(REPO, "build", "flagship"),
@@ -504,10 +727,12 @@ def main(argv=None, log=None) -> list:
     trials = {arm: ts for arm, ts in (
         ("shuffled", parse_trials(args.trials)),
         ("sorted", parse_trials(args.sorted_trials))) if ts}
+    plan = seed_trial_plan(args)
     if args.rounds < 2:
         trials = {}
-    elif not trials:
-        raise ValueError("no trial to run: give --trials or --sorted_trials")
+    elif not trials and not plan:
+        raise ValueError("no trial to run: give --trials, --sorted_trials "
+                         "or --seed_trials")
     dev = resolve_device(args.device)
     records = []
 
@@ -529,9 +754,12 @@ def main(argv=None, log=None) -> list:
     work = os.path.abspath(args.work)
     out = os.path.abspath(args.out)
     # once a call: the trials share the partition and the seed round
-    for sub in ("data", "record_round", "sorted"):
+    seed_arm_dirs = [f"seed_{arm}" for arm in SEED_ARMS]
+    for sub in ["data", "record_round", "sorted", "partition"] + \
+            seed_arm_dirs:
         shutil.rmtree(os.path.join(work, sub), ignore_errors=True)
-    shutil.rmtree(os.path.join(out, "sorted"), ignore_errors=True)
+    for sub in ["sorted"] + seed_arm_dirs:
+        shutil.rmtree(os.path.join(out, sub), ignore_errors=True)
     os.makedirs(work, exist_ok=True)
     os.makedirs(out, exist_ok=True)
     argv_of = command_lines(args)
@@ -543,9 +771,12 @@ def main(argv=None, log=None) -> list:
     emit({"event": "flags", **argv_of})
     recorder = Recorder(dev, emit, args.busy_round)
     t_run = time.perf_counter()
-    seed_dirs = [os.path.join("data", parsed["seed"].dataset,
-                              str(parsed["seed"].reg_strength), *sub)
+    reg_dir = os.path.join("data", parsed["seed"].dataset,
+                           str(parsed["seed"].reg_strength))
+    seed_dirs = [os.path.join(reg_dir, *sub)
                  for sub in (("sampling", "seed"), ("saver", "seed"))]
+    sp_dir = os.path.join(reg_dir, "superpoint")
+    seed_runs = []
     with working_directory(work), recorder.recording():
         counts.reset()
         t0 = time.perf_counter()
@@ -557,6 +788,10 @@ def main(argv=None, log=None) -> list:
             partition["launches"] = {k: v for k, v in counts.read().items()
                                      if v}
         emit(partition)
+        if plan:
+            # the seed trials' data root, as the partition left it
+            shutil.copytree("data", os.path.join("partition", "data"))
+            sp_files = file_digests(sp_dir)
         seed.run_seed(parsed["seed"], observe=recorder)
         recorder.release()
         seed_files = {d: file_digests(d) for d in seed_dirs}
@@ -585,6 +820,12 @@ def main(argv=None, log=None) -> list:
         if dev.type == "cuda" and "call" in recorder.k3:
             emit(dict(event="k3", round=args.rounds, **k3_timing(
                 *(t.to(dev) for t in recorder.k3.pop("call")))))
+        for arm, s in plan:
+            seed_runs.append(run_seed_trial(
+                args, arm, s, work, out, argv_of, recorder, emit,
+                seed_dirs, sp_dir, sp_files))
+        for sub in ["partition"] + seed_arm_dirs:
+            shutil.rmtree(sub, ignore_errors=True)
     rounds = [r for r in records if r.get("event") == "round"]
     for arm in ("shuffled",) + tuple(a for a in trials if a != "shuffled"):
         src = os.path.join(arm_dir(work, arm), "record_round")
@@ -594,19 +835,22 @@ def main(argv=None, log=None) -> list:
             shutil.copy(os.path.join(src, name), dst)
     curves = read_curves(out, trials, parsed)
     jax = read_record(JAX_RECORD) if os.path.isdir(JAX_RECORD) else {}
-    seed_miou = next((r["miou"] for r in rounds if r["round"] == 1), None)
+    seed_miou = next((r["miou"] for r in rounds if r["round"] == 1
+                      and r["arm"] is None), None)
     emit({"event": "done", "wall_s": time.perf_counter() - t_run,
           "seed_shared": seed_shared, "seed_miou": seed_miou,
           "curves": {arm: {str(t): [seed_miou] + [
               r["miou"] for r in rounds if (r["arm"], r["trial"]) ==
               (arm, t)] for t in ts} for arm, ts in trials.items()},
           "jax_miou": [jax[r]["best_miou"] for r in sorted(jax) if r
-                       and "best_miou" in jax[r]]})
+                       and "best_miou" in jax[r]],
+          **(seed_trial_results(out, seed_runs, seed_files) if plan
+             else {})})
     with open(os.path.join(out, "rounds.jsonl"), "w") as f:
         for rec in records:
             f.write(json.dumps(rec) + "\n")
     write_summary(os.path.join(out, "SUMMARY.md"), curves, jax, partition,
-                  rounds, card, argv_of)
+                  rounds, card, argv_of, records[-1].get("seed_trials"))
     return records
 
 

@@ -598,6 +598,11 @@ class Trainer:
     Every rank's dropout generator starts from the single-device seed and
     draws the global batch's mask, of which each rank keeps its rows."""
 
+    # the seed of init_state's fresh weights; cli.seed seeds the seed
+    # round's training pipeline with it too. 0, as JAX's PRNGKey(0) and
+    # pipeline seed 0: only scripts/flagship.py's seed trials set another
+    init_seed = 0
+
     def __init__(self, cfg: Config, dataset_name: str, *, save_dir: str,
                  seed_save_dir: Optional[str] = None,
                  knn_engine: str = "window",
@@ -648,9 +653,9 @@ class Trainer:
 
     # ------------------------------------------------------------ state ---
     def init_state(self, sample_batch=None) -> dict:
-        """Fresh weights (flax initializers) drawn from seed 0; the sample
-        batch of the JAX signature fixes no shape here."""
-        gen = torch.Generator().manual_seed(0)
+        """Fresh weights (flax initializers) drawn from `init_seed`; the
+        sample batch of the JAX signature fixes no shape here."""
+        gen = torch.Generator().manual_seed(self.init_seed)
         self.model.load_state_dict(init_params(self.cfg, gen))
         return self.state
 

@@ -13,7 +13,14 @@ alive); the StepGraph's step records and the process's live graphs
 capture. With trials: two trials of the default pool and one of the
 sorted-block control share one partition and one seed round, each passes
 its index to cli.al_loop as --t, reads no other trial's files, and the
-control's pooled steps feed their blocks unshuffled."""
+control's pooled steps feed their blocks unshuffled. With seed trials
+(arms all at s = 0, 1, set and model at s = 1, each followed by round 2):
+each runs in its own copy of the one partition and leaves its files as
+they were; all's s = 0 writes the shared seed round's state, snapshot
+and log; s = 1 draws another seed set, other initial weights, dropout
+and pipeline draws; set keeps s = 0's model streams and model s = 0's
+seed set; a seed trial run alone writes what it wrote after the others;
+a call without seed trials emits what it emitted before them."""
 
 import contextlib
 import gc
@@ -60,27 +67,83 @@ def twin(tmp_path_factory):
     return recs, out, work, live
 
 
+SEED_TRIALS = ["--seed_trials", "0,1", "--seed_arms", "all,set,model",
+               "--seed_rounds", "2"]
+# the seed trials of SEED_TRIALS, in the order they run
+SEED_PLAN = [("all", 0), ("all", 1), ("set", 1), ("model", 1)]
+
+
 @pytest.fixture(scope="module")
 def trials(tmp_path_factory):
-    """(records, out dir, work dir, shuffled steps) of the twin at the
-    small size with trials 0 and 1 of the default pool and trial 0 of the
-    sorted-block control; shuffled steps: the pooled steps that shuffled
-    their blocks."""
+    """(records, out dir, work dir, shuffled steps, inits) of the twin at
+    the small size with trials 0 and 1 of the default pool, trial 0 of the
+    sorted-block control and the seed trials SEED_TRIALS; shuffled steps:
+    the pooled steps that shuffled their blocks; inits: at the
+    Trainer.init_state of each seed round, (its init_seed, its dropout
+    generator's seed, the digest of the weights drawn, the round's
+    pipeline seed)."""
+    from ssdr_al_torch.cli import seed as seed_cli
+
     root = tmp_path_factory.mktemp("trials")
     work, out = str(root / "work"), str(root / "out")
-    recs, shuffled = [], []
-    fn = tt.shuffle_blocks
+    recs, shuffled, inits, pipes = [], [], [], []
+    fn, init, make_pipe = (tt.shuffle_blocks, tt.Trainer.init_state,
+                           seed_cli.make_training_pipeline)
 
     def counted(*args, **kwargs):
         shuffled.append(1)
         return fn(*args, **kwargs)
 
+    def drawn(self, *args, **kwargs):
+        state = init(self, *args, **kwargs)
+        # a seed round's (cli.al_loop restores a snapshot over its own)
+        if len(pipes) > len(inits):
+            inits.append((self.init_seed, self.dropout_gen.initial_seed(),
+                          _digest(state), pipes[-1]))
+        return state
+
+    def pipeline(*args, **kwargs):
+        pipes.append(kwargs["seed"])
+        return make_pipe(*args, **kwargs)
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tt, "shuffle_blocks", counted)
+        mp.setattr(tt.Trainer, "init_state", drawn)
+        mp.setattr(seed_cli, "make_training_pipeline", pipeline)
         flagship.main(SMALL + ["--trials", "0,1", "--sorted_trials", "0",
-                               "--work", work, "--out", out],
+                               "--work", work, "--out", out] + SEED_TRIALS,
                       log=recs.append)
-    return recs, out, work, len(shuffled)
+    return recs, out, work, len(shuffled), inits
+
+
+@pytest.fixture(scope="module")
+def alone(tmp_path_factory):
+    """(records, out dir, work dir) of the twin with trial 1 of the
+    default pool and seed trial 1 of arm model, each alone."""
+    root = tmp_path_factory.mktemp("alone")
+    work, out = str(root / "work"), str(root / "out")
+    recs = []
+    flagship.main(SMALL + ["--trials", "1", "--seed_trials", "1",
+                           "--seed_arms", "model", "--seed_rounds", "2", "--work", work, "--out",
+                           out], log=recs.append)
+    return recs, out, work
+
+
+def _digest(state):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(state[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _main_records(recs):
+    """The records of the partition, the shared seed round and the trials
+    (those of a call without seed trials)."""
+    return [r for r in recs if r["event"] != "seed_trial"
+            and not str(r.get("arm")).startswith("seed_")]
 
 
 def by_hand(root):
@@ -209,7 +272,8 @@ def _trial_files(work, trial):
 
 
 def test_trials_share_the_partition_and_the_seed_round(trials):
-    recs, out, work, _ = trials
+    recs, out, work, _, _ = trials
+    recs = _main_records(recs)
     kinds = [r["event"] for r in recs]
     assert kinds == ["flags", "partition"] + ["round"] * 7 + ["done"]
     rounds = [(r["arm"], r["trial"], r["round"]) for r in recs
@@ -228,7 +292,8 @@ def test_trials_share_the_partition_and_the_seed_round(trials):
     logs = [f"S3DIS_5_{SSDR.replace('t0', f't{t}', 1)}_0.03.txt"
             for t in (0, 1)]
     assert sorted(os.listdir(out)) == sorted(
-        [seed_log] + logs + ["SUMMARY.md", "rounds.jsonl", "sorted"])
+        [seed_log] + logs + ["SUMMARY.md", "rounds.jsonl", "sorted",
+                             "seed_all", "seed_set", "seed_model"])
     assert os.listdir(os.path.join(out, "sorted")) == logs[:1]
     reg = os.path.join("data", "S3DIS", "0.03")
     for where, samplers in ((work, ["seed", SSDR, SSDR.replace("t0", "t1")]),
@@ -267,14 +332,11 @@ def test_trials_pass_their_index_as_t():
         flagship.parse_trials("1,1")
 
 
-def test_a_trial_reads_no_other_trials_files(trials, tmp_path):
+def test_a_trial_reads_no_other_trials_files(trials, alone):
     """Trial 1 run alone writes what trial 1 wrote after trial 0: the
     same state files, snapshots and record lines."""
-    _, out, work, _ = trials
-    alone_work, alone_out = str(tmp_path / "work"), str(tmp_path / "out")
-    recs = []
-    flagship.main(SMALL + ["--trials", "1", "--work", alone_work, "--out",
-                           alone_out], log=recs.append)
+    _, out, work, _, _ = trials
+    _, alone_out, alone_work = alone
     mine, theirs = _trial_files(work, 1), _trial_files(alone_work, 1)
     assert sorted(mine) == sorted(theirs) and mine
     for name in mine:
@@ -291,14 +353,164 @@ def test_a_trial_reads_no_other_trials_files(trials, tmp_path):
 
 def test_the_sorted_control_feeds_its_blocks_unshuffled(trials):
     """Only the default pool's steps shuffle (2 trials x 2 rounds x 2
-    steps; the seed round trains on the host pipeline); the control's
+    steps, and the seed trials' rounds; the seed round trains on the host
+    pipeline); the control's
     first step, from the same snapshot and the same draws as trial 0's,
     takes another loss."""
-    recs, _, _, shuffled = trials
-    assert shuffled == 2 * 2 * 2
+    recs, _, _, shuffled, _ = trials
+    # and the seed trials' round 2 (4 seed trials x 2 steps)
+    assert shuffled == 2 * 2 * 2 + len(SEED_PLAN) * 2
     first = {(r["arm"], r["trial"]): r["loss_first"] for r in recs
              if r["event"] == "round" and r["round"] == 2}
     assert first[("sorted", 0)] != first[("shuffled", 0)]
+
+
+def _seed_run(recs, arm, s):
+    return next(r for r in recs if r["event"] == "seed_trial"
+                and (r["arm"], r["seed_trial"]) == (arm, s))
+
+
+def _seed_rounds(recs, arm, s):
+    return {r["round"]: r for r in recs if r["event"] == "round"
+            and (r["arm"], r.get("seed_trial")) == (f"seed_{arm}", s)}
+
+
+def test_seed_trials_run_in_copies_of_the_partition(trials):
+    recs, out, work, _, _ = trials
+    assert [(r["arm"], r["seed_trial"]) for r in recs
+            if r["event"] == "seed_trial"] == SEED_PLAN
+    rounds = [(r["arm"], r["seed_trial"], r["trial"], r["round"])
+              for r in recs if r["event"] == "round"
+              and str(r["arm"]).startswith("seed_")]
+    assert rounds == [(f"seed_{a}", s, t, r) for a, s in SEED_PLAN
+                      for t, r in ((None, 1), (0, 2))]
+    for a, s in SEED_PLAN:
+        run = _seed_run(recs, a, s)
+        assert run["partition_shared"]
+        assert (run["set_seed"], run["model_seed"]) == \
+            flagship.SEED_ARMS[a](s)
+        by = _seed_rounds(recs, a, s)
+        st = by[1]["stats"]
+        for r in by.values():
+            assert (r["seed_regions"], r["seed_points"]) == (
+                st["sp_num"] + st["sub_num"], st["p_num"] + st["sub_p_num"])
+            assert set(ROUND_FIELDS) <= set(r) and r["losses_finite"]
+        assert by[2]["stats"]["gcn_sp_num"] == 10
+        assert sorted(os.listdir(os.path.join(out, f"seed_{a}", f"s{s}"))) \
+            == ["S3DIS_5_seed_0.03.txt", f"S3DIS_5_{SSDR}_0.03.txt"]
+    # every copy is gone once read
+    assert sorted(os.listdir(work)) == ["data", "record_round", "sorted"]
+    done = recs[-1]
+    assert [(row["arm"], row["seed_trial"]) for row in
+            done["seed_trials"]] == SEED_PLAN
+    for row in done["seed_trials"]:
+        assert row["partition_shared"] and list(row["rounds"]) == ["2"]
+        assert row["seed"]["miou"] == round(_seed_rounds(
+            recs, row["arm"], row["seed_trial"])[1]["miou"], 4)
+    summary = open(os.path.join(out, "SUMMARY.md")).read()
+    for text in ("## Seed trials", "| JAX | - | 0.0762 | 0.2872 | 293 |",
+                 "| all min / median / max |", "| set min / median / max |",
+                 "| model min / median / max |",
+                 "JAX's figure within arm all's [min, max] over its 2"):
+        assert text in summary, text
+
+
+def test_seed_trial_zero_is_the_seed_round(trials):
+    """Arm all's s = 0 writes the shared seed round's state, snapshot and
+    log byte for byte (the shared seed round is the plain cli.seed call's:
+    test_twin_writes_what_the_cli_chain_writes), and its round 2 is trial
+    0's."""
+    recs, out, work, _, inits = trials
+    run = _seed_run(recs, "all", 0)
+    shared = {d: flagship.file_digests(os.path.join(work, d))
+              for d in run["seed_files"]}
+    assert run["seed_files"] == shared and all(shared.values())
+    assert recs[-1]["seed_zero_shared"]
+    assert inits[0] == inits[1] == (0, 0, inits[0][2], 0)
+    mine = _record_lines(os.path.join(out, "seed_all", "s0"))
+    main = _record_lines(out)
+    seed_log, al_log = "S3DIS_5_seed_0.03.txt", f"S3DIS_5_{SSDR}_0.03.txt"
+    assert mine[seed_log] == main[seed_log]
+    assert mine[al_log] == [line for line in main[al_log]
+                            if not line.startswith("round= 3")]
+    seed, t0 = _seed_rounds(recs, "all", 0), {
+        r["round"]: r for r in recs if r["event"] == "round"
+        and (r["arm"], r["trial"]) == ("shuffled", 0)}
+    main1 = next(r for r in recs if r["event"] == "round"
+                 and r["arm"] is None)
+    for key in ("miou", "oa", "stats", "loss_first", "loss_last"):
+        assert seed[1][key] == main1[key], key
+        assert seed[2][key] == t0[2][key], key
+
+
+def test_seed_trials_draw_their_arms_streams(trials):
+    """inits in order: the shared seed round, all 0, all 1, set 1, model
+    1. All 1 draws other weights, dropout and pipeline draws and another
+    seed set; set 1 keeps s = 0's model streams and takes all 1's seed
+    set; model 1 keeps s = 0's seed set and takes all 1's model
+    streams."""
+    recs, _, _, _, inits = trials
+    assert len(inits) == 1 + len(SEED_PLAN)
+    _, all0, all1, set1, model1 = inits
+    assert all1[:2] == (1, 1) and all1[3] == 1 and all1[2] != all0[2]
+    assert set1 == all0 and model1 == all1
+
+    def seed_set(arm, s):
+        return next(v for d, v in _seed_run(recs, arm, s)[
+            "seed_files"].items() if d.endswith(os.path.join("sampling",
+                                                             "seed")))
+
+    def snap(arm, s):
+        return next(v for d, v in _seed_run(recs, arm, s)[
+            "seed_files"].items() if d.endswith(os.path.join("saver",
+                                                             "seed")))
+
+    assert seed_set("all", 1) != seed_set("all", 0)
+    assert seed_set("set", 1) == seed_set("all", 1)
+    assert seed_set("model", 1) == seed_set("all", 0)
+    snaps = [snap(a, s) for a, s in SEED_PLAN]
+    assert len(set(map(json.dumps, snaps))) == len(snaps)
+    regions = {(a, s): _seed_rounds(recs, a, s)[1]["seed_points"]
+               for a, s in SEED_PLAN}
+    assert regions[("set", 1)] == regions[("all", 1)]
+    assert regions[("model", 1)] == regions[("all", 0)]
+
+
+def test_a_seed_trial_reads_no_other_seed_trials_files(trials, alone):
+    """Model's s = 1 run alone writes what it wrote after all 0, all 1
+    and set 1: the same seed files, log lines and round records."""
+    recs, out, _, _, _ = trials
+    arecs, aout, awork = alone
+    assert _seed_run(arecs, "model", 1)["seed_files"] == _seed_run(
+        recs, "model", 1)["seed_files"]
+    where = os.path.join("seed_model", "s1")
+    assert _record_lines(os.path.join(out, where)) == _record_lines(
+        os.path.join(aout, where))
+    mine, theirs = (_seed_rounds(r, "model", 1) for r in (recs, arecs))
+    for r in (1, 2):
+        for key in ("miou", "oa", "stats", "loss_first", "loss_last"):
+            assert mine[r][key] == theirs[r][key], (r, key)
+    assert sorted(os.listdir(awork)) == ["data", "record_round"]
+
+
+def test_a_call_without_seed_trials_emits_what_it_did(twin):
+    recs, out, work, _ = twin
+    assert set(recs[-1]) == {"event", "wall_s", "seed_shared", "seed_miou",
+                             "curves", "jax_miou"}
+    assert not any(r["event"] == "seed_trial" or {
+        "seed_trial", "seed_regions", "seed_points"} & set(r) for r in recs)
+    assert "## Seed trials" not in open(os.path.join(out,
+                                                     "SUMMARY.md")).read()
+    assert sorted(os.listdir(work)) == ["data", "record_round"]
+    parse = flagship.parser().parse_args
+    assert flagship.seed_trial_plan(parse([])) == []
+    plan = flagship.seed_trial_plan(parse([
+        "--seed_trials", "0,1,2,3,4,5,6,7", "--seed_arms", "all,set,model"]))
+    assert plan == [("all", s) for s in range(8)] + [
+        (a, s) for a in ("set", "model") for s in (1, 2, 3)]
+    with pytest.raises(ValueError):
+        flagship.seed_trial_plan(parse(["--seed_trials", "1",
+                                        "--seed_arms", "all,seeds"]))
 
 
 def test_cpu_only_when_asked():

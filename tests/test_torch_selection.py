@@ -223,11 +223,12 @@ def test_nail_oracle_copy_matches_jax():
 # ------------------------------------------------------ the whole round ---
 
 
-def _workload(work):
-    """2 rooms, grid superpoints, registry and a seed round, made with the
-    port's data module and written with its state store (both equal to the
-    JAX ones: tests/test_torch_data.py and test_seed_round_files_match_jax).
-    The JAX sampler reads the same Cloud objects."""
+def _workload(work, seed=0):
+    """2 rooms, grid superpoints, registry and a seed round (its seed set
+    drawn at `seed`), made with the port's data module and written with
+    its state store (both equal to the JAX ones: tests/test_torch_data.py
+    and test_seed_round_files_match_jax). The JAX sampler reads the same
+    Cloud objects."""
     train, _ = t_make_dataset(num_train=2, num_val=0, num_points=3000, seed=0)
     state = t_state.ALState(work, SSDR_ARGS)
     total = {"unlabeled": {}}
@@ -241,8 +242,8 @@ def _workload(work):
                  point_num=sum(c.num_points for c in train))
     state.write_registry(total)
     t_samplers.SeedSampler(t_state.ALState(work, ["seed"]), train,
-                           sp_num).sampling(sp_num // 8, 0,
-                                            t_state.RoundStats())
+                           sp_num, seed=seed).sampling(sp_num // 8, 0,
+                                                       t_state.RoundStats())
     return train, sp_num
 
 
@@ -255,20 +256,53 @@ def _picked(work, before):
     return picked, after
 
 
-def test_seed_round_files_match_jax(tmp_path):
-    """The JAX SeedSampler on the same workload writes identical files."""
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_seed_round_files_match_jax(tmp_path, seed):
+    """The JAX SeedSampler on the same workload, at the same seed (the
+    JAX CLI draws at 0; the flagship twin's seed trials at others),
+    writes identical files."""
     t_dir, j_dir = str(tmp_path / "t"), str(tmp_path / "j")
-    train, sp_num = _workload(t_dir)
+    train, sp_num = _workload(t_dir, seed)
     shutil.copytree(os.path.join(t_dir, "superpoint"),
                     os.path.join(j_dir, "superpoint"))
     j_samplers.SeedSampler(j_state.ALState(j_dir, ["seed"]), train,
-                           sp_num).sampling(sp_num // 8, 0,
-                                            j_state.RoundStats())
+                           sp_num, seed=seed).sampling(sp_num // 8, 0,
+                                                       j_state.RoundStats())
     rd = os.path.join("sampling", "seed", "round_1")
     for fname in sorted(os.listdir(os.path.join(t_dir, rd))):
         with open(os.path.join(t_dir, rd, fname), "rb") as a, \
                 open(os.path.join(j_dir, rd, fname), "rb") as b:
             assert a.read() == b.read(), fname
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_seed_round_pipeline_matches_jax(tmp_path, seed):
+    """The seed round's TrainingPipeline at a seed other than 0 (the
+    flagship twin's seed trials), on the seed round's pseudo-GT: the
+    sample batch that init_state takes and the round's batches equal the
+    JAX pipeline's at the same seed, draw for draw."""
+    from ssdr_al_tpu.data import dataset as j_dataset
+    from ssdr_al_torch.data import dataset as t_dataset
+
+    train, _ = _workload(str(tmp_path), seed)
+    rd = os.path.join(str(tmp_path), "sampling", "seed", "round_1")
+    pseudo = {}
+    for c in train:
+        with open(os.path.join(rd, c.name + ".gt"), "rb") as f:
+            pseudo[c.name] = pickle.load(f)
+    cfg = small_cfg(num_points=512, noise_init=3.5)
+    tp = t_dataset.TrainingPipeline(train, cfg, pseudo_gt=pseudo, seed=seed)
+    jp = j_dataset.TrainingPipeline(train, cfg, pseudo_gt=pseudo, seed=seed)
+    draws = [(tp.sample_batch(cfg.batch_size), jp.sample_batch(
+        cfg.batch_size))] + list(zip(tp.batches(3, cfg.batch_size),
+                                     jp.batches(3, cfg.batch_size)))
+    assert len(draws) == 4
+    for got, want in draws:
+        assert got.keys() == want.keys()
+        for k in got:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert tp.rng.randint(1 << 30) == jp.rng.randint(1 << 30)
 
 
 def test_selection_round_matches_jax(tmp_path):
