@@ -94,7 +94,8 @@ cli.superpoint, cli.seed and cli.al_loop, 2 hard rooms of 40 000 points,
 cut-pursuit at reg_strength 0.03, rounds 1-3 of 8 bf16 steps on
 40 960-point blocks and 2 val steps, 150 clicks a round, trials 0 and 1
 of the default pool and trial 0 of the sorted-block control from one
-shared seed round; the reserved bytes at round 3's end within 5 % of
+shared seed round, seed trials 0 and 1 and the budget arm 4x2/8x2 with
+round 2; the reserved bytes at round 3's end within 5 % of
 round 2's, the live CUDA graphs bounded, every mIoU finite, K3 held to
 its plain version at the last round's call), one warm
 train step under
@@ -217,11 +218,13 @@ S3D_SCALE_TARGET_SP, S3D_SCALE_SEED_DIV = 2048, 40
 # and 2 val steps at full width (bf16, 40 960-point blocks), 150 clicks,
 # trials 0 and 1 and one trial of the sorted-block control; seed trials 0
 # and 1 of arm all (the seed round with its streams from s), each with
-# round 2
+# round 2; one budget arm at s = 0 with round 2: 2 epochs of 4 seed steps,
+# then 2 epochs of 8 steps, each epoch evaluated
 FLAG_ROOMS, FLAG_POINTS, FLAG_ROUNDS = 2, 40_000, 3
 FLAG_STEPS, FLAG_VAL_STEPS, FLAG_CLICKS = 8, 2, 150
 FLAG_TRIALS, FLAG_SORTED_TRIALS = (0, 1), (0,)
 FLAG_SEED_TRIALS, FLAG_SEED_ROUNDS = (0, 1), 2
+FLAG_BUDGET = ((4, 2), (8, 2))
 # the end-of-round reserved bytes may grow by this share from round 3 on
 FLAG_RESERVED_GROWTH = 0.05
 # warm steps a mode of each training path (step_times.py measures 20),
@@ -2163,7 +2166,10 @@ def flagship_phase(dev, work):
     the trials FLAG_TRIALS of the default pool and FLAG_SORTED_TRIALS of
     the sorted-block control, then the seed trials FLAG_SEED_TRIALS of arm
     all, each in its own copy of the partition, with rounds
-    2..FLAG_SEED_ROUNDS. Fails unless the trials share the one seed
+    2..FLAG_SEED_ROUNDS, then the budget arm FLAG_BUDGET at s = 0 (cli.seed
+    and cli.al_loop each with its --train_steps and --max_epoch, every
+    epoch evaluated) with rounds 2..FLAG_SEED_ROUNDS. Fails unless the
+    trials share the one seed
     round (its record and its files, left as they were), every round's
     mIoU and losses are finite, every AL round of every trial buys
     FLAG_CLICKS clicks, each round's steps replay their StepGraph, the
@@ -2173,10 +2179,13 @@ def flagship_phase(dev, work):
     FLAG_ROUNDS - 1; seed trial 0 writes the shared seed round's files,
     seed trial 1 draws another seed set, and every seed trial leaves the
     partition's files as they were and passes the rounds' checks above;
-    the partition and the rounds must launch K6-k64, K1,
-    K2-bf16, K4-bf16 and K3 (counted by the twin from 0 in each). K3 is
-    held to its plain version at the last round's call. Returns
-    ({"flagship": launches}, K3's check)."""
+    the budget arm leaves the partition's files as they were, takes its
+    budget's steps in each round and passes the rounds' checks; the
+    partition, the trials' rounds and the budget arm's must launch K6-k64,
+    K1, K2-bf16, K4-bf16 and K3 (counted by the twin from 0 in each). K3
+    is held to its plain version at the trials' last round's call, and
+    at the budget arm's last call. Returns ({"flagship": launches}, K3's
+    check at the trials' call)."""
     from ssdr_al_torch.active import region_graph as rg
     from ssdr_al_torch.kernels import measure
     from ssdr_al_torch.ops import chamfer as ch
@@ -2189,11 +2198,16 @@ def flagship_phase(dev, work):
     # last trial's last round, as before the seed trials
     main_calls, n_calls = (len(FLAG_TRIALS) + len(FLAG_SORTED_TRIALS)) * (
         FLAG_ROUNDS - 1), [0]
+    # the budget arm runs last: its calls follow the seed trials'
+    budget_from = main_calls + len(FLAG_SEED_TRIALS) * (FLAG_SEED_ROUNDS - 1)
+    budget_calls = []
 
     def rec_cd(points, mask):
         n_calls[0] += 1
         if n_calls[0] <= main_calls:
             k3_calls[:] = [(points.contiguous(), mask.contiguous())]
+        elif n_calls[0] > budget_from:
+            budget_calls[:] = [(points.contiguous(), mask.contiguous())]
         return cd_fn(points, mask)
 
     g0 = dict(EVAL_GRAPHS)
@@ -2208,8 +2222,9 @@ def flagship_phase(dev, work):
                        ",".join(map(str, FLAG_SORTED_TRIALS)),
                        "--seed_trials", ",".join(map(str, FLAG_SEED_TRIALS)),
                        "--seed_arms", "all", "--seed_rounds",
-                       str(FLAG_SEED_ROUNDS),
-                       "--work", os.path.join(work, "flagship"), "--out",
+                       str(FLAG_SEED_ROUNDS), "--budgets",
+                       flagship.budget_text(FLAG_BUDGET), "--budget_trials",
+                       "0", "--work", os.path.join(work, "flagship"), "--out",
                        os.path.join(work, "flagship_out")], log=recs.append)
     finally:
         rg.chamfer_pairwise_blocks = cd_fn
@@ -2217,10 +2232,11 @@ def flagship_phase(dev, work):
         print("flagship " + json.dumps(r))
     every = [r for r in recs if r.get("event") == "round"]
     rounds = [r for r in every if "seed_trial" not in r]
-    seeded = [r for r in every if "seed_trial" in r]
+    seeded = [r for r in every if "seed_trial" in r and "budget" not in r]
+    budgeted = [r for r in every if "budget" in r]
     part = next(r for r in recs if r.get("event") == "partition")
     launches = dict.fromkeys(read_counts(), 0)
-    for r in [part] + rounds:
+    for r in [part] + rounds + budgeted:
         for k, v in r["launches"].items():
             launches[k] += v
     print("launches flagship " + json.dumps(launches))
@@ -2250,7 +2266,7 @@ def flagship_phase(dev, work):
         raise AssertionError(f"flagship: the trials do not share the seed "
                              f"round: {logs}, {done}")
     runs = {r["seed_trial"]: r for r in recs
-            if r.get("event") == "seed_trial"}
+            if r.get("event") == "seed_trial" and r["arm"] != "budget"}
     seed_sets = {s: next(v for d, v in run["seed_files"].items()
                          if d.endswith(os.path.join("sampling", "seed")))
                  for s, run in runs.items()}
@@ -2263,13 +2279,25 @@ def flagship_phase(dev, work):
             seed_sets[1] == seed_sets[0]:
         raise AssertionError(f"flagship: the seed trials: {seeded}, "
                              f"{list(runs.values())}, {done}")
+    text = flagship.budget_text(FLAG_BUDGET)
+    brun = [r for r in recs if r.get("event") == "seed_trial"
+            and r["arm"] == "budget"]
+    steps = [n * e for n, e in FLAG_BUDGET]
+    if [(r["arm"], r["budget"], r["seed_trial"], r["round"], r["steps"])
+            for r in budgeted] != [
+            (flagship.budget_label(text), text, 0, r,
+             steps[min(r, 2) - 1]) for r in range(1, FLAG_SEED_ROUNDS + 1)] \
+            or [(r["budget"], r["partition_shared"]) for r in brun] != [
+                (text, True)] or not budget_calls:
+        raise AssertionError(f"flagship: the budget arm {text}: {budgeted}, "
+                             f"{brun}")
     end = {r["round"]: r["end_reserved_bytes"] for r in rounds
            if r["trial"] in (None, FLAG_TRIALS[0]) and r["arm"] != "sorted"}
     if end[FLAG_ROUNDS] > (1 + FLAG_RESERVED_GROWTH) * end[FLAG_ROUNDS - 1]:
         raise AssertionError(f"flagship: reserved bytes at the rounds' ends "
                              f"grew: {end}")
     for r in every:
-        print(f"flagship {r['arm'] or 'seed'} trial "
+        print(f"flagship {r.get('budget') or r['arm'] or 'seed'} trial "
               f"{r.get('seed_trial', r['trial'])} round "
               f"{r['round']}: mIoU {r['miou']:.4f}, OA "
               f"{r['oa']:.4f}, wall {r['wall_s']:.2f} s (selection "
@@ -2295,7 +2323,14 @@ def flagship_phase(dev, work):
           f"{r3['bound_ms']:.4f} ms by {r3['bound_by']})")
     if not (r3["max_rel_err"] <= 1e-5 and r3["run_to_run"]):
         raise AssertionError(f"K3 at the flagship round: {r3}")
-    del k3_calls, points, mask, out
+    rb = measure.check_k3(*budget_calls[0], f"flagship budget arm {text}")
+    print(f"K3 at the budget arm's call {list(budget_calls[0][0].shape[:3])}"
+          f": max rel err {rb['max_rel_err']:.2e}, run to run "
+          f"{rb['run_to_run']}, {rb['ms']:.3f} ms (plain "
+          f"{rb['plain_ms']:.3f} ms)")
+    if not (rb["max_rel_err"] <= 1e-5 and rb["run_to_run"]):
+        raise AssertionError(f"K3 at the budget arm's round: {rb}")
+    del k3_calls, budget_calls, points, mask, out
     print(f"flagship phase {time.perf_counter() - t_phase:.1f} s")
     return {"flagship": launches}, r3
 

@@ -6,7 +6,8 @@ port's own entry points, recorded beside JAX's record.
         [--num_points 40960] [--compute_dtype bfloat16] \
         [--trials 0,1,2] [--sorted_trials 0,1,2] \
         [--seed_trials 0,1,...,7] [--seed_arms all,set,model] \
-        [--seed_rounds 3] \
+        [--seed_rounds 3] [--budgets 500x4/500x4,8x4/500x4] \
+        [--budget_trials 0,1,2] \
         [--out results/record_round_flagship_torch] [--work build/flagship] \
         [--busy_round 0] [--device cuda|cpu]
 
@@ -61,20 +62,39 @@ streams, whether it left the partition's files as they were, and the
 digests of its seed files. Seed trials run after the trials, from the
 same partition.
 
+Budget arms vary the training budget of the entry points: each arm of
+`--budgets`, SEEDSTEPSxSEEDEPOCHS/STEPSxEPOCHS, passes `--train_steps
+SEEDSTEPS --max_epoch SEEDEPOCHS` to cli.seed and `--train_steps STEPS
+--max_epoch EPOCHS` to cli.al_loop (each round then trains EPOCHS epochs
+of STEPS steps, the learning rate decaying by cfg.lr_decay an epoch, and
+evaluates after each epoch from cfg.eval_start_frac of them on, keeping
+the best). The run's own budget, that of the trials and the seed trials,
+is `--train_steps`x1/`--train_steps`x1. A budget arm runs as a seed
+trial of arm model at each s of `--budget_trials` (s = 0 included): the
+seed set at s = 0, the model's streams from s, in its own copy of the
+partition, `--work`/budget_<SEEDSTEPSxSEEDEPOCHS-STEPSxEPOCHS>/s<s>, its
+logs copied to `--out`/budget_<...>/s<s>. Its round records carry arm
+"budget_<...>", budget (the arm's text) and seed_trial s; its
+{"event": "seed_trial"} record arm "budget" and budget. Budget arms run
+after the seed trials, from the same partition.
+
 Writes to `--out`: the CLI's record_round/ logs (the reference format,
 beside JAX's and never over them), rounds.jsonl and SUMMARY.md (every
 trial's mIoU and labelled points a region by round beside JAX's, each
 round's min, median and max over the trials of an arm, the round walls
 and warm steps, with the card's name and power limit). Prints one JSON
 line a record: {"event": "device"} (the card), {"event": "flags"} (each
-entry point's command line), {"event": "partition"} (a room's knn_ms,
-geof_ms, cutpursuit_s and superpoints, the count and, on the card, the
-kernel launches), one {"event": "round"} a round (round_record's fields,
-with its arm and trial; none for the seed round), on the card {"event":
-"k3"} (K3 timed at the last round's chamfer call against its bound) and
-{"event": "done"} (the curves, and whether the seed round's files were
-left as they were; with seed trials also each seed trial's figures and
-whether `all`'s s = 0 wrote the shared seed round's files).
+entry point's command line; with budget arms also "budgets", each arm's
+cli.seed and cli.al_loop command lines), {"event": "partition"} (a
+room's knn_ms, geof_ms, cutpursuit_s and superpoints, the count and, on
+the card, the kernel launches), one {"event": "round"} a round
+(round_record's fields, with its arm and trial; none for the seed
+round), on the card {"event": "k3"} (K3 timed at the last round's
+chamfer call against its bound) and {"event": "done"} (the curves, and
+whether the seed round's files were left as they were; with seed trials
+also each seed trial's figures and whether `all`'s s = 0 wrote the
+shared seed round's files; with budget arms each budget trial's
+figures).
 `--busy_round R` runs round R of the first trial under torch.profiler,
 whose record then gains the device-busy share of the round. The default
 device is the card; the CPU only with --device cpu.
@@ -113,6 +133,7 @@ SEED_ARMS = {"all": lambda s: (s, s), "set": lambda s: (s, 0),
              "model": lambda s: (0, s)}
 # the seeds of arms set and model (their s = 0 is all's)
 ARM_SEEDS = (1, 2, 3)
+_BUDGET = re.compile(r"(\d+)x(\d+)/(\d+)x(\d+)")
 
 
 def flag_value(argv: list, flag: str, value) -> list:
@@ -139,6 +160,32 @@ def seed_trial_plan(args) -> list:
             if arm == "all" or s in ARM_SEEDS]
 
 
+def parse_budgets(text: str) -> list:
+    """"8x4/500x4,..." → [((8, 4), (500, 4)), ...]: each arm's (steps,
+    epochs) of cli.seed and of cli.al_loop."""
+    out = []
+    for arm in (a.strip() for a in text.split(",") if a.strip()):
+        m = _BUDGET.fullmatch(arm)
+        if m is None or 0 in (n := tuple(map(int, m.groups()))):
+            raise ValueError(f"budget {arm!r}: SEEDSTEPSxSEEDEPOCHS/"
+                             f"STEPSxEPOCHS, each at least 1")
+        out.append((n[:2], n[2:]))
+    if len(set(out)) != len(out):
+        raise ValueError(f"budgets {text!r}: distinct arms")
+    return out
+
+
+def budget_text(budget) -> str:
+    """((8, 4), (500, 4)) → "8x4/500x4"."""
+    return "/".join(f"{steps}x{epochs}" for steps, epochs in budget)
+
+
+def budget_label(text: str) -> str:
+    """A budget arm's directory and record arm: "8x4/500x4" →
+    budget_8x4-500x4."""
+    return "budget_" + text.replace("/", "-")
+
+
 def parse_trials(text: str) -> list:
     """"0,1,2" → [0, 1, 2]; "" → []."""
     out = [int(x) for x in text.split(",") if x.strip()]
@@ -147,10 +194,11 @@ def parse_trials(text: str) -> list:
     return out
 
 
-def command_lines(args) -> dict:
+def command_lines(args, budget=None) -> dict:
     """{entry point: its argv} of the run, in `--work`: cli.superpoint,
     cli.seed and cli.al_loop (rounds 2..args.rounds; trial 0, which
-    trial_flags changes)."""
+    trial_flags changes); with `budget` ((steps, epochs) of cli.seed and
+    of cli.al_loop), those entry points' --train_steps and --max_epoch."""
     common = ["--device", args.device, "--dataset", "S3DIS", "--data_root",
               "data", "--synthetic", "--synthetic_rooms", str(args.rooms),
               "--synthetic_points", str(args.points), "--reg_strength",
@@ -158,11 +206,15 @@ def command_lines(args) -> dict:
               "--compute_dtype", args.compute_dtype, "--train_steps",
               str(args.train_steps), "--max_epoch", "1", "--val_steps",
               str(args.val_steps)]
-    return {"superpoint": common,
-            "seed": common + ["--seed_percent", str(SEED_PERCENT)],
-            "al_loop": common + SSDR_FLAGS + [
-                "--round", "2", "--rounds", str(args.rounds),
-                "--sp_batch_size", str(args.clicks)]}
+    out = {"superpoint": common,
+           "seed": common + ["--seed_percent", str(SEED_PERCENT)],
+           "al_loop": common + SSDR_FLAGS + [
+               "--round", "2", "--rounds", str(args.rounds),
+               "--sp_batch_size", str(args.clicks)]}
+    for name, (steps, epochs) in zip(("seed", "al_loop"), budget or ()):
+        out[name] = flag_value(flag_value(out[name], "--train_steps", steps),
+                               "--max_epoch", epochs)
+    return out
 
 
 @contextlib.contextmanager
@@ -218,7 +270,8 @@ class Recorder:
     at a seed round's setup it reseeds its streams from `streams` (the
     seed set's seed and the model's; None: left at 0), then clears it.
     While `seed_trial` is set, each round record carries it and the seed
-    round's labelled regions and points. On the card it resets
+    round's labelled regions and points, and while `budget` is set, that
+    budget arm's text. On the card it resets
     the peak memory statistics and the kernel launch counts at each
     round's start, records the StepGraph's step events, and runs round
     `busy_round` under torch.profiler."""
@@ -232,6 +285,7 @@ class Recorder:
         self.arm = self.trial = None
         self.blocks = "shuffled"
         self.streams = self.seed_trial = self.seed_labelled = None
+        self.budget = None
         self.next_round = 1
         self.prof = None
         self.steps = []
@@ -292,7 +346,7 @@ class Recorder:
 
     def round_record(self, info: dict) -> dict:
         """{round, arm, trial, [seed_trial, seed_regions, seed_points,]
-        wall_s (from the last round's record to
+        [budget,] wall_s (from the last round's record to
         this one: the restore, the selection, the training and its
         evaluation), select_s (the log's selection costTime), phase_times
         (TSampler's), stats
@@ -337,6 +391,8 @@ class Recorder:
             rec.update(seed_trial=self.seed_trial,
                        seed_regions=self.seed_labelled[0],
                        seed_points=self.seed_labelled[1])
+        if self.budget is not None:
+            rec["budget"] = self.budget
         if self.cuda:
             times = graphs.step_ms(self.steps)
             replays = [ms for kind, ms in times if kind == "replay"]
@@ -452,12 +508,13 @@ def _spread(values):
 
 
 def write_summary(path, curves: dict, jax: dict, partition: dict, rounds,
-                  card: str, argv: dict, seed_rows=None):
+                  card: str, argv: dict, seed_rows=None, budget_rows=None):
     """SUMMARY.md: every trial's mIoU and labelled points a region by
     round beside JAX's (read_record of each), with each round's min,
     median and max over an arm's trials; each trial's round walls and
     warm steps (the round records); the superpoint counts, the card and
-    the command lines; with seed trials, seed_trial_lines."""
+    the command lines; with seed trials, seed_trial_lines; with budget
+    arms, budget_lines."""
     cols = [(arm, t) for arm, ts in curves.items() for t in ts]
     last = max([1] + [r for c in curves.values() for v in c.values()
                       for r in v] + [r for r in jax if r])
@@ -508,28 +565,35 @@ def write_summary(path, curves: dict, jax: dict, partition: dict, rounds,
     lines += [f"- {name}: `{' '.join(a)}`" for name, a in argv.items()]
     if seed_rows:
         lines += [""] + seed_trial_lines(seed_rows, jax)
+    if budget_rows:
+        lines += [""] + budget_lines(budget_rows, jax)
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
 
 
 def run_seed_trial(args, arm: str, s: int, work: str, out: str,
                    argv_of: dict, recorder: Recorder, emit, seed_dirs: list,
-                   sp_dir: str, sp_files: dict) -> dict:
+                   sp_dir: str, sp_files: dict, budget=None) -> dict:
     """Seed trial s of `arm` in its own copy of the partition's data root,
     `work`/seed_<arm>/s<s>: the seed round with the arm's streams at s,
-    then cli.al_loop --t 0 for rounds 2..args.seed_rounds. Its logs go to
-    `out`/seed_<arm>/s<s> and the copy is removed; returns (and emits)
-    {"event": "seed_trial", arm, seed_trial, set_seed, model_seed,
-    partition_shared (the partition's files as they were), seed_files
-    (digests of the seed round's state and snapshot)}."""
+    then cli.al_loop --t 0 for rounds 2..args.seed_rounds, each with its
+    argv in `argv_of`. Its logs go to `out`/seed_<arm>/s<s> and the copy
+    is removed; returns (and emits) {"event": "seed_trial", arm,
+    seed_trial, set_seed, model_seed, partition_shared (the partition's
+    files as they were), seed_files (digests of the seed round's state
+    and snapshot)}. With `budget` (a budget arm, whose command lines
+    `argv_of` are), arm is "model", the trial's directories and record
+    arm are budget_label's, and its records carry the budget's text."""
     from ssdr_al_torch.cli import al_loop, seed
 
-    where = os.path.join(work, f"seed_{arm}", f"s{s}")
+    label = (f"seed_{arm}" if budget is None
+             else budget_label(budget_text(budget)))
+    where = os.path.join(work, label, f"s{s}")
     shutil.copytree(os.path.join(work, "partition", "data"),
                     os.path.join(where, "data"))
     set_seed, model_seed = SEED_ARMS[arm](s)
-    recorder.arm, recorder.trial, recorder.seed_trial = f"seed_{arm}", \
-        None, s
+    recorder.arm, recorder.trial, recorder.seed_trial = label, None, s
+    recorder.budget = None if budget is None else budget_text(budget)
     recorder.streams = (set_seed, model_seed)
     recorder.blocks = "shuffled"      # the default pool in rounds 2..
     try:
@@ -544,13 +608,17 @@ def run_seed_trial(args, arm: str, s: int, work: str, out: str,
                     args.seed_rounds)), observe=recorder)
                 recorder.release()
                 recorder.busy_round = 0
-            rec = dict(event="seed_trial", arm=arm, seed_trial=s,
-                       set_seed=set_seed, model_seed=model_seed,
+            rec = dict(event="seed_trial",
+                       arm=arm if budget is None else "budget",
+                       seed_trial=s, set_seed=set_seed,
+                       model_seed=model_seed,
                        partition_shared=file_digests(sp_dir) == sp_files,
                        seed_files={d: file_digests(d) for d in seed_dirs})
+            if budget is not None:
+                rec["budget"] = budget_text(budget)
     finally:
-        recorder.seed_trial = recorder.streams = None
-    dst = os.path.join(out, f"seed_{arm}", f"s{s}")
+        recorder.seed_trial = recorder.streams = recorder.budget = None
+    dst = os.path.join(out, label, f"s{s}")
     os.makedirs(dst)
     src = os.path.join(where, "record_round")
     for name in os.listdir(src):
@@ -590,12 +658,10 @@ def seed_trial_results(out: str, runs: list, seed_files: dict) -> dict:
             else None}
 
 
-def seed_trial_lines(rows: list, jax: dict) -> list:
-    """SUMMARY.md's section of the seed trials: a row a seed trial beside
-    JAX's, each arm's min / median / max (arms set and model with all's
-    s = 0, which is theirs too), and whether each of JAX's seed mIoU,
-    round-2 points a region and round-2 mIoU lies within arm all's
-    [min, max]."""
+def figure_columns(rows: list) -> list:
+    """[(name, key, format)] of the seed figures of `rows` (seed_figures
+    with arm fields): the seed round's mIoU, OA, regions and points, and
+    each later round's points a region and mIoU."""
     last = max([1] + [int(r) for row in rows for r in row["rounds"]])
     cols = [("seed mIoU", lambda d: d["seed"]["miou"], "{:.4f}"),
             ("seed OA", lambda d: d["seed"]["oa"], "{:.4f}"),
@@ -607,7 +673,32 @@ def seed_trial_lines(rows: list, jax: dict) -> list:
                       "points_a_region"), "{:.1f}"),
                  (f"round {r} mIoU", lambda d, r=r: d["rounds"].get(
                      str(r), {}).get("miou"), "{:.4f}")]
-    jrow = seed_figures(jax, range(2, last + 1))
+    return cols
+
+
+def inside_lines(members: list, jrow: dict, cols: list) -> list:
+    """Whether each of JAX's decision figures (the seed mIoU, round 2's
+    points a region and mIoU) lies within the members' [min, max]."""
+    lines = []
+    for name, key, _ in [cols[0]] + cols[4:6]:
+        v = [key(m) for m in members if key(m) is not None]
+        want = key(jrow)
+        inside = bool(v) and want is not None and min(v) <= want <= max(v)
+        lines.append(f"- {name} {_fmt(want, '{:g}')}: "
+                     f"{'inside' if inside else 'outside'} "
+                     f"[{_fmt(min(v, default=None), '{:g}')}, "
+                     f"{_fmt(max(v, default=None), '{:g}')}]")
+    return lines
+
+
+def seed_trial_lines(rows: list, jax: dict) -> list:
+    """SUMMARY.md's section of the seed trials: a row a seed trial beside
+    JAX's, each arm's min / median / max (arms set and model with all's
+    s = 0, which is theirs too), and whether each of JAX's seed mIoU,
+    round-2 points a region and round-2 mIoU lies within arm all's
+    [min, max]."""
+    cols = figure_columns(rows)
+    jrow = seed_figures(jax, range(2, len(cols) // 2))
     head = ["arm", "s"] + [c[0] for c in cols]
     lines = ["## Seed trials", "",
              "Each seed trial runs the seed round in its own copy of the "
@@ -636,18 +727,56 @@ def seed_trial_lines(rows: list, jax: dict) -> list:
     every = arms.get("all", [])
     if every:
         lines += ["", "JAX's figure within arm all's [min, max] over its "
-                  f"{len(every)} seed trials:"]
-        # the decision's figures: the seed mIoU, round 2's points a
-        # region and mIoU
-        for name, key, _ in [cols[0]] + cols[4:6]:
-            v = [key(m) for m in every if key(m) is not None]
-            want = key(jrow)
-            inside = bool(v) and want is not None and \
-                min(v) <= want <= max(v)
-            lines.append(f"- {name} {_fmt(want, '{:g}')}: "
-                         f"{'inside' if inside else 'outside'} "
-                         f"[{_fmt(min(v, default=None), '{:g}')}, "
-                         f"{_fmt(max(v, default=None), '{:g}')}]")
+                  f"{len(every)} seed trials:"] + inside_lines(every, jrow,
+                                                               cols)
+    return lines + [""]
+
+
+def budget_results(out: str, runs: list) -> list:
+    """[{budget, seed_trial, partition_shared, **seed_figures}] from each
+    budget trial's logs."""
+    rows = []
+    for run in runs:
+        rec = read_record(os.path.join(out, budget_label(run["budget"]),
+                                       f"s{run['seed_trial']}"))
+        rows.append(dict(budget=run["budget"], seed_trial=run["seed_trial"],
+                         partition_shared=run["partition_shared"],
+                         **seed_figures(rec, sorted(r for r in rec
+                                                    if r >= 2))))
+    return rows
+
+
+def budget_lines(rows: list, jax: dict) -> list:
+    """SUMMARY.md's section of the budget arms: a row a budget trial
+    beside JAX's, each arm's min / median / max, and whether each of
+    JAX's seed mIoU, round-2 points a region and round-2 mIoU lies within
+    each arm's [min, max]."""
+    cols = figure_columns(rows)
+    jrow = seed_figures(jax, range(2, len(cols) // 2))
+    head = ["budget", "s"] + [c[0] for c in cols]
+    lines = ["## Budget arms", "",
+             "Each budget arm SEEDSTEPSxSEEDEPOCHS/STEPSxEPOCHS runs "
+             "cli.seed with --train_steps SEEDSTEPS --max_epoch SEEDEPOCHS "
+             "and cli.al_loop --t 0 with --train_steps STEPS --max_epoch "
+             "EPOCHS; trial s draws the model's streams (the initial "
+             "weights, dropout and the seed round's pipeline) from s and "
+             "keeps the seed set at s = 0, in its own copy of the one "
+             "partition.", "",
+             "| " + " | ".join(head) + " |", "|" + " --- |" * len(head),
+             "| JAX | - | " + " | ".join(_fmt(k(jrow), f) for _, k, f in
+                                         cols) + " |"]
+    arms = {}
+    for row in rows:
+        arms.setdefault(row["budget"], []).append(row)
+        lines.append(f"| {row['budget']} | {row['seed_trial']} | " +
+                     " | ".join(_fmt(k(row), f) for _, k, f in cols) + " |")
+    for arm, members in arms.items():
+        lines.append(f"| {arm} min / median / max | - | " + " | ".join(
+            _spread([k(m) for m in members]) for _, k, _ in cols) + " |")
+    for arm, members in arms.items():
+        lines += ["", f"JAX's figure within arm {arm}'s [min, max] over its "
+                  f"{len(members)} trials:"] + inside_lines(members, jrow,
+                                                            cols)
     return lines + [""]
 
 
@@ -692,7 +821,17 @@ def parser():
                         "set (the seed set) and model (the initial "
                         "weights, dropout and the pipeline)")
     p.add_argument("--seed_rounds", type=int, default=3,
-                   help="a seed trial's last round")
+                   help="a seed trial's and a budget trial's last round")
+    p.add_argument("--budgets", default="",
+                   help="comma-separated budget arms SEEDSTEPSxSEEDEPOCHS/"
+                        "STEPSxEPOCHS: cli.seed's and cli.al_loop's "
+                        "--train_steps and --max_epoch (the run's own: "
+                        "<--train_steps>x1/<--train_steps>x1)")
+    p.add_argument("--budget_trials", default="0,1,2",
+                   help="comma-separated seeds s of each budget arm's "
+                        "model streams (the seed set at s = 0; each in "
+                        "its own copy of the partition, then cli.al_loop "
+                        "--t 0)")
     p.add_argument("--out", default=os.path.join(
         REPO, "results", "record_round_flagship_torch"))
     p.add_argument("--work", default=os.path.join(REPO, "build", "flagship"),
@@ -728,11 +867,14 @@ def main(argv=None, log=None) -> list:
         ("shuffled", parse_trials(args.trials)),
         ("sorted", parse_trials(args.sorted_trials))) if ts}
     plan = seed_trial_plan(args)
+    budgets = parse_budgets(args.budgets)
+    budget_plan = [(b, s) for b in budgets
+                   for s in parse_trials(args.budget_trials)]
     if args.rounds < 2:
         trials = {}
-    elif not trials and not plan:
-        raise ValueError("no trial to run: give --trials, --sorted_trials "
-                         "or --seed_trials")
+    elif not trials and not plan and not budget_plan:
+        raise ValueError("no trial to run: give --trials, --sorted_trials, "
+                         "--seed_trials or --budgets")
     dev = resolve_device(args.device)
     records = []
 
@@ -755,20 +897,27 @@ def main(argv=None, log=None) -> list:
     out = os.path.abspath(args.out)
     # once a call: the trials share the partition and the seed round
     seed_arm_dirs = [f"seed_{arm}" for arm in SEED_ARMS]
-    for sub in ["data", "record_round", "sorted", "partition"] + \
-            seed_arm_dirs:
-        shutil.rmtree(os.path.join(work, sub), ignore_errors=True)
-    for sub in ["sorted"] + seed_arm_dirs:
-        shutil.rmtree(os.path.join(out, sub), ignore_errors=True)
+    for top, subs in ((work, ["data", "record_round", "sorted",
+                              "partition"]), (out, ["sorted"])):
+        for sub in subs + seed_arm_dirs + [
+                n for n in (os.listdir(top) if os.path.isdir(top) else ())
+                if n.startswith("budget_")]:
+            shutil.rmtree(os.path.join(top, sub), ignore_errors=True)
     os.makedirs(work, exist_ok=True)
     os.makedirs(out, exist_ok=True)
     argv_of = command_lines(args)
+    budget_argv = {b: command_lines(args, b) for b in budgets}
     parsed = {name: mod.parser().parse_args(argv_of[name]) for name, mod in
               (("superpoint", superpoint), ("seed", seed),
                ("al_loop", al_loop))}
     if al_loop.build_sampler_args(parsed["al_loop"]) != SSDR_ARGS:
         raise AssertionError("the al_loop flags name another sampler")
-    emit({"event": "flags", **argv_of})
+    flags = {"event": "flags", **argv_of}
+    if budgets:
+        flags["budgets"] = {budget_text(b): {k: a[k] for k in ("seed",
+                                                              "al_loop")}
+                            for b, a in budget_argv.items()}
+    emit(flags)
     recorder = Recorder(dev, emit, args.busy_round)
     t_run = time.perf_counter()
     reg_dir = os.path.join("data", parsed["seed"].dataset,
@@ -776,7 +925,7 @@ def main(argv=None, log=None) -> list:
     seed_dirs = [os.path.join(reg_dir, *sub)
                  for sub in (("sampling", "seed"), ("saver", "seed"))]
     sp_dir = os.path.join(reg_dir, "superpoint")
-    seed_runs = []
+    seed_runs, budget_runs = [], []
     with working_directory(work), recorder.recording():
         counts.reset()
         t0 = time.perf_counter()
@@ -788,8 +937,9 @@ def main(argv=None, log=None) -> list:
             partition["launches"] = {k: v for k, v in counts.read().items()
                                      if v}
         emit(partition)
-        if plan:
-            # the seed trials' data root, as the partition left it
+        if plan or budget_plan:
+            # the seed and budget trials' data root, as the partition
+            # left it
             shutil.copytree("data", os.path.join("partition", "data"))
             sp_files = file_digests(sp_dir)
         seed.run_seed(parsed["seed"], observe=recorder)
@@ -824,7 +974,12 @@ def main(argv=None, log=None) -> list:
             seed_runs.append(run_seed_trial(
                 args, arm, s, work, out, argv_of, recorder, emit,
                 seed_dirs, sp_dir, sp_files))
-        for sub in ["partition"] + seed_arm_dirs:
+        for b, s in budget_plan:
+            budget_runs.append(run_seed_trial(
+                args, "model", s, work, out, budget_argv[b], recorder, emit,
+                seed_dirs, sp_dir, sp_files, budget=b))
+        for sub in ["partition"] + seed_arm_dirs + [
+                budget_label(budget_text(b)) for b in budgets]:
             shutil.rmtree(sub, ignore_errors=True)
     rounds = [r for r in records if r.get("event") == "round"]
     for arm in ("shuffled",) + tuple(a for a in trials if a != "shuffled"):
@@ -845,12 +1000,15 @@ def main(argv=None, log=None) -> list:
           "jax_miou": [jax[r]["best_miou"] for r in sorted(jax) if r
                        and "best_miou" in jax[r]],
           **(seed_trial_results(out, seed_runs, seed_files) if plan
-             else {})})
+             else {}),
+          **({"budget_trials": budget_results(out, budget_runs)}
+             if budget_plan else {})})
     with open(os.path.join(out, "rounds.jsonl"), "w") as f:
         for rec in records:
             f.write(json.dumps(rec) + "\n")
     write_summary(os.path.join(out, "SUMMARY.md"), curves, jax, partition,
-                  rounds, card, argv_of, records[-1].get("seed_trials"))
+                  rounds, card, argv_of, records[-1].get("seed_trials"),
+                  records[-1].get("budget_trials"))
     return records
 
 

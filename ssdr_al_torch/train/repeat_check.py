@@ -30,13 +30,16 @@ parameters and Adam moments must be bitwise equal; the learning rate
 decays after the warm-up (steps_per_epoch = GRAPH_WARMUP + 1), so the
 replays cross an epoch boundary; the last replay runs under
 torch.profiler, and its trace must hold K1's, K2's and K4's device
-kernels (TRACED) as often as the graph's launch counts say. Then the
-eval replays (`eval_replay_paths`, CUDA only): on the `window` and
-`pallas` engines at S3DIS [20 × 40960] and Semantic3D [16 × 65536] eval
-shapes, 20 calls of make_eval_step's graph (a capture, then replays)
-each bitwise equal to the eager call on the same validation batch, one
+kernels (TRACED) as often as the graph's launch counts say (a trace that
+lost device records is followed by traces of further replays of the
+same graph, up to TRACE_TRIES traces in all; the check passes on the
+first that holds them). Then the eval replays (`eval_replay_paths`,
+CUDA only): on the `window` and `pallas` engines at S3DIS [20 × 40960]
+and Semantic3D [16 × 65536] eval shapes, 20 calls of make_eval_step's
+graph (a capture, then replays) each bitwise equal to the eager call on the same validation batch, one
 InferenceRunner group the same through the graph and eagerly, and the
-last replay's trace holding K1's, K2's and K6's kernels as counted.
+last replay's trace (or a further replay's, up to TRACE_TRIES traces)
+holding K1's, K2's and K6's kernels as counted.
 `--profile` runs the two host steps under
 torch.profiler and lists every device kernel launched inside the
 backward (under an `autograd::engine::evaluate_function` op) whose name
@@ -216,6 +219,29 @@ def path_steps(dev, paths=PATHS, **kw):
     return out
 
 
+# traces of a replay until one holds the kernels its counts add: now and
+# then a trace on an H100 loses device records past its warm-up step too
+# (one of the smoke's replay traces lost K1's five launches and one of
+# K2's), so up to this many replays of the same graph are traced
+TRACE_TRIES = 3
+
+
+def held(traced: dict, counted: dict, every=True) -> bool:
+    """A trace's kernels (traced_kernels) as often as the counts say, and
+    each launched (`every`) or one of them."""
+    return traced == counted and (all if every else any)(traced.values())
+
+
+def retraced(traced: dict, counted: dict, trace, every=True) -> tuple:
+    """(traced, traces): `traced` if held, else trace() (a further
+    replay's traced kernels) until one is held, TRACE_TRIES traces in
+    all."""
+    n = 1
+    while not held(traced, counted, every) and n < TRACE_TRIES:
+        traced, n = trace(), n + 1
+    return traced, n
+
+
 def traced_names(fn, warm=None) -> list:
     """The device kernels' names in a torch.profiler trace of fn() on the
     card. warm() (fn() if None) runs first, in the profiler's warm-up
@@ -258,9 +284,10 @@ def replay_check(trainer, path, pool, draws) -> dict:
     trainer's present state, eagerly and through a StepGraph
     (GRAPH_WARMUP eager steps, then replays of one capture), compared by
     compare_runs with every step's loss; adds the graph's stats(), and
-    the last replay's trace: "traced" (traced_kernels), "counted" (what
-    the graph's launch counts stand for, counted_kernels) and "traced_ok"
-    (the two equal, each kernel launched)."""
+    the last replay's trace: "traced" (traced_kernels; of a further
+    replay of the graph where a trace lost records, retraced), "traces",
+    "counted" (what the graph's launch counts stand for, counted_kernels)
+    and "traced_ok" (the two equal, each kernel launched)."""
     from ssdr_al_torch.train.graphs import GRAPH_WARMUP, StepGraph
     from ssdr_al_torch.train.trainer import make_static_step, set_lr
 
@@ -302,9 +329,12 @@ def replay_check(trainer, path, pool, draws) -> dict:
 
     res = compare_runs(trainer, [lambda ts: run(ts, False),
                                  lambda ts: run(ts, True)], gens, restore)
-    res.update(graphs[0].stats(), steps=len(draws), traced=traced)
+    res.update(graphs[0].stats(), steps=len(draws))
     res["counted"] = counted_kernels(res["launches"])
-    res["traced_ok"] = traced == res["counted"] and all(traced.values())
+    # further replays only advance a state the comparison has read
+    res["traced"], res["traces"] = retraced(
+        traced, res["counted"], lambda: traced_kernels(graphs[0]))
+    res["traced_ok"] = held(res["traced"], res["counted"])
     trainer.steps_per_epoch = trainer.cfg.train_steps
     return res
 
@@ -329,7 +359,7 @@ def replay_paths(dev, paths=PATHS, replays=20, log=print, **kw) -> dict:
             f"{r['capture_bytes'] / 2**30:.2f} GiB, launches a replay "
             f"{r['launches']}; the last replay's trace "
             + ("holds" if r["traced_ok"] else "DOES NOT hold")
-            + f" them: {r['traced']}")
+            + f" them: {r['traced']} ({r['traces']} trace(s))")
     return out
 
 
@@ -395,7 +425,7 @@ def eval_replay_check(dev, cfg, engine, clouds, batches, seed=0) -> dict:
                                eager=m == "eager")
              for m in ("eager", "graph")}
     differing, times = [], {m: [] for m in steps}
-    traced = counted = None
+    traced = counted = traces = None
     for i, batch in enumerate(batches):
         out = {}
         for m, step in steps.items():
@@ -414,6 +444,9 @@ def eval_replay_check(dev, cfg, engine, clouds, batches, seed=0) -> dict:
                     steps["eager"](state, batch))
                 counted = {k: sum(launched[c] for c in keys)
                            for k, (_, keys) in EVAL_TRACED.items()}
+                traced, traces = retraced(
+                    traced, counted, lambda step=step, batch=batch:
+                    traced_eval_kernels(lambda: step(state, batch)), False)
                 continue
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -434,8 +467,8 @@ def eval_replay_check(dev, cfg, engine, clouds, batches, seed=0) -> dict:
                        for a, b in zip(runs["eager"], runs["graph"]))
     return {"equal": not differing, "differing": differing,
             "runner_equal": runner_equal, "traced": traced,
-            "counted": counted,
-            "traced_ok": traced == counted and any(traced.values()),
+            "traces": traces, "counted": counted,
+            "traced_ok": held(traced, counted, False),
             "eager_ms": statistics.median(times["eager"]),
             "graph_ms": statistics.median(times["graph"]),
             "stats": steps["graph"].stats()}
@@ -478,7 +511,8 @@ def eval_replay_paths(dev, clouds_by_dataset=None, calls=20,
                 f"capture {st['capture_s']:.3f} s, pools "
                 f"{st['capture_bytes'] / 2**30:.2f} GiB; the last replay's "
                 "trace " + ("holds" if r["traced_ok"] else "DOES NOT hold")
-                + f" {r['traced']} (counted {r['counted']})")
+                + f" {r['traced']} (counted {r['counted']}; "
+                f"{r['traces']} trace(s))")
     return out
 
 

@@ -20,7 +20,13 @@ they were; all's s = 0 writes the shared seed round's state, snapshot
 and log; s = 1 draws another seed set, other initial weights, dropout
 and pipeline draws; set keeps s = 0's model streams and model s = 0's
 seed set; a seed trial run alone writes what it wrote after the others;
-a call without seed trials emits what it emitted before them."""
+a call without seed trials emits what it emitted before them. With
+budget arms (BUDGETS at s = 0, each followed by round 2): each arm's
+--train_steps and --max_epoch reach cli.seed's and cli.al_loop's command
+lines and their rounds' steps, each runs in its own copy of the one
+partition and leaves it byte-equal, the arm at the run's own budget
+repeats the shared seed round and trial 0's round 2; a call without
+budget arms emits what it emitted before them."""
 
 import contextlib
 import gc
@@ -126,6 +132,25 @@ def alone(tmp_path_factory):
     flagship.main(SMALL + ["--trials", "1", "--seed_trials", "1",
                            "--seed_arms", "model", "--seed_rounds", "2", "--work", work, "--out",
                            out], log=recs.append)
+    return recs, out, work
+
+
+# the run's own budget (SMALL's 2 steps in one epoch) and a budget of two
+# epochs in both entry points, each at s = 0 with round 2
+BUDGETS = ["--budgets", "2x1/2x1,1x2/2x2", "--budget_trials", "0",
+           "--seed_rounds", "2"]
+BUDGET_ARMS = {"2x1/2x1": ((2, 1), (2, 1)), "1x2/2x2": ((1, 2), (2, 2))}
+
+
+@pytest.fixture(scope="module")
+def budgets(tmp_path_factory):
+    """(records, out dir, work dir) of the twin at the small size with
+    trial 0 and the budget arms BUDGETS."""
+    root = tmp_path_factory.mktemp("budgets")
+    work, out = str(root / "work"), str(root / "out")
+    recs = []
+    flagship.main(SMALL + ["--trials", "0", "--work", work, "--out", out]
+                  + BUDGETS, log=recs.append)
     return recs, out, work
 
 
@@ -638,3 +663,105 @@ def test_warm_steps_share_one_side_stream(monkeypatch):
     assert [s.device for s in Stream.made] == ["cuda:0", "cuda:1"]
     assert on == [Stream.made[0]] * 2 + [Stream.made[1], Stream.made[0]]
     assert current["cuda:0"].waits == [Stream.made[0]] * 3
+
+
+def _budget_rounds(recs, budget):
+    return {r["round"]: r for r in recs if r["event"] == "round"
+            and r.get("budget") == budget}
+
+
+def test_budgets_reach_the_entry_points_command_lines(budgets):
+    """The flags record gives each arm's cli.seed and cli.al_loop command
+    lines with its --train_steps and --max_epoch, and the arm's rounds
+    take that many steps: steps x epochs."""
+    recs, _, _ = budgets
+    flags = recs[0]
+    assert flags["event"] == "flags"
+    assert list(flags["budgets"]) == list(BUDGET_ARMS)
+    for text, ((s_steps, s_epochs), (steps, epochs)) in BUDGET_ARMS.items():
+        argv = flags["budgets"][text]
+        assert set(argv) == {"seed", "al_loop"}
+        for name, (n, e) in (("seed", (s_steps, s_epochs)),
+                             ("al_loop", (steps, epochs))):
+            a = argv[name]
+            assert a[a.index("--train_steps") + 1] == str(n)
+            assert a[a.index("--max_epoch") + 1] == str(e)
+            # nothing else of the run's command line changes
+            assert flagship.flag_value(flagship.flag_value(
+                a, "--train_steps", 2), "--max_epoch", 1) == flags[name]
+        by = _budget_rounds(recs, text)
+        assert sorted(by) == [1, 2]
+        assert by[1]["steps"] == s_steps * s_epochs
+        assert by[2]["steps"] == steps * epochs
+    # the run's own seed round and trial keep the run's budget
+    own = {r["round"]: r["steps"] for r in recs if r["event"] == "round"
+           and "budget" not in r}
+    assert own == {1: 2, 2: 2, 3: 2}
+
+
+def test_a_budget_arm_runs_in_a_copy_of_the_partition(budgets):
+    """Each arm runs as model's s = 0 in its own copy of the partition,
+    leaves the partition's files byte-equal, writes its logs to
+    budget_<arm>/s0 and is gone from the work directory; its round
+    records carry its arm and budget; the arm at the run's own budget
+    repeats the shared seed round and trial 0's round 2."""
+    recs, out, work = budgets
+    runs = [r for r in recs if r["event"] == "seed_trial"]
+    assert [(r["arm"], r["budget"], r["seed_trial"]) for r in runs] == [
+        ("budget", b, 0) for b in BUDGET_ARMS]
+    for run in runs:
+        assert run["partition_shared"]
+        assert (run["set_seed"], run["model_seed"]) == (0, 0)
+        label = flagship.budget_label(run["budget"])
+        assert label == "budget_" + run["budget"].replace("/", "-")
+        by = _budget_rounds(recs, run["budget"])
+        assert all(r["arm"] == label and r["seed_trial"] == 0
+                   and set(ROUND_FIELDS) <= set(r) and r["losses_finite"]
+                   for r in by.values())
+        assert by[2]["stats"]["gcn_sp_num"] == 10
+        assert sorted(os.listdir(os.path.join(out, label, "s0"))) == [
+            "S3DIS_5_seed_0.03.txt", f"S3DIS_5_{SSDR}_0.03.txt"]
+    assert sorted(os.listdir(work)) == ["data", "record_round"]
+    same = _budget_rounds(recs, "2x1/2x1")
+    main1 = next(r for r in recs if r["event"] == "round"
+                 and r["arm"] is None)
+    t0 = next(r for r in recs if r["event"] == "round"
+              and (r["arm"], r["trial"], r["round"]) == ("shuffled", 0, 2))
+    for key in ("miou", "oa", "stats", "loss_first", "loss_last"):
+        assert same[1][key] == main1[key], key
+        assert same[2][key] == t0[key], key
+    assert runs[0]["seed_files"] == {
+        d: flagship.file_digests(os.path.join(work, d))
+        for d in runs[0]["seed_files"]}
+    rows = recs[-1]["budget_trials"]
+    assert [(row["budget"], row["seed_trial"]) for row in rows] == [
+        (b, 0) for b in BUDGET_ARMS]
+    assert rows[0]["seed"]["miou"] == round(main1["miou"], 4)
+    summary = open(os.path.join(out, "SUMMARY.md")).read()
+    for text in ("## Budget arms", "| JAX | - | 0.0762 | 0.2872 | 293 |",
+                 "| 1x2/2x2 min / median / max |",
+                 "JAX's figure within arm 2x1/2x1's [min, max] over its 1"):
+        assert text in summary, text
+
+
+def test_a_call_without_budgets_emits_what_it_did(twin):
+    """No budgets key in the flags record, whose command lines keep the
+    run's --train_steps and --max_epoch 1; no record names a budget; no
+    budget section in SUMMARY.md. A budget arm names steps and epochs of
+    at least 1, each arm once."""
+    recs, out, _, _ = twin
+    flags = recs[0]
+    assert set(flags) == {"event", "superpoint", "seed", "al_loop"}
+    for name in ("superpoint", "seed", "al_loop"):
+        a = flags[name]
+        assert a[a.index("--train_steps") + 1] == "2"
+        assert a[a.index("--max_epoch") + 1] == "1"
+    assert not any("budget" in r or "budget_trials" in r for r in recs)
+    assert "## Budget arms" not in open(os.path.join(out,
+                                                     "SUMMARY.md")).read()
+    assert flagship.parse_budgets("") == []
+    assert flagship.parse_budgets("500x4/500x4,8x4/500x1") == [
+        ((500, 4), (500, 4)), ((8, 4), (500, 1))]
+    for bad in ("500x4", "0x4/500x4", "8x4/500x4,8x4/500x4", "8x4-500x4"):
+        with pytest.raises(ValueError):
+            flagship.parse_budgets(bad)

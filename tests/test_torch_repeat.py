@@ -167,3 +167,33 @@ def test_window_guard_unset_prints_nothing(capsys, monkeypatch):
     monkeypatch.setattr(tg, "DEBUG_WINDOW_GUARD", False)
     tg.gather_window_auto(t(vals), t(idx), w)
     assert capsys.readouterr().out == ""
+
+
+def test_a_replay_trace_that_lost_records_is_traced_again():
+    """repeat_check.retraced: a held trace stands alone; one that lost
+    device records is followed by traces of further replays until one
+    holds the counts, at most TRACE_TRIES traces in all, and one that
+    never holds them is reported as the last trace, not held. A kernel
+    counted 0 fails `held` unless only one launched kernel is asked for
+    (the eval traces)."""
+    from ssdr_al_torch.train import repeat_check as rc
+
+    counted = {"window_topk": 5, "gather_window": 11}
+    lost = {"window_topk": 0, "gather_window": 10}
+    later = iter([lost, dict(counted)])
+    assert rc.retraced(dict(counted), counted, None) == (counted, 1)
+    assert rc.retraced(lost, counted, lambda: next(later)) == (counted, 3)
+    calls = []
+
+    def never():
+        calls.append(1)
+        return dict(lost, gather_window=len(calls))
+
+    got, traces = rc.retraced(lost, counted, never)
+    assert traces == rc.TRACE_TRIES == len(calls) + 1
+    assert not rc.held(got, counted)
+    eval_counted = {"window_topk": 5, "knn_tiled": 0}
+    assert rc.held(dict(eval_counted), eval_counted, every=False)
+    assert not rc.held(dict(eval_counted), eval_counted)
+    assert not rc.held({"window_topk": 0, "knn_tiled": 0},
+                       {"window_topk": 0, "knn_tiled": 0}, every=False)
